@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py                  # the smoke run
     python3 chip_smoke.py --profile DIR    # also write a torch.profiler
-                                           # table of one request to DIR
+                                           # table of one request to DIR and
+                                           # count its device kernels
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the package, nvcc for sm_90a, in parallel;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, TF32 off, with its time, the plain version's
-     time, one PyTorch library call's time and the bound of the card;
+     time, one PyTorch library call's time, the bound of the card and the
+     fraction of it reached; the DCN im2col also with the L2 cold, and the
+     whole dcn_v2 (kernel + addmm) at L1. DCN and SIREN times are device
+     times (calls replayed from a CUDA graph), with the eager per-call time
+     beside them; the splat's are eager (0.9 ms kernels);
   4. the slice: MoTIF(setting=5) at full width (channel 64, 5 + 40 residual
      blocks, RAFT-small) with random weights from a seed, DCN offsets
      perturbed, driven through Evaluator.infer on four requests; the launch
@@ -60,6 +65,31 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds of fn(): `reps` calls captured in one CUDA
+    graph and replayed, so that no host launch cost shows (a kernel of a
+    few microseconds launched from Python is otherwise timed at the host's
+    pace)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms
 
 
 def emit(obj) -> None:
@@ -127,9 +157,54 @@ def check_splat(dev, softsplat, kernels):
     return dict(max_abs_err=worst, library_ms=library, **lines["z<=0"])
 
 
+def cold_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
+    """Mean milliseconds of fn() on the card with the L2 cold: a write of
+    `flush` (larger than the 50 MB L2) before each rep, timed apart."""
+    times = []
+    for _ in range(reps + 2):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.mean(times[2:]))
+
+
+def dcn_inputs(dev, B, H, W, G, cg, K):
+    """x, offsets up to ±10 px and the sigmoided mask, the last two sliced
+    from one conv-like output as DCNSep does (strided views)."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((B, H, W, G * cg), device=dev, generator=g)
+    n_off = G * K * K * 2
+    com = torch.rand((B, H, W, G * K * K * 3), device=dev, generator=g)
+    off = com[..., :n_off] * 20.0 - 10.0
+    mask = torch.sigmoid(com[..., n_off:] * 4.0 - 2.0)
+    com[..., :n_off] = off
+    return x, com[..., :n_off], mask
+
+
+def time_dcn_v2(dev, dcn):
+    """The whole dcn_v2 at L1 (2 x 64 x 112, 64 -> 64 channels, G = 8,
+    K = 3) through its public signature, which older checkouts of the
+    package share: device ms (graph replay) and eager ms per call."""
+    G, cg, K = 8, 8, 3
+    x, off, mask = dcn_inputs(dev, 2, 64, 112, G, cg, K)
+    g = torch.Generator(device=dev).manual_seed(5)
+    w = torch.randn((64, G * cg, K, K), device=dev, generator=g) * 0.05
+    bias = torch.randn((64,), device=dev, generator=g)
+    full = (x, off, mask, w, bias, K, 1, 1, 1, G)
+    return {"dcn_v2_ms": device_ms(lambda: dcn.dcn_v2(*full), reps=10),
+            "dcn_v2_eager_ms": cuda_ms(lambda: dcn.dcn_v2(*full))}
+
+
 def check_dcn(dev, dcn, kernels):
     """L1 / L2 / L3 of the BiLSTM's PCD (B = 2, G = 8, cg = 8, K = 3),
-    offsets up to ±10 px, and one H % 8 != 0 height."""
+    offsets up to ±10 px, and one H % 8 != 0 height; the offsets a strided
+    view as on the main path. At L1 also the kernel with the L2 cold and
+    the whole dcn_v2 (kernel + addmm)."""
     import torch.nn.functional as F
 
     G, cg, K = 8, 8, 3
@@ -137,40 +212,51 @@ def check_dcn(dev, dcn, kernels):
     worst, first = 0.0, None
     for level, (B, H, W) in (("L1", (2, 64, 112)), ("L2", (2, 32, 56)),
                              ("L3", (2, 16, 28)), ("H%8!=0", (2, 62, 110))):
-        g = torch.Generator(device=dev).manual_seed(2)
-        x = torch.randn((B, H, W, G * cg), device=dev, generator=g)
-        off = (torch.rand((B, H, W, G * K * K * 2), device=dev, generator=g)
-               * 20.0 - 10.0)
-        py, px = dcn.sample_positions(off, K, 1, 1, 1, G)
-        n0 = kernels.LAUNCHES["dcn_sample"]
-        got = dcn.dcn_sample(x, py, px)
-        launches = kernels.LAUNCHES["dcn_sample"] - n0
-        want = dcn.dcn_sample_plain(x, py, px)
+        x, off, mask = dcn_inputs(dev, B, H, W, G, cg, K)
+        args = (x, off, mask, K, 1, 1, 1, G)
+        n0 = kernels.LAUNCHES["dcn_im2col"]
+        got = dcn.dcn_im2col(*args)
+        launches = kernels.LAUNCHES["dcn_im2col"] - n0
+        want = dcn.dcn_im2col_plain(*args)
         torch.cuda.synchronize()
         err = max_err(got, want)
         if not err <= tol:
-            raise AssertionError(f"dcn_sample {level}: err {err} (tol {tol})")
+            raise AssertionError(f"dcn_im2col {level}: err {err} (tol {tol})")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: dcn.dcn_sample(x, py, px))
-        plain = cuda_ms(lambda: dcn.dcn_sample_plain(x, py, px), reps=5)
+        ms = device_ms(lambda: dcn.dcn_im2col(*args))
+        eager = cuda_ms(lambda: dcn.dcn_im2col(*args))
+        plain = device_ms(lambda: dcn.dcn_im2col_plain(*args), reps=5)
         # yardstick: F.grid_sample computes the same per-group bilinear
-        # sampling (zeros, align_corners=True) on an NCHW copy
+        # sampling (zeros, align_corners=True) on an NCHW copy, without the
+        # mask and the column order
+        py, px = dcn.sample_positions(off, K, 1, 1, 1, G)
         Q = py.shape[2]
         xg = x.reshape(B, H, W, G, cg).permute(0, 3, 4, 1, 2).reshape(
             B * G, cg, H, W).contiguous()
         grid = torch.stack([2.0 * px / (W - 1) - 1.0, 2.0 * py / (H - 1) - 1.0],
                            -1).reshape(B * G, 1, Q, 2)
-        library = cuda_ms(lambda: F.grid_sample(
+        library = device_ms(lambda: F.grid_sample(
             xg, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True))
-        nbytes = 4 * (x.numel() + 2 * py.numel() + got.numel())
-        flops = B * G * Q * (cg * 8 + 12)
+        # x, offsets and mask read once, the columns written once
+        nbytes = 4 * (x.numel() + off.numel() + mask.numel() + got.numel())
+        flops = B * G * Q * (cg * 9 + 20)
         b_ms, b_by = bound(nbytes, flops)
         line = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                     library_ms=library)
-        emit({"check": "dcn_sample", "level": level, "launches": launches,
-              "shape": [B, H, W, G, cg],
-              "Q": Q, "max_abs_err": err, "tol": tol, **line})
+        extra = {}
+        if level == "L1":
+            flush = torch.empty(2 ** 26, device=dev)       # 256 MB > L2
+            extra["ms_l2_cold"] = cold_ms(lambda: dcn.dcn_im2col(*args),
+                                          flush)
+            del flush
+            extra.update(time_dcn_v2(dev, dcn))
+            with mock.patch.object(dcn, "dcn_im2col", dcn.dcn_im2col_plain):
+                extra["dcn_v2_plain_ms"] = time_dcn_v2(dev, dcn)["dcn_v2_ms"]
+        emit({"check": "dcn_im2col", "level": level, "launches": launches,
+              "shape": [B, H, W, G, cg], "Q": Q, "max_abs_err": err,
+              "tol": tol, "fraction_of_bound": b_ms / ms, "eager_ms": eager,
+              **line, **extra})
         first = first or line
     return dict(max_abs_err=worst, **first)
 
@@ -204,18 +290,21 @@ def check_siren(dev, siren_kernel, Siren, kernels):
         if not err <= tol:
             raise AssertionError(f"siren_mlp {name}: err {err} (tol {tol})")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: siren_kernel.siren_mlp(x, ws, bs), reps=10)
-        plain = cuda_ms(lambda: siren_kernel.siren_mlp_plain(x, ws, bs),
-                        reps=10)
+        ms = device_ms(lambda: siren_kernel.siren_mlp(x, ws, bs), reps=10)
+        eager = cuda_ms(lambda: siren_kernel.siren_mlp(x, ws, bs), reps=10)
+        plain = device_ms(lambda: siren_kernel.siren_mlp_plain(x, ws, bs),
+                          reps=10)
 
-        def matmul_sin_chain():
+        def addmm_sin_chain():
+            # the fastest one-call-per-layer form: cuBLAS addmm (what
+            # F.linear runs), then the sine
             h = x
             for i, (w, b) in enumerate(zip(ws, bs)):
-                h = torch.matmul(h, w.t()) + b
+                h = torch.addmm(b, h, w.t())
                 if i < len(ws) - 1:
                     h = torch.sin(30.0 * h)
             return h
-        library = cuda_ms(matmul_sin_chain, reps=10)
+        library = device_ms(addmm_sin_chain, reps=10)
         dims = [cin] + hidden + [cout]
         macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
         flops = n_tok * (2 * macs + 2 * sum(dims[1:-1]))
@@ -225,8 +314,9 @@ def check_siren(dev, siren_kernel, Siren, kernels):
         line = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                     library_ms=library)
         emit({"check": "siren_mlp", "mlp": name, "launches": launches,
-              "tokens": n_tok,
-              "dims": dims, "max_abs_err": err, "tol": tol, **line})
+              "tokens": n_tok, "dims": dims, "max_abs_err": err, "tol": tol,
+              "fraction_of_bound": b_ms / ms, "eager_ms": eager,
+              "library": "addmm + sin per layer (cuBLAS)", **line})
         first = first or line
     return dict(max_abs_err=worst, **first)
 
@@ -241,7 +331,7 @@ def plain_versions(softsplat, dcn, siren_kernel):
     forward for the comparison; the package itself has no such switch)."""
     with mock.patch.object(softsplat, "splat_fused",
                            softsplat.splat_fused_plain), \
-            mock.patch.object(dcn, "dcn_sample", dcn.dcn_sample_plain), \
+            mock.patch.object(dcn, "dcn_im2col", dcn.dcn_im2col_plain), \
             mock.patch.object(siren_kernel, "siren_mlp",
                               siren_kernel.siren_mlp_plain):
         yield
@@ -273,12 +363,12 @@ def check_frames(name, frames, shape):
         raise AssertionError(f"request {name}: frames outside [0, 1]")
 
 
-def run_slice(dev, args, card):
+def build_request(dev):
+    """MoTIF(setting=5) at full width with random weights from seed 0 and
+    perturbed DCN offsets, its Evaluator, and request (a)'s inputs."""
     from motif_tpu_torch.eval import Evaluator
     from motif_tpu_torch.models.motif import build_motif
-    from motif_tpu_torch.ops import dcn, kernels, siren_kernel, softsplat
 
-    t0 = time.perf_counter()
     model = build_motif(channel=64, front_rbs=5, back_rbs=40, device=dev,
                         seed=0)
     n_dcn = perturb_offsets(model, seed=1)
@@ -286,6 +376,25 @@ def run_slice(dev, args, card):
     rng = np.random.default_rng(0)
     lq_a = rng.random((1, 4, 64, 112, 3), dtype=np.float32)
     t3 = np.linspace(0, 1, 3, dtype=np.float32)[None]
+    return model, n_dcn, ev, rng, lq_a, t3
+
+
+def time_request(ev, lq, times, n):
+    """Wall milliseconds of n runs of one request, each ending in the
+    frames' copy to the host."""
+    ts = []
+    for _ in range(n):
+        t = time.perf_counter()
+        ev.infer(lq, times, (256, 448))
+        ts.append((time.perf_counter() - t) * 1e3)
+    return ts
+
+
+def run_slice(dev, args, card):
+    from motif_tpu_torch.ops import dcn, kernels, siren_kernel, softsplat
+
+    t0 = time.perf_counter()
+    model, n_dcn, ev, rng, lq_a, t3 = build_request(dev)
     t7 = np.linspace(0, 1, 7, dtype=np.float32)[None]
     lq_c = rng.random((1, 4, 62, 110, 3), dtype=np.float32)
     emit({"phase": "slice_setup", "params": sum(p.numel() for p in
@@ -355,19 +464,12 @@ def run_slice(dev, args, card):
             f"{stats_rtol})")
 
     # ---- time request (a): kernels, plain, kernels, plain ----
-    def timed(n=5):
-        ts = []
-        for _ in range(n):
-            t = time.perf_counter()
-            ev.infer(lq_a, t3, (256, 448))
-            ts.append((time.perf_counter() - t) * 1e3)
-        return ts
-    k1 = timed()
+    k1 = time_request(ev, lq_a, t3, 5)
     with plain_versions(softsplat, dcn, siren_kernel):
-        p1 = timed(3)
-    k2 = timed()
+        p1 = time_request(ev, lq_a, t3, 3)
+    k2 = time_request(ev, lq_a, t3, 5)
     with plain_versions(softsplat, dcn, siren_kernel):
-        p2 = timed(3)
+        p2 = time_request(ev, lq_a, t3, 3)
     fwd_ms = float(np.median(k1 + k2))
     plain_ms = float(np.median(p1 + p2))
     emit({"phase": "request_a_time", "card": card,
@@ -401,10 +503,30 @@ def profile_request(ev, lq, times, out_dir):
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)
+    copies = sum(e.count for e in device if e.key.startswith(("Memcpy",
+                                                              "Memset")))
     emit({"phase": "profile", "request_wall_ms_profiled": wall_ms,
           "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+          "device_kernel_launches": sum(e.count for e in device) - copies,
+          "device_copies": copies,
           "top_device": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                          for e in top[:20]]})
+
+
+def compare_only(dev, card, out_dir):
+    """The numbers that compare two checkouts of the package, through the
+    entry points they share: dcn_v2 at L1, request (a)'s median and single
+    runs, and one profiled request's device kernels."""
+    from motif_tpu_torch.ops import dcn
+
+    emit({"phase": "compare_dcn_v2_L1", "card": card,
+          **time_dcn_v2(dev, dcn)})
+    _, _, ev, _, lq_a, t3 = build_request(dev)
+    time_request(ev, lq_a, t3, 2)                        # warm-up
+    ts = time_request(ev, lq_a, t3, 10)
+    emit({"phase": "compare_request_a", "card": card,
+          "forward_ms_median": float(np.median(ts)), "forward_ms": ts})
+    profile_request(ev, lq_a, t3, out_dir)
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +542,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler table of request (a) to DIR")
+    ap.add_argument("--compare-only", metavar="DIR",
+                    help="only time dcn_v2 at L1 and request (a) and profile "
+                         "it into DIR, through entry points that older "
+                         "checkouts share (run one with `python3 -P` and its "
+                         "tree first on PYTHONPATH)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -447,21 +574,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "tf32", "matmul.allow_tf32": False,
           "cudnn.allow_tf32": False})
+    if args.compare_only:
+        compare_only(dev, card, args.compare_only)
+        return 0
 
     results = {"splat_fused": check_splat(dev, softsplat, kernels),
-               "dcn_sample": check_dcn(dev, dcn, kernels),
+               "dcn_im2col": check_dcn(dev, dcn, kernels),
                "siren_mlp": check_siren(dev, siren_kernel, Siren, kernels)}
     launches, per_request = run_slice(dev, args, card)
 
     meta = {
         "splat_fused": ("motif_tpu_torch/csrc/splat_fused.cu",
                         "motif_tpu/ops/softsplat_pallas.py:82"),
-        "dcn_sample": ("motif_tpu_torch/csrc/dcn_sample.cu",
+        "dcn_im2col": ("motif_tpu_torch/csrc/dcn_im2col.cu",
                        "motif_tpu/ops/dcn_pallas.py:37"),
         "siren_mlp": ("motif_tpu_torch/csrc/siren_mlp.cu",
                       "motif_tpu/ops/siren_kernel.py:41"),
     }
-    also = {"dcn_sample": ["motif_tpu/ops/dcn_pallas.py:152"]}
+    also = {"dcn_im2col": ["motif_tpu/ops/dcn_pallas.py:152"]}
     rows = []
     for name, (src, rep) in meta.items():
         r = results[name]

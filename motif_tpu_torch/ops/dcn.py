@@ -1,16 +1,18 @@
 """Modulated deformable convolution (DCNv2) — the counterpart of
-motif_tpu/ops/dcn.py, with its sampling stage as the CUDA kernel
-`dcn_sample` (csrc/dcn_sample.cu), which replaces the TPU kernels
-motif_tpu/ops/dcn_pallas.py::_kernel and ::_ywin_kernel.
+motif_tpu/ops/dcn.py, with its im2col stage as the CUDA kernel
+`dcn_im2col` (csrc/dcn_im2col.cu), which replaces the TPU kernels
+motif_tpu/ops/dcn_pallas.py::_kernel and ::_ywin_kernel and the XLA ops
+around them (sample positions, mask, transpose).
 
-dcn_v2 computes the sample positions from the offsets, samples with
-`dcn_sample`, multiplies by the (already sigmoided) mask and contracts the
-im2col tensor with the weights — the plain large product that the JAX
-package leaves to XLA stays a torch einsum here.
+dcn_v2 builds the im2col matrix with `dcn_im2col` (positions from the
+offsets, bilinear sampling, times the already sigmoided mask) and
+contracts it with the weights in one `addmm` — the plain large product that
+the JAX package leaves to XLA stays a torch call here.
 
 Layouts: x (B, H, W, Cin) NHWC; offset (B, Ho, Wo, G*K*K*2) with layout
 (g, k, [y, x]) fastest-last; mask (B, Ho, Wo, G*K*K) layout (g, k);
-weight (Cout, Cin, K, K) as torch stores it.
+weight (Cout, Cin, K, K) as torch stores it; the im2col matrix
+(B*Ho*Wo, G*K*K*cg) with columns (g, k, c), c fastest.
 """
 
 from __future__ import annotations
@@ -21,17 +23,16 @@ import torch
 
 from motif_tpu_torch.ops import kernels
 
-_SIGNATURES = {"dcn_sample_forward": [
+_SIGNATURES = {"dcn_im2col_forward": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_void_p]}
+    *[ctypes.c_int] * 13, ctypes.c_void_p]}
 
 
 def dcn_sample_plain(x: torch.Tensor, py: torch.Tensor,
                      px: torch.Tensor) -> torch.Tensor:
-    """The plain version of `dcn_sample`: the gather form of the JAX
-    package's _dcn_v2_gather (four corner gathers, each zero outside the
-    image). x (B, H, W, G*cg); py/px (B, G, Q) → (B, Q, G, cg)."""
+    """The bilinear sampler of `dcn_im2col_plain`: the gather form of the
+    JAX package's _dcn_v2_gather (four corner gathers, each zero outside
+    the image). x (B, H, W, G*cg); py/px (B, G, Q) → (B, Q, G, cg)."""
     B, H, W, Cin = x.shape
     G, Q = py.shape[1], py.shape[2]
     cg = Cin // G
@@ -57,31 +58,6 @@ def dcn_sample_plain(x: torch.Tensor, py: torch.Tensor,
     return val.permute(0, 2, 1, 3)
 
 
-def dcn_sample(x: torch.Tensor, py: torch.Tensor,
-               px: torch.Tensor) -> torch.Tensor:
-    """Bilinear sampling of grouped features: x (B, H, W, G*cg) NHWC,
-    py/px (B, G, Q) positions in pixels → (B, Q, G, cg). On CPU tensors:
-    the plain version; on CUDA tensors: the `dcn_sample` kernel."""
-    if x.device.type == "cpu":
-        return dcn_sample_plain(x, py, px)
-    kernels.require_cuda_float32("dcn_sample", x, py, px)
-    B, H, W, Cin = x.shape
-    G, Q = py.shape[1], py.shape[2]
-    if Cin % G or py.shape != (B, G, Q) or px.shape != (B, G, Q):
-        raise ValueError(f"dcn_sample: bad shapes x {tuple(x.shape)}, "
-                         f"py {tuple(py.shape)}, px {tuple(px.shape)}")
-    x, py, px = x.contiguous(), py.contiguous(), px.contiguous()
-    cg = Cin // G
-    out = torch.empty((B, Q, G, cg), dtype=x.dtype, device=x.device)
-    lib = kernels.load("dcn_sample", _SIGNATURES)
-    err = lib.dcn_sample_forward(x.data_ptr(), py.data_ptr(), px.data_ptr(),
-                                 out.data_ptr(), B, H, W, G, cg, Q,
-                                 kernels.stream_handle(x.device))
-    kernels.LAUNCHES["dcn_sample"] += 1
-    kernels.check(err, "dcn_sample")
-    return out
-
-
 def sample_positions(offset: torch.Tensor, K: int, stride: int, padding: int,
                      dilation: int, G: int):
     """Sample rows / columns (B, G, Q), Q = Ho*Wo*K*K ordered (ho, wo, k),
@@ -104,6 +80,86 @@ def sample_positions(offset: torch.Tensor, K: int, stride: int, padding: int,
     return py, px
 
 
+def output_size(H: int, W: int, K: int, stride: int, padding: int,
+                dilation: int):
+    Ho = (H + 2 * padding - (dilation * (K - 1) + 1)) // stride + 1
+    Wo = (W + 2 * padding - (dilation * (K - 1) + 1)) // stride + 1
+    return Ho, Wo
+
+
+def dcn_im2col_plain(x: torch.Tensor, offset: torch.Tensor,
+                     mask: torch.Tensor, K: int, stride: int, padding: int,
+                     dilation: int, G: int) -> torch.Tensor:
+    """The plain version of `dcn_im2col`: `sample_positions`, then
+    `dcn_sample_plain`, times the mask, in the column order (g, k, c).
+    Returns (B*Ho*Wo, G*K*K*cg)."""
+    B, H, W, Cin = x.shape
+    Ho, Wo = offset.shape[1], offset.shape[2]
+    cg = Cin // G
+    py, px = sample_positions(offset, K, stride, padding, dilation, G)
+    val = dcn_sample_plain(x, py, px)                          # (B, Q, G, cg)
+    val = val.reshape(B, Ho, Wo, K * K, G, cg).permute(0, 1, 2, 4, 3, 5)
+    val = val * mask.reshape(B, Ho, Wo, G, K * K, 1).to(val.dtype)
+    return val.reshape(B * Ho * Wo, G * K * K * cg)
+
+
+def _pixel_rows(t: torch.Tensor, align: int):
+    """t (B, Ho, Wo, n) as rows of n dense floats, one per pixel, `row`
+    floats apart: read in place when its pixels are evenly spaced (a
+    channel slice of one conv output, as DCNSep takes its offsets), else
+    copied. `align` is the row and address alignment in floats that the
+    kernel's vector loads need."""
+    B, Ho, Wo, n = t.shape
+    s = t.stride()
+    row = s[2]
+    even = (s[3] == 1 and row >= n and row % align == 0
+            and t.data_ptr() % (4 * align) == 0
+            and (Ho == 1 or s[1] == Wo * row)
+            and (B == 1 or s[0] == Ho * Wo * row))
+    if not even:
+        t = t.contiguous()
+        row = n
+    return t, row
+
+
+def dcn_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+               K: int, stride: int, padding: int, dilation: int,
+               G: int) -> torch.Tensor:
+    """The deformable im2col matrix (B*Ho*Wo, G*K*K*cg), columns (g, k, c).
+    On CPU tensors: the plain version; on CUDA tensors: the `dcn_im2col`
+    kernel (float32). offset and mask may be strided views."""
+    if x.device.type == "cpu":
+        return dcn_im2col_plain(x, offset, mask, K, stride, padding,
+                                dilation, G)
+    kernels.require_cuda_float32("dcn_im2col", x, offset, mask)
+    B, H, W, Cin = x.shape
+    Ho, Wo = output_size(H, W, K, stride, padding, dilation)
+    if Cin % G or offset.shape != (B, Ho, Wo, G * K * K * 2) or \
+            mask.shape != (B, Ho, Wo, G * K * K):
+        raise ValueError(f"dcn_im2col: bad shapes x {tuple(x.shape)}, offset "
+                         f"{tuple(offset.shape)}, mask {tuple(mask.shape)}")
+    x = x.contiguous()
+    offset, off_row = _pixel_rows(offset, 2)
+    mask, mask_row = _pixel_rows(mask, 1)
+    n_pix = B * Ho * Wo
+    if max(x.numel(), n_pix * K * K * Cin,
+           n_pix * max(off_row, mask_row)) >= 2 ** 31:
+        raise ValueError("dcn_im2col: x, the columns or the offset / mask "
+                         "rows span 2**31 elements or more (the kernel's "
+                         "indices are 32-bit)")
+    cg = Cin // G
+    cols = torch.empty((B * Ho * Wo, G * K * K * cg), dtype=x.dtype,
+                       device=x.device)
+    lib = kernels.load("dcn_im2col", _SIGNATURES)
+    err = lib.dcn_im2col_forward(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
+        B, H, W, Ho, Wo, G, cg, K, stride, padding, dilation, off_row,
+        mask_row, kernels.stream_handle(x.device))
+    kernels.LAUNCHES["dcn_im2col"] += 1
+    kernels.check(err, "dcn_im2col")
+    return cols
+
+
 def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
            weight: torch.Tensor, bias: torch.Tensor | None,
            kernel_size: int = 3, stride: int = 1, padding: int = 1,
@@ -114,19 +170,18 @@ def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     if Cin % G:
         raise ValueError("input channels must divide deformable_groups")
     cg = Cin // G
-    Ho = (H + 2 * padding - (dilation * (K - 1) + 1)) // stride + 1
-    Wo = (W + 2 * padding - (dilation * (K - 1) + 1)) // stride + 1
+    Ho, Wo = output_size(H, W, K, stride, padding, dilation)
     if offset.shape != (B, Ho, Wo, G * K * K * 2) or \
             mask.shape != (B, Ho, Wo, G * K * K):
         raise ValueError(f"dcn_v2: offset {tuple(offset.shape)} / mask "
                          f"{tuple(mask.shape)} do not match the output grid")
-    py, px = sample_positions(offset, K, stride, padding, dilation, G)
-    val = dcn_sample(x, py, px)                                # (B, Q, G, cg)
-    val = val.reshape(B, Ho, Wo, K * K, G, cg).permute(0, 1, 2, 4, 3, 5)
-    val = val * mask.reshape(B, Ho, Wo, G, K * K, 1).to(val.dtype)
+    cols = dcn_im2col(x, offset, mask, K, stride, padding, dilation, G)
     Cout = weight.shape[0]
-    w = weight.permute(2, 3, 1, 0).reshape(K * K, G, cg, Cout).to(val.dtype)
-    out = torch.einsum("bhwgkc,kgco->bhwo", val, w)
-    if bias is not None:
-        out = out + bias
-    return out
+    # (Cout, G, cg, K*K) -> (Cout, G, K*K, cg): the columns' order
+    w = weight.reshape(Cout, G, cg, K * K).transpose(2, 3).reshape(
+        Cout, G * K * K * cg).to(cols.dtype)
+    if bias is None:
+        out = cols @ w.t()
+    else:
+        out = torch.addmm(bias.to(cols.dtype), cols, w.t())
+    return out.reshape(B, Ho, Wo, Cout)

@@ -3,7 +3,8 @@
 Each kernel is one CUDA C++ source under `motif_tpu_torch/csrc/` with a
 plain C interface. At first use it is compiled with `nvcc` for `sm_90a`
 into `build/kernels/` at the repository root (listed in `.gitignore`),
-under a name that carries a hash of the source and flags, and loaded with
+under a name that carries a hash of the source, of every header under
+`csrc/` (any of which it may include) and of the flags, and loaded with
 `ctypes`. Nothing is built or loaded at import time: the CPU tests import
 every module on a machine without `nvcc`.
 
@@ -25,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("splat_fused", "dcn_sample", "siren_mlp")
+KERNELS = ("splat_fused", "dcn_im2col", "siren_mlp")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -51,8 +52,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

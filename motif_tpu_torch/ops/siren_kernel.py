@@ -15,12 +15,42 @@ import torch.nn.functional as F
 
 from motif_tpu_torch.ops import kernels
 
-MAX_LAYERS = 8  # csrc/siren_mlp.cu MAX_LAYERS
+MAX_LAYERS = 8          # csrc/siren_mlp.cu MAX_LAYERS
+TILE = 128              # csrc/siren_mlp.cu T: tokens per tile
+CHUNK = 64              # csrc/siren_mlp.cu CHUNK: columns per register pass
+SMEM_LIMIT = 232_448    # shared memory a block may use on Hopper
 
 _SIGNATURES = {"siren_mlp_forward": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]}
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def plan(dims):
+    """The kernel's plan for layer widths `dims` (d[0] .. d[L]):
+    (fused, rows, smem_bytes). fused[l] is 1 where layer l is wider than
+    CHUNK and feeds a layer of at most CHUNK chunk by chunk; rows is the
+    height of each of the two activation buffers; smem_bytes the shared
+    memory of a block: the padded weights and biases plus the buffers."""
+    L = len(dims) - 1
+    fused = [0] * L
+    rows = CHUNK
+    l = 0
+    while l < L:
+        if l < L - 1 and dims[l + 1] > CHUNK and dims[l + 2] <= CHUNK:
+            fused[l] = 1
+            l += 2
+        else:
+            if l < L - 1:
+                rows = max(rows, _pad8(dims[l + 1]))
+            l += 1
+    n_params = sum((k + 1) * _pad8(n) for k, n in zip(dims[:-1], dims[1:]))
+    return fused, rows, 4 * (n_params + 2 * rows * TILE)
 
 
 def siren_mlp_plain(x: torch.Tensor, weights, biases, omega0: float = 30.0,
@@ -38,14 +68,13 @@ def siren_mlp_plain(x: torch.Tensor, weights, biases, omega0: float = 30.0,
 
 def pack_params(weights, biases) -> torch.Tensor:
     """The kernel's parameter buffer: per layer the weight transposed to
-    (in, out) and zero-padded to a multiple of 4 columns, then the bias
+    (in, out) and zero-padded to a multiple of 8 columns, then the bias
     zero-padded likewise."""
     parts = []
     for w, b in zip(weights, biases):
-        n, k = w.shape
-        n4 = -(-n // 4) * 4
-        parts.append(F.pad(w.t(), (0, n4 - n)).reshape(-1))
-        parts.append(F.pad(b, (0, n4 - n)))
+        n = w.shape[0]
+        parts.append(F.pad(w.t(), (0, _pad8(n) - n)).reshape(-1))
+        parts.append(F.pad(b, (0, _pad8(n) - n)))
     return torch.cat(parts).contiguous()
 
 
@@ -67,16 +96,24 @@ def siren_mlp(x: torch.Tensor, weights, biases, omega0: float = 30.0,
     if x.shape[-1] != dims[0]:
         raise ValueError(f"siren_mlp: x has {x.shape[-1]} features, the "
                          f"first layer takes {dims[0]}")
+    fused, rows, smem = plan(dims)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"siren_mlp: widths {dims} need {smem} B of shared memory (the "
+            f"weights resident plus two {rows}x{TILE} activation buffers), "
+            f"more than the {SMEM_LIMIT} B a block may use")
     lead = x.shape[:-1]
     xf = x.reshape(-1, dims[0]).contiguous()
     params = pack_params(weights, biases)
     out = torch.empty((xf.shape[0], dims[-1]), dtype=x.dtype, device=x.device)
     c_dims = (ctypes.c_int * len(dims))(*dims)
+    c_fused = (ctypes.c_int * n_layers)(*fused)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     lib = kernels.load("siren_mlp", _SIGNATURES)
-    err = lib.siren_mlp_forward(xf.data_ptr(), params.data_ptr(),
-                                out.data_ptr(), xf.shape[0], c_dims, n_layers,
-                                float(omega0), int(sine_last),
-                                kernels.stream_handle(x.device))
+    err = lib.siren_mlp_forward(
+        xf.data_ptr(), params.data_ptr(), out.data_ptr(), xf.shape[0], c_dims,
+        c_fused, n_layers, rows, n_sm, float(omega0), int(sine_last),
+        kernels.stream_handle(x.device))
     kernels.LAUNCHES["siren_mlp"] += 1
     kernels.check(err, "siren_mlp")
     return out.reshape(*lead, dims[-1])

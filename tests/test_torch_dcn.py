@@ -1,12 +1,15 @@
-"""K2/K3 — the port's DCN sampler and deformable conv
+"""K2/K3 — the port's DCN im2col and deformable conv
 (motif_tpu_torch.ops.dcn) against motif_tpu.
 
-On the CPU `dcn_sample` runs its plain version (the gather form). It is
-held against both TPU kernels in interpret mode (sample_pallas, exact MXU
-passes; sample_pallas_ywin in float64 at H % 8 == 0 with |offset| <= 8,
-the only regime where that kernel is exact), against the XLA one-hot
-sampler, and dcn_v2 against dcn_v2(backend="gather" and "onehot").
-The CUDA kernel is held against it on the card in test_torch_kernels.py.
+On the CPU `dcn_im2col` runs its plain version, built on the sampler
+`dcn_sample_plain` (the gather form). The sampler is held against both TPU
+kernels in interpret mode (sample_pallas, exact MXU passes;
+sample_pallas_ywin in float64 at H % 8 == 0 with |offset| <= 8, the only
+regime where that kernel is exact) and against the XLA one-hot sampler;
+the im2col matrix against motif_tpu's own (positions, one-hot sampler,
+mask); dcn_v2 against dcn_v2(backend="gather" and "onehot").
+The CUDA kernel is held against the plain version on the card in
+test_torch_kernels.py.
 """
 
 import jax
@@ -38,7 +41,7 @@ def test_sample_plain_matches_pallas_kernel(rng, shape):
     with jax.default_matmul_precision("highest"):
         want = sample_pallas(jnp.asarray(x), jnp.asarray(py), jnp.asarray(px),
                              interpret=True, exact=True)
-    got = tdcn.dcn_sample(*(torch.from_numpy(a) for a in (x, py, px)))
+    got = tdcn.dcn_sample_plain(*(torch.from_numpy(a) for a in (x, py, px)))
     assert got.shape == (B, Q, G, cg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
@@ -61,7 +64,7 @@ def test_sample_plain_matches_ywin_kernel(rng, H, W):
                                   jnp.asarray(px.numpy()), row_len=W * K * K,
                                   pad=pad, dilation=1, K=K, max_dy=8,
                                   interpret=True)
-    got = tdcn.dcn_sample(torch.from_numpy(x), py, px)
+    got = tdcn.dcn_sample_plain(torch.from_numpy(x), py, px)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-6)
 
@@ -73,7 +76,7 @@ def test_sample_plain_matches_onehot(rng):
     with jax.enable_x64(True):
         want = jdcn._sample_onehot(jnp.asarray(x), jnp.asarray(py),
                                    jnp.asarray(px))
-    got = tdcn.dcn_sample(*(torch.from_numpy(a) for a in (x, py, px)))
+    got = tdcn.dcn_sample_plain(*(torch.from_numpy(a) for a in (x, py, px)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-10)
 
@@ -108,3 +111,86 @@ def test_dcn_v2_matches_motif_tpu(rng, H, W, G, stride, pad, dil, backend,
     assert got.shape == (B, Ho, Wo, Cout)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=atol)
+
+
+def _dcn_case(rng, H, W, G, stride, pad, dil, B=2, K=3, Cin=16):
+    Ho, Wo = tdcn.output_size(H, W, K, stride, pad, dil)
+    x = rng.standard_normal((B, H, W, Cin))
+    offset = rng.standard_normal((B, Ho, Wo, G * K * K * 2)) * 3.0
+    mask = rng.random((B, Ho, Wo, G * K * K))
+    return x, offset, mask, Ho, Wo
+
+
+def _motif_tpu_im2col(x, offset, mask, K, stride, pad, dil, G):
+    """motif_tpu's im2col tensor as _dcn_v2_onehot forms it
+    (dcn.py:268-282): positions, the one-hot sampler, the transpose to
+    (g, k, c) and the mask."""
+    B, H, W, Cin = x.shape
+    Ho, Wo = offset.shape[1:3]
+    cg = Cin // G
+    with jax.enable_x64(True):
+        py, px = jdcn._sample_positions(jnp.asarray(offset), B, Ho, Wo, G, K,
+                                        stride, pad, dil)
+        Q = Ho * Wo * K * K
+        py = py.transpose(0, 3, 1, 2, 4).reshape(B, G, Q)
+        px = px.transpose(0, 3, 1, 2, 4).reshape(B, G, Q)
+        val = jdcn._sample_onehot(jnp.asarray(x), py, px)
+        val = val.reshape(B, Ho, Wo, K * K, G, cg).transpose(0, 1, 2, 4, 3, 5)
+        val = val * jnp.asarray(mask).reshape(B, Ho, Wo, G, K * K, 1)
+        return np.asarray(val.reshape(B * Ho * Wo, G * K * K * cg))
+
+
+@pytest.mark.parametrize("H,W,G,stride,pad,dil", [(12, 10, 2, 1, 1, 1),
+                                                  (9, 13, 8, 1, 1, 1),
+                                                  (10, 10, 2, 2, 2, 2)])
+def test_im2col_plain_matches_motif_tpu(rng, H, W, G, stride, pad, dil):
+    """The plain im2col matrix against motif_tpu's, float64: atol 1e-10."""
+    K = 3
+    x, offset, mask, Ho, Wo = _dcn_case(rng, H, W, G, stride, pad, dil)
+    want = _motif_tpu_im2col(x, offset, mask, K, stride, pad, dil, G)
+    got = tdcn.dcn_im2col(*(torch.from_numpy(a) for a in (x, offset, mask)),
+                          K, stride, pad, dil, G)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("G", [2, 8])
+def test_im2col_takes_strided_offset_and_mask_views(rng, G):
+    """Offsets and mask sliced from one conv-like output as DCNSep does,
+    against motif_tpu's im2col of the same values, and dcn_v2 on the views
+    against dcn_v2 on contiguous copies: float64, atol 1e-10."""
+    K, H, W = 3, 11, 9
+    x, _, _, Ho, Wo = _dcn_case(rng, H, W, G, 1, 1, 1)
+    com = torch.from_numpy(rng.standard_normal((2, Ho, Wo, G * K * K * 3)))
+    off = com[..., :2 * G * K * K] * 3.0
+    com[..., :2 * G * K * K] = off
+    off = com[..., :2 * G * K * K]
+    mask = torch.sigmoid(com[..., 2 * G * K * K:])
+    assert not off.is_contiguous()
+    want = _motif_tpu_im2col(x, off.numpy(), mask.numpy(), K, 1, 1, 1, G)
+    xt = torch.from_numpy(x)
+    got = tdcn.dcn_im2col(xt, off, mask, K, 1, 1, 1, G)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10)
+    w = torch.from_numpy(rng.standard_normal((6, 16, K, K)))
+    b = torch.from_numpy(rng.standard_normal((6,)))
+    np.testing.assert_allclose(
+        tdcn.dcn_v2(xt, off, mask, w, b, K, 1, 1, 1, G).numpy(),
+        tdcn.dcn_v2(xt, off.contiguous(), mask.contiguous(), w, b, K, 1, 1,
+                    1, G).numpy(), rtol=0, atol=1e-10)
+
+
+def test_dcn_v2_without_bias(rng):
+    """bias=None: the product alone, against motif_tpu (onehot), float64."""
+    K, G = 3, 2
+    x, offset, mask, _, _ = _dcn_case(rng, 8, 7, G, 1, 1, 1)
+    w_hwio = rng.standard_normal((K, K, 16, 5)) * 0.2
+    with jax.enable_x64(True):
+        want = jdcn.dcn_v2(*(jnp.asarray(a) for a in (x, offset, mask,
+                                                       w_hwio)), None,
+                           kernel_size=K, deformable_groups=G,
+                           backend="onehot")
+    got = tdcn.dcn_v2(*(torch.from_numpy(a) for a in (
+        x, offset, mask, w_hwio.transpose(3, 2, 0, 1))), None,
+        kernel_size=K, deformable_groups=G)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-10)

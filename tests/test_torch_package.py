@@ -70,9 +70,10 @@ def test_evaluator_raises_without_cuda(no_cuda):
 @pytest.mark.parametrize("call", [
     lambda t: softsplat.splat_fused(t((1, 4, 4, 3)), t((1, 4, 4, 2)),
                                     t((1, 4, 4, 1)), False),
-    lambda t: dcn.dcn_sample(t((1, 4, 4, 8)), t((1, 2, 5)), t((1, 2, 5))),
+    lambda t: dcn.dcn_im2col(t((1, 4, 4, 8)), t((1, 4, 4, 36)),
+                             t((1, 4, 4, 18)), 3, 1, 1, 1, 2),
     lambda t: siren_kernel.siren_mlp(t((5, 3)), [t((4, 3))], [t((4,))]),
-], ids=["splat_fused", "dcn_sample", "siren_mlp"])
+], ids=["splat_fused", "dcn_im2col", "siren_mlp"])
 def test_wrappers_take_plain_versions_on_cpu_without_counting(call):
     before = dict(kernels.LAUNCHES)
     rng = np.random.default_rng(0)
@@ -89,3 +90,33 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.build(["siren_mlp"])
+
+
+def test_library_path_follows_every_header(monkeypatch, tmp_path):
+    """A changed csrc/*.cuh gives a new library name, so no stale build of
+    a source that includes it is loaded."""
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("#define A 1\n")
+    first = kernels._library_path("k")
+    assert kernels._library_path("k") == first
+    (tmp_path / "common.cuh").write_text("#define A 2\n")
+    second = kernels._library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// changed\n')
+    assert kernels._library_path("k") not in (first, second)
+
+
+@pytest.mark.parametrize("dims,fused,rows,smem", [
+    ([67, 64, 64, 256, 3], [0, 0, 1, 0], 64, 174_368),
+    ([66, 64, 64, 256, 64], [0, 0, 1, 0], 64, 231_680),
+    ([198, 64, 64, 64, 256, 3], [0, 0, 0, 1, 0], 64, 224_544),
+    ([48, 128, 96, 8], [0, 1, 0], 128, 208_800),
+    ([64, 256, 256, 3], [0, 1, 0], 256, 600_096),
+], ids=["stinf", "sinf", "synth", "wide-stored", "too-wide"])
+def test_siren_plan(dims, fused, rows, smem):
+    """The fused SIREN's plan: which wide layers feed the next chunk by
+    chunk, the activation buffers' height and the shared memory a block
+    needs (the three MoTIF MLPs fit in 232,448 B, a 256-256 pair does not)."""
+    assert siren_kernel.plan(dims) == (fused, rows, smem)
+    assert (smem <= siren_kernel.SMEM_LIMIT) == (dims != [64, 256, 256, 3])
