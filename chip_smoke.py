@@ -13,9 +13,11 @@ Phases, each fatal on failure:
      the main path's shapes, TF32 off, with its time, the plain version's
      time, one PyTorch library call's time, the bound of the card and the
      fraction of it reached; the DCN im2col also with the L2 cold, and the
-     whole dcn_v2 (kernel + addmm) at L1. DCN and SIREN times are device
+     whole dcn_v2 (kernel + addmm) at L1; the splat also at other tile
+     shapes, on a converging flow and on request (a)'s own inputs, with
+     its tile lists and its device kernels per call. Times are device
      times (calls replayed from a CUDA graph), with the eager per-call time
-     beside them; the splat's are eager (0.9 ms kernels);
+     beside them;
   4. the slice: MoTIF(setting=5) at full width (channel 64, 5 + 40 residual
      blocks, RAFT-small) with random weights from a seed, DCN offsets
      perturbed, driven through Evaluator.infer on four requests; the launch
@@ -104,47 +106,139 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def device_work(fn):
+    """(device kernels, device copies and memsets) of one call of fn, as
+    torch.profiler sees them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.count for e in device if e.key.startswith(("Memcpy",
+                                                              "Memset")))
+    return sum(e.count for e in device) - copies, copies
+
+
+def splat_bound(B, H, W, C, nonpos):
+    """img, flow and e^z read once, acc written once, and z_max when the
+    max runs: bytes over the HBM rate (the tile lists are the kernel's own
+    overhead and are not counted)."""
+    n = B * H * W
+    nbytes = 4 * n * (C + 3 + C + 2 + (0 if nonpos else 1))
+    flops = n * ((C + 1) * (1 + 4 * 2) + 4) + (0 if nonpos else n * 8)
+    return bound(nbytes, flops)
+
+
+def tile_lists(flow, tile):
+    """The splat kernel's tile lists for `flow`, computed with torch: the
+    mean and the largest number of entries per tile, the share of the
+    listed sources that are listed in more than one tile, and the share of
+    sources listed at all (some corner in the image)."""
+    from motif_tpu_torch.ops import softsplat
+
+    B, H, W, _ = flow.shape
+    th, tw = tile
+    nty, ntx = -(-H // th), -(-W // tw)
+    b = torch.arange(B, device=flow.device).reshape(B, 1, 1)
+    ids = []
+    for idx, _, valid in softsplat._corner_data(flow, H, W):
+        t = (b * nty + idx // W // th) * ntx + idx % W // tw
+        ids.append(torch.where(valid, t, -1).reshape(-1))
+    ids = torch.stack(ids).sort(0).values             # (4, sources)
+    new = (ids >= 0) & torch.cat([torch.ones_like(ids[:1], dtype=torch.bool),
+                                  ids[1:] != ids[:-1]])
+    per_source = new.sum(0)
+    per_tile = torch.bincount(ids[new], minlength=B * nty * ntx)
+    listed = per_source > 0
+    return {"tile": list(tile), "entries": int(per_source.sum()),
+            "mean_per_tile": float(per_tile.float().mean()),
+            "max_per_tile": int(per_tile.max()),
+            "multi_tile_share": float((per_source > 1).sum() / listed.sum()),
+            "listed_share": float(listed.float().mean())}
+
+
+def hold_splat(softsplat, kernels, img, flow, z, nonpos, tol=1e-4):
+    """The kernel against its plain version on one input: out / norm to
+    `tol` (the summation order varies), z_max and the count exact. Returns
+    the errors and the wrapper's launches."""
+    n0 = kernels.LAUNCHES["splat_fused"]
+    got = softsplat.splat_fused(img, flow, z, z_nonpositive=nonpos)
+    launches = kernels.LAUNCHES["splat_fused"] - n0
+    want = softsplat.splat_fused_plain(img, flow, z, z_nonpositive=nonpos)
+    torch.cuda.synchronize()
+    err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+    err_max = max_err(got[2], want[2])
+    err_cnt = max_err(got[3], want[3])
+    scale = max(float(want[0].abs().max()), float(want[1].abs().max()))
+    if not (err <= tol and err_max == 0.0 and err_cnt == 0.0):
+        raise AssertionError(f"splat_fused: out/norm err {err} (tol {tol}), "
+                             f"z_max err {err_max}, count err {err_cnt} "
+                             f"(must be 0)")
+    return {"launches": launches, "max_abs_err": err, "z_max_err": err_max,
+            "count_err": err_cnt, "out_max_abs": scale, "tol": tol}
+
+
 def check_splat(dev, softsplat, kernels):
-    """Main-path shapes: n*B*N = 6 images of 256x448, payload C = 130."""
+    """Main-path shapes: n*B*N = 6 images of 256x448, payload C = 130.
+    Device time from graph replay, the eager per-call time beside it; the
+    kernel's tile shape against others; a converging flow."""
     B, H, W, C = 6, 256, 448, 130
     g = torch.Generator(device=dev).manual_seed(1)
     img = torch.randn((B, H, W, C), device=dev, generator=g)
     flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
     flow[0, :8, :, 1] = -40.0                       # thrown off the image
     z = torch.randn((B, H, W, 1), device=dev, generator=g) * 0.5
-    tol = 1e-4
     worst, lines = 0.0, {}
     for case, zz, nonpos in (("z<=0", -z.abs(), True), ("z>0", z, False)):
-        n0 = kernels.LAUNCHES["splat_fused"]
-        got = softsplat.splat_fused(img, flow, zz, z_nonpositive=nonpos)
-        launches = kernels.LAUNCHES["splat_fused"] - n0
-        want = softsplat.splat_fused_plain(img, flow, zz, z_nonpositive=nonpos)
-        torch.cuda.synchronize()
-        err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
-        err_max = max_err(got[2], want[2])
-        err_cnt = max_err(got[3], want[3])
-        if not (err <= tol and err_max == 0.0 and err_cnt == 0.0):
-            raise AssertionError(f"splat_fused {case}: out/norm err {err} "
-                                 f"(tol {tol}), z_max err {err_max}, count "
-                                 f"err {err_cnt} (must be 0)")
-        worst = max(worst, err)
-        ms = cuda_ms(lambda: softsplat.splat_fused(img, flow, zz, nonpos))
-        plain = cuda_ms(lambda: softsplat.splat_fused_plain(img, flow, zz,
-                                                            nonpos), reps=5)
-        n = B * H * W
-        nbytes = 4 * n * (C + 3 + C + 2 + (0 if nonpos else 1))
-        flops = n * ((C + 1) * (1 + 4 * 2) + 4) + (0 if nonpos else n * 8)
-        b_ms, b_by = bound(nbytes, flops)
-        lines[case] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-        emit({"check": "splat_fused", "case": case, "launches": launches,
-              "shape": [B, H, W, C], "max_abs_err": err,
-              "z_max_err": err_max, "count_err": err_cnt, "tol": tol,
-              **lines[case]})
+        held = hold_splat(softsplat, kernels, img, flow, zz, nonpos)
+        worst = max(worst, held["max_abs_err"])
+        ms = device_ms(lambda: softsplat.splat_fused(img, flow, zz, nonpos))
+        eager = cuda_ms(lambda: softsplat.splat_fused(img, flow, zz, nonpos))
+        plain = device_ms(lambda: softsplat.splat_fused_plain(
+            img, flow, zz, nonpos), reps=3)
+        kern, copies = device_work(
+            lambda: softsplat.splat_fused(img, flow, zz, nonpos))
+        b_ms, b_by = splat_bound(B, H, W, C, nonpos)
+        lines[case] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                           eager_ms=eager, device_kernels_per_call=kern,
+                           device_memsets_per_call=copies)
+        emit({"check": "splat_fused", "case": case, "shape": [B, H, W, C],
+              "fraction_of_bound": b_ms / ms, **held, **lines[case],
+              "lists": tile_lists(flow, softsplat.plan(C))})
+
+    # the tile shape: the plan's against others that fit, z <= 0
+    zn = -z.abs()
+    tiles = {}
+    for tile in ((8, 8), (4, 16), (8, 16), (16, 8), (4, 8)):
+        with mock.patch.object(softsplat, "TILE", tile):
+            tiles["%dx%d" % tile] = device_ms(
+                lambda: softsplat.splat_fused(img, flow, zn, True), reps=10)
+    emit({"check": "splat_tiles", "plan": list(softsplat.plan(C)),
+          "device_ms": tiles})
+
+    # a converging flow: every pixel of each image into one tile, which
+    # one block then takes alone (correct for any flow; slow here)
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    spread = torch.rand((B, H, W, 2), device=dev, generator=g) * 7.0
+    conv = (torch.tensor([200.0, 120.0], device=dev) + spread
+            - torch.stack([xs, ys], -1).float()).contiguous()
+    held = hold_splat(softsplat, kernels, img, conv, zn, True, tol=5e-2)
+    emit({"check": "splat_fused", "case": "converging", **held,
+          "ms": cuda_ms(lambda: softsplat.splat_fused(img, conv, zn, True),
+                        reps=2, warmup=1),
+          "lists": tile_lists(conv, softsplat.plan(C)),
+          "note": "float32 sums of ~7,200 terms per pixel in a varying "
+                  "order: tol 5e-2 on values up to out_max_abs"})
 
     # yardstick: the same 4-corner scatter as ONE index_add_ call, its
     # payload and indices prepared outside the timed call
     corners = softsplat._corner_data(flow, H, W)
-    ez = torch.exp(-z.abs()).reshape(B, H * W, 1)
+    ez = torch.exp(zn).reshape(B, H * W, 1)
     flat = torch.cat([img.reshape(B, H * W, C) * ez, ez], -1)
     boff = (torch.arange(B, device=dev) * H * W)[:, None, None]
     idx = torch.cat([(c[0] + boff).reshape(-1) for c in corners])
@@ -152,9 +246,27 @@ def check_splat(dev, softsplat, kernels):
         B, H * W, 1), c[2].float().reshape(B, H * W, 1)], -1).reshape(-1, C + 2)
         for c in corners])
     acc = torch.zeros((B * H * W, C + 2), device=dev)
-    library = cuda_ms(lambda: acc.index_add_(0, idx, src), reps=10)
+    library = device_ms(lambda: acc.index_add_(0, idx, src), reps=10)
     del src, idx, acc
     return dict(max_abs_err=worst, library_ms=library, **lines["z<=0"])
+
+
+def check_splat_request(softsplat, kernels, inputs):
+    """The kernel on request (a)'s own splat inputs (the forward's
+    feat_hr, flow_hr and z): held against the plain version and timed,
+    with its tile lists."""
+    img, flow, z, nonpos = inputs
+    held = hold_splat(softsplat, kernels, img, flow, z, nonpos)
+    B, H, W, C = img.shape
+    b_ms, _ = splat_bound(B, H, W, C, nonpos)
+    ms = device_ms(lambda: softsplat.splat_fused(img, flow, z, nonpos))
+    emit({"check": "splat_fused", "case": "request_a", "shape": [B, H, W, C],
+          "z_nonpositive": nonpos, **held, "ms": ms, "bound_ms": b_ms,
+          "fraction_of_bound": b_ms / ms,
+          "eager_ms": cuda_ms(lambda: softsplat.splat_fused(img, flow, z,
+                                                            nonpos)),
+          "flow_abs_max": float(flow.abs().max()),
+          "lists": tile_lists(flow, softsplat.plan(C))})
 
 
 def cold_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
@@ -243,7 +355,7 @@ def check_dcn(dev, dcn, kernels):
         flops = B * G * Q * (cg * 9 + 20)
         b_ms, b_by = bound(nbytes, flops)
         line = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=library)
+                    library_ms=library, eager_ms=eager)
         extra = {}
         if level == "L1":
             flush = torch.empty(2 ** 26, device=dev)       # 256 MB > L2
@@ -255,8 +367,7 @@ def check_dcn(dev, dcn, kernels):
                 extra["dcn_v2_plain_ms"] = time_dcn_v2(dev, dcn)["dcn_v2_ms"]
         emit({"check": "dcn_im2col", "level": level, "launches": launches,
               "shape": [B, H, W, G, cg], "Q": Q, "max_abs_err": err,
-              "tol": tol, "fraction_of_bound": b_ms / ms, "eager_ms": eager,
-              **line, **extra})
+              "tol": tol, "fraction_of_bound": b_ms / ms, **line, **extra})
         first = first or line
     return dict(max_abs_err=worst, **first)
 
@@ -312,10 +423,10 @@ def check_siren(dev, siren_kernel, Siren, kernels):
                       + sum(w.numel() + b.numel() for w, b in zip(ws, bs)))
         b_ms, b_by = bound(nbytes, flops)
         line = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=library)
+                    library_ms=library, eager_ms=eager)
         emit({"check": "siren_mlp", "mlp": name, "launches": launches,
               "tokens": n_tok, "dims": dims, "max_abs_err": err, "tol": tol,
-              "fraction_of_bound": b_ms / ms, "eager_ms": eager,
+              "fraction_of_bound": b_ms / ms,
               "library": "addmm + sin per layer (cuBLAS)", **line})
         first = first or line
     return dict(max_abs_err=worst, **first)
@@ -463,6 +574,18 @@ def run_slice(dev, args, card):
             f"{err_pre} (tol {tol}); flow stats rel {err_stats} (rtol "
             f"{stats_rtol})")
 
+    # ---- the splat kernel on request (a)'s own inputs ----
+    captured = []
+    splat = softsplat.splat_fused
+
+    def spy(img, flow, z, z_nonpositive):
+        captured.append((img.clone(), flow.clone(), z.clone(), z_nonpositive))
+        return splat(img, flow, z, z_nonpositive)
+    with mock.patch.object(softsplat, "splat_fused", spy):
+        ev.infer(lq_a, t3, (256, 448))
+    check_splat_request(softsplat, kernels, captured[0])
+    del captured
+
     # ---- time request (a): kernels, plain, kernels, plain ----
     k1 = time_request(ev, lq_a, t3, 5)
     with plain_versions(softsplat, dcn, siren_kernel):
@@ -515,12 +638,24 @@ def profile_request(ev, lq, times, out_dir):
 
 def compare_only(dev, card, out_dir):
     """The numbers that compare two checkouts of the package, through the
-    entry points they share: dcn_v2 at L1, request (a)'s median and single
-    runs, and one profiled request's device kernels."""
-    from motif_tpu_torch.ops import dcn
+    entry points they share: dcn_v2 at L1, splat_fused at the smoke's
+    shapes (z <= 0), request (a)'s median and single runs, and one profiled
+    request's device kernels."""
+    from motif_tpu_torch.ops import dcn, softsplat
 
     emit({"phase": "compare_dcn_v2_L1", "card": card,
           **time_dcn_v2(dev, dcn)})
+    B, H, W, C = 6, 256, 448, 130
+    g = torch.Generator(device=dev).manual_seed(1)
+    img = torch.randn((B, H, W, C), device=dev, generator=g)
+    flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
+    z = -(torch.randn((B, H, W, 1), device=dev, generator=g) * 0.5).abs()
+    emit({"phase": "compare_splat", "card": card, "shape": [B, H, W, C],
+          "device_ms": device_ms(lambda: softsplat.splat_fused(
+              img, flow, z, True)),
+          "eager_ms": cuda_ms(lambda: softsplat.splat_fused(img, flow, z,
+                                                            True))})
+    del img, flow, z
     _, _, ev, _, lq_a, t3 = build_request(dev)
     time_request(ev, lq_a, t3, 2)                        # warm-up
     ts = time_request(ev, lq_a, t3, 10)
@@ -543,10 +678,10 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler table of request (a) to DIR")
     ap.add_argument("--compare-only", metavar="DIR",
-                    help="only time dcn_v2 at L1 and request (a) and profile "
-                         "it into DIR, through entry points that older "
-                         "checkouts share (run one with `python3 -P` and its "
-                         "tree first on PYTHONPATH)")
+                    help="only time dcn_v2 at L1, the splat and request (a) "
+                         "and profile it into DIR, through entry points that "
+                         "older checkouts share (run one with `python3 -P` "
+                         "and its tree first on PYTHONPATH)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -599,8 +734,10 @@ def main() -> int:
                "launches": launches[name], "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-               "library_ms": r["library_ms"],
+               "library_ms": r["library_ms"], "eager_ms": r["eager_ms"],
                "launches_request_a": per_request["a"][name]}
+        if "device_kernels_per_call" in r:
+            row["device_kernels_per_call"] = r["device_kernels_per_call"]
         if name in also:
             row["also_replaces"] = also[name]
         rows.append(row)

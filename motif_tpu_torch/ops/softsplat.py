@@ -2,7 +2,10 @@
 motif_tpu/ops/softsplat.py::splat_fused, with the CUDA kernel `splat_fused`
 (csrc/splat_fused.cu), which replaces the TPU kernel
 motif_tpu/ops/softsplat_pallas.py::_splat_kernel and the ones-initialised
-max splat.
+max splat. The kernel bins the sources by the target tiles their corners
+reach and accumulates each tile in shared memory, max included, writing
+every output once: no fill, no float atomic to device memory, one C call
+per splat, no host synchronisation.
 
 Layout: NHWC. img (B, H, W, C), flow (B, H, W, 2) = (dx, dy) in pixels,
 z (B, H, W, 1). Source and target grids have the same shape.
@@ -19,10 +22,12 @@ from motif_tpu_torch.ops.warp import pixel_grid
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "splat_fused_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "splat_max_forward": [_P, _P, _P, _I, _I, _I, _P],
-}
+_SIGNATURES = {"splat_fused_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _I, _P]}
+TILE = (8, 8)            # the target tile at MoTIF's C = 130 (38 KB;
+                         # faster than 4x16, 8x16, 16x8 and 4x8 on an H100)
+STAGE_BYTES = 128 * 32   # the kernel's staged tile records (CHUNK of them)
+SMEM_LIMIT = 232_448     # shared memory a block may use on Hopper
 
 
 def _corner_data(flow: torch.Tensor, H: int, W: int):
@@ -81,6 +86,24 @@ def splat_fused_plain(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
     return acc[..., :C], acc[..., C:C + 1], z_max, acc[..., C + 1:]
 
 
+def plan(C: int) -> tuple[int, int]:
+    """The kernel's target tile (th, tw) for C payload channels: the first
+    of 8x8, 4x8, 2x8, 1x8, 1x4, 1x2, 1x1 whose [th * tw, C + 3] float
+    tile (the sums, norm, count and max) fits in a block's shared memory
+    beside the staged records. Raises when not even one pixel fits."""
+    th, tw = TILE
+    while th * tw * (C + 3) * 4 + STAGE_BYTES > SMEM_LIMIT:
+        if th > 1:
+            th //= 2
+        elif tw > 1:
+            tw //= 2
+        else:
+            raise ValueError(f"splat_fused: C = {C} channels of one pixel "
+                             f"exceed the {SMEM_LIMIT} B of shared memory a "
+                             f"block may use")
+    return th, tw
+
+
 def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
                 z_nonpositive: bool):
     """Fused softmax splat + count splat, and the max splat unless
@@ -93,8 +116,9 @@ def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
       norm  = splat_sum(e^z)                (B, H, W, 1)
       z_max = max(1, max-splat(e^z * w))    (B, H, W, 1)
       count = unweighted in-image corner hits (B, H, W, 1)
-    On CPU tensors: the plain version; on CUDA tensors: the kernel, whose
-    atomics sum in a varying order (the count is exact).
+    On CPU tensors: the plain version; on CUDA tensors: the kernel, which
+    sums in an order that varies from run to run (the count and z_max are
+    exact).
     """
     if img.device.type == "cpu":
         return splat_fused_plain(img, flow, z, z_nonpositive)
@@ -103,20 +127,28 @@ def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
     if flow.shape != (B, H, W, 2) or z.shape != (B, H, W, 1):
         raise ValueError(f"splat_fused: bad shapes img {tuple(img.shape)}, "
                          f"flow {tuple(flow.shape)}, z {tuple(z.shape)}")
+    if 4 * B * H * W >= 2 ** 31:
+        raise ValueError(f"splat_fused: {B * H * W} pixels exceed the "
+                         f"kernel's 32-bit tile lists")
+    th, tw = plan(C)
+    n_pix = B * H * W
+    n_tiles = B * -(-H // th) * -(-W // tw)
     img, flow = img.contiguous(), flow.contiguous()
     ez = torch.exp(z).contiguous()
-    stream = kernels.stream_handle(img.device)
+    # acc and z_max in one allocation; in the other the tile lists (each
+    # source in at most 4 tiles, a 32-byte record each), the counters and
+    # the offsets. One C call: a memset and four kernels on the current
+    # stream, no host synchronisation.
+    buf = torch.empty(n_pix * (C + 3), dtype=img.dtype, device=img.device)
+    work = torch.empty(32 * n_pix + 2 * n_tiles + 1, dtype=torch.int32,
+                       device=img.device)
+    acc = buf[:n_pix * (C + 2)].view(B, H, W, C + 2)
+    z_max = buf[n_pix * (C + 2):].view(B, H, W, 1)
     lib = kernels.load("splat_fused", _SIGNATURES)
-    acc = torch.zeros((B, H, W, C + 2), dtype=img.dtype, device=img.device)
-    err = lib.splat_fused_forward(img.data_ptr(), flow.data_ptr(),
-                                  ez.data_ptr(), acc.data_ptr(), B, H, W, C,
-                                  stream)
+    err = lib.splat_fused_forward(
+        img.data_ptr(), flow.data_ptr(), ez.data_ptr(), acc.data_ptr(),
+        z_max.data_ptr(), work.data_ptr(), B, H, W, C, th, tw,
+        int(not z_nonpositive), kernels.stream_handle(img.device))
     kernels.LAUNCHES["splat_fused"] += 1
     kernels.check(err, "splat_fused")
-    z_max = torch.ones((B, H, W, 1), dtype=img.dtype, device=img.device)
-    if not z_nonpositive:
-        err = lib.splat_max_forward(flow.data_ptr(), ez.data_ptr(),
-                                    z_max.data_ptr(), B, H, W, stream)
-        kernels.LAUNCHES["splat_fused"] += 1
-        kernels.check(err, "splat_fused (max)")
     return acc[..., :C], acc[..., C:C + 1], z_max, acc[..., C + 1:]

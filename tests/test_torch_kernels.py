@@ -36,26 +36,96 @@ def _launches(name, fn):
     return out, kernels.LAUNCHES[name] - before
 
 
-@pytest.mark.parametrize("z_nonpositive", [True, False])
-def test_splat_fused(dev, z_nonpositive):
-    """Out-of-image flows included. Atomics sum in a varying order: atol
-    1e-4 on out / norm; z_max and the count exact."""
+def _splat_inputs(dev, case):
+    """img, flow, z for one splat case."""
+    B, H, W, C = {"c130": (3, 40, 56, 130), "c5-ragged": (2, 37, 45, 5),
+                  "c1000": (2, 12, 21, 1000)}.get(case, (2, 21, 35, 130))
     g = torch.Generator(device=dev).manual_seed(0)
-    B, H, W, C = 3, 40, 56, 130
     img = torch.randn((B, H, W, C), device=dev, generator=g)
-    flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
-    flow[0, 0, :, 1] = -30.0
     z = torch.randn((B, H, W, 1), device=dev, generator=g) * 0.5
+    flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
+    flow[0, 0, :, 1] = -30.0                     # a row thrown off the top
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    pos = torch.stack([xs, ys], -1).float()
+    if case == "zero":
+        flow = torch.zeros_like(flow)
+    elif case == "integer":                      # zero-weight corners
+        flow = torch.randint(-17, 18, flow.shape, device=dev,
+                             generator=g).float()
+    elif case == "converging":                   # most pixels into one tile
+        target = torch.tensor([20.0, 9.0], device=dev)
+        spread = torch.rand(flow.shape, device=dev, generator=g)
+        flow = target - pos + spread * torch.tensor([14.0, 6.0], device=dev)
+        flow[1, :3] = torch.randn((3, W, 2), device=dev, generator=g)
+    elif case == "off-image":
+        flow = flow + torch.tensor([0.0, 1e3], device=dev)
+    elif case == "non-finite":
+        bad = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e6,
+                            -1e6, 3e38], device=dev)
+        pick = torch.randint(0, 12, flow.shape, device=dev, generator=g)
+        flow = torch.where(pick < 6, bad[pick.clamp(max=5)], flow)
+    return img, flow, z
+
+
+SPLAT_CASES = ["c130", "c5-ragged", "c1000", "zero", "integer",
+               "converging", "off-image", "non-finite"]
+
+
+@pytest.mark.parametrize("z_nonpositive", [True, False])
+@pytest.mark.parametrize("case", SPLAT_CASES)
+def test_splat_fused(dev, case, z_nonpositive):
+    """The binned kernel against the plain version: C = 130 (specialised)
+    and C = 5 (generic) at H, W that are not tile multiples, C = 1000 (a
+    smaller tile, warps that take several channel groups), B > 1
+    throughout; zero and integer flows (corners of
+    weight 0 on tile borders still count), a converging flow, everything
+    thrown off the image, and NaN / inf / huge entries, which are dropped.
+    z <= 0 with the max skipped, and z of both signs with the max. One
+    launch per call either way. Shared atomics sum in a varying order:
+    atol 1e-4 on out / norm; z_max and the count exact."""
+    img, flow, z = _splat_inputs(dev, case)
     if z_nonpositive:
         z = -z.abs()
     got, n = _launches("splat_fused", lambda: softsplat.splat_fused(
         img, flow, z, z_nonpositive=z_nonpositive))
-    assert n == (1 if z_nonpositive else 2)
+    assert n == 1
     want = softsplat.splat_fused_plain(img, flow, z, z_nonpositive)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
     for a, b in zip(got[:2], want[:2]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
     torch.testing.assert_close(got[3], want[3], rtol=0, atol=0)
+    if case == "off-image":
+        assert not got[3].any() and (got[2] == 1.0).all()
+    elif case == "converging":
+        assert got[3].max() >= 20          # ~28 corner hits per target
+
+
+def test_splat_fused_replays_from_a_cuda_graph(dev):
+    """The whole splat (memset and four kernels) captured in a CUDA graph
+    and replayed on new inputs written in place: no host synchronisation,
+    no host read of list sizes. Against the eager call: count and z_max
+    exact, out / norm to 1e-4 (summation order)."""
+    img, flow, z = _splat_inputs(dev, "c130")
+    static = [t.clone() for t in (img, flow, z)]
+    softsplat.splat_fused(*static, z_nonpositive=False)   # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = softsplat.splat_fused(*static, z_nonpositive=False)
+    for scale in (1.0, 2.5):
+        for s, t in zip(static, (img, flow * scale, z)):
+            s.copy_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = softsplat.splat_fused(img, flow * scale, z,
+                                     z_nonpositive=False)
+        for a, b in zip(outs[:2], want[:2]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+        for a, b in zip(outs[2:], want[2:]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def _dcn_inputs(dev, B, H, W, G, cg, K, stride, pad, dil, strided):

@@ -120,3 +120,20 @@ def test_siren_plan(dims, fused, rows, smem):
     needs (the three MoTIF MLPs fit in 232,448 B, a 256-256 pair does not)."""
     assert siren_kernel.plan(dims) == (fused, rows, smem)
     assert (smem <= siren_kernel.SMEM_LIMIT) == (dims != [64, 256, 256, 3])
+
+
+@pytest.mark.parametrize("C,tile", [(130, (8, 8)), (5, (8, 8)),
+                                    (1000, (4, 8)), (50_000, (1, 1))],
+                         ids=["motif", "narrow", "wide", "widest"])
+def test_splat_plan(C, tile):
+    """The splat's target tile: 8x8 while a [64, C + 3] float tile and the
+    staged records fit in a block's shared memory, then halved, rows first
+    (MoTIF's C = 130 takes 38,144 B)."""
+    assert softsplat.plan(C) == tile
+    th, tw = tile
+    assert th * tw * (C + 3) * 4 + softsplat.STAGE_BYTES <= softsplat.SMEM_LIMIT
+
+
+def test_splat_plan_raises_when_one_pixel_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        softsplat.plan(60_000)
