@@ -9,10 +9,13 @@
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the package, nvcc for sm_90a, in parallel;
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes, TF32 off, with its time, the plain version's
-     time, one PyTorch library call's time, the bound of the card and the
-     fraction of it reached; the DCN im2col also with the L2 cold, and the
+  3. kernels: each entry of each kernel (float32; bfloat16 DCN and SIREN;
+     the SIREN whole and from its first layer's pre-activation; the splat
+     at C = 130 and C = 64 with float32 and float16 sums) against its plain
+     PyTorch version on the card at the main path's shapes, TF32 off, with
+     its time, the plain version's time, one PyTorch library call's time,
+     the bound of the card and the fraction of it reached; the DCN im2col
+     also with the L2 cold, and the
      whole dcn_v2 (kernel + addmm) at L1; the splat also at other tile
      shapes, on a converging flow and on request (a)'s own inputs, with
      its tile lists and its device kernels per call. Times are device
@@ -20,9 +23,16 @@ Phases, each fatal on failure:
      beside them;
   4. the slice: MoTIF(setting=5) at full width (channel 64, 5 + 40 residual
      blocks, RAFT-small) with random weights from a seed, DCN offsets
-     perturbed, driven through Evaluator.infer on four requests; the launch
-     counters must show every kernel ran; request (a) is held against the
-     same forward with the plain versions; its time and HR frames/s;
+     perturbed, driven through Evaluator.infer: requests (a)-(d) on the
+     float32 reference-order path, request (e) = request (a)'s inputs
+     through the serving configuration (fused decode, bfloat16 compute,
+     float16 splat sums, RAFT at HR/2), (e) again in three decode chunks,
+     and the same inputs with fused decode alone (f) and bfloat16 alone
+     (g), so that every entry runs on the main path; the launch counters
+     must show every entry ran, and which ran on request (e); requests (a)
+     and (e) are held against the same forward with the plain versions,
+     (e), (f) and (g) against (a)'s frames; the times of (a) and (e) and
+     their HR frames/s, in turns;
   5. a {"kernels": [...]} line, the card line, and the result line.
 Exits non-zero without CUDA or without the package beside it.
 """
@@ -41,17 +51,40 @@ from unittest import mock
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 (non-tensor)
+# published H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 (non-tensor),
+# dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+
+SERVING = dict(fused_decode=True, compute_dtype="bfloat16",
+               splat_dtype="float16", raft_resolution=0.5)
+# every entry of the three kernels: each is held against its plain version
+# and must run on the main path
+ENTRIES = ("splat_fused/float32/C=130", "splat_fused/float32/C=64",
+           "splat_fused/float16/C=64", "dcn_im2col/float32",
+           "dcn_im2col/bfloat16", "siren_mlp/float32/whole",
+           "siren_mlp/float32/skip_first", "siren_mlp/bfloat16/whole",
+           "siren_mlp/bfloat16/skip_first")
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOP_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the fp32 rate."""
+    operations over `peak` (the fp32 rate; the bf16 tensor-core rate where
+    the products are bf16)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ulp(scale: float, bits: int) -> float:
+    """One unit in the last place at magnitude `scale` of a type with
+    `bits` stored mantissa bits (bfloat16 7, float16 10)."""
+    return 2.0 ** (np.floor(np.log2(scale)) - bits)
+
+
+def dname(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -161,19 +194,24 @@ def tile_lists(flow, tile):
             "listed_share": float(listed.float().mean())}
 
 
-def hold_splat(softsplat, kernels, img, flow, z, nonpos, tol=1e-4):
+def hold_splat(softsplat, kernels, img, flow, z, nonpos, tol=1e-4, sdt=None):
     """The kernel against its plain version on one input: out / norm to
-    `tol` (the summation order varies), z_max and the count exact. Returns
-    the errors and the wrapper's launches."""
+    `tol` (the summation order varies), z_max and the count exact. With
+    float16 sums (`sdt`) the tolerance is `tol` float16 ulps of the largest
+    value. Returns the errors and the wrapper's launches."""
     n0 = kernels.LAUNCHES["splat_fused"]
-    got = softsplat.splat_fused(img, flow, z, z_nonpositive=nonpos)
+    got = softsplat.splat_fused(img, flow, z, z_nonpositive=nonpos,
+                                scatter_dtype=sdt)
     launches = kernels.LAUNCHES["splat_fused"] - n0
-    want = softsplat.splat_fused_plain(img, flow, z, z_nonpositive=nonpos)
+    want = softsplat.splat_fused_plain(img, flow, z, z_nonpositive=nonpos,
+                                       scatter_dtype=sdt)
     torch.cuda.synchronize()
     err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
     err_max = max_err(got[2], want[2])
     err_cnt = max_err(got[3], want[3])
     scale = max(float(want[0].abs().max()), float(want[1].abs().max()))
+    if sdt is not None:
+        tol = tol * ulp(scale, 10)
     if not (err <= tol and err_max == 0.0 and err_cnt == 0.0):
         raise AssertionError(f"splat_fused: out/norm err {err} (tol {tol}), "
                              f"z_max err {err_max}, count err {err_cnt} "
@@ -182,11 +220,24 @@ def hold_splat(softsplat, kernels, img, flow, z, nonpos, tol=1e-4):
             "count_err": err_cnt, "out_max_abs": scale, "tol": tol}
 
 
-def check_splat(dev, softsplat, kernels):
-    """Main-path shapes: n*B*N = 6 images of 256x448, payload C = 130.
-    Device time from graph replay, the eager per-call time beside it; the
-    kernel's tile shape against others; a converging flow."""
-    B, H, W, C = 6, 256, 448, 130
+def check_splat(dev, softsplat, kernels, C=130, sdt=None):
+    """Main-path shapes: n*B*N = 6 images of 256x448, payload C = 130 (the
+    reference order) or C = 64 (the fused decode), sums in float32 or in
+    float16 (`sdt`). Device time from graph replay, the eager per-call
+    time beside it; the kernel's tile shape against others; for float32
+    sums a converging flow. Float16 sums depend on the order, which varies
+    from run to run: out / norm within 4 float16 ulps of the largest
+    value (the count and the max exact)."""
+    B, H, W = 6, 256, 448
+    entry = dname(sdt or torch.float32)
+    tol = 1e-4 if sdt is None else 4
+    elem = 4 if sdt is None else 2
+
+    def run(*a):
+        return softsplat.splat_fused(*a, scatter_dtype=sdt)
+
+    def run_plain(*a):
+        return softsplat.splat_fused_plain(*a, scatter_dtype=sdt)
     g = torch.Generator(device=dev).manual_seed(1)
     img = torch.randn((B, H, W, C), device=dev, generator=g)
     flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
@@ -194,21 +245,20 @@ def check_splat(dev, softsplat, kernels):
     z = torch.randn((B, H, W, 1), device=dev, generator=g) * 0.5
     worst, lines = 0.0, {}
     for case, zz, nonpos in (("z<=0", -z.abs(), True), ("z>0", z, False)):
-        held = hold_splat(softsplat, kernels, img, flow, zz, nonpos)
+        held = hold_splat(softsplat, kernels, img, flow, zz, nonpos, tol, sdt)
         worst = max(worst, held["max_abs_err"])
-        ms = device_ms(lambda: softsplat.splat_fused(img, flow, zz, nonpos))
-        eager = cuda_ms(lambda: softsplat.splat_fused(img, flow, zz, nonpos))
-        plain = device_ms(lambda: softsplat.splat_fused_plain(
-            img, flow, zz, nonpos), reps=3)
-        kern, copies = device_work(
-            lambda: softsplat.splat_fused(img, flow, zz, nonpos))
+        ms = device_ms(lambda: run(img, flow, zz, nonpos))
+        eager = cuda_ms(lambda: run(img, flow, zz, nonpos))
+        plain = device_ms(lambda: run_plain(img, flow, zz, nonpos), reps=3)
+        kern, copies = device_work(lambda: run(img, flow, zz, nonpos))
         b_ms, b_by = splat_bound(B, H, W, C, nonpos)
         lines[case] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                            eager_ms=eager, device_kernels_per_call=kern,
                            device_memsets_per_call=copies)
-        emit({"check": "splat_fused", "case": case, "shape": [B, H, W, C],
-              "fraction_of_bound": b_ms / ms, **held, **lines[case],
-              "lists": tile_lists(flow, softsplat.plan(C))})
+        emit({"check": "splat_fused", "sums": entry, "case": case,
+              "shape": [B, H, W, C], "fraction_of_bound": b_ms / ms, **held,
+              **lines[case],
+              "lists": tile_lists(flow, softsplat.plan(C, elem))})
 
     # the tile shape: the plan's against others that fit, z <= 0
     zn = -z.abs()
@@ -216,27 +266,29 @@ def check_splat(dev, softsplat, kernels):
     for tile in ((8, 8), (4, 16), (8, 16), (16, 8), (4, 8)):
         with mock.patch.object(softsplat, "TILE", tile):
             tiles["%dx%d" % tile] = device_ms(
-                lambda: softsplat.splat_fused(img, flow, zn, True), reps=10)
-    emit({"check": "splat_tiles", "plan": list(softsplat.plan(C)),
-          "device_ms": tiles})
+                lambda: run(img, flow, zn, True), reps=10)
+    emit({"check": "splat_tiles", "sums": entry, "C": C,
+          "plan": list(softsplat.plan(C, elem)), "device_ms": tiles})
 
-    # a converging flow: every pixel of each image into one tile, which
-    # one block then takes alone (correct for any flow; slow here)
-    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
-                            torch.arange(W, device=dev), indexing="ij")
-    spread = torch.rand((B, H, W, 2), device=dev, generator=g) * 7.0
-    conv = (torch.tensor([200.0, 120.0], device=dev) + spread
-            - torch.stack([xs, ys], -1).float()).contiguous()
-    held = hold_splat(softsplat, kernels, img, conv, zn, True, tol=5e-2)
-    emit({"check": "splat_fused", "case": "converging", **held,
-          "ms": cuda_ms(lambda: softsplat.splat_fused(img, conv, zn, True),
-                        reps=2, warmup=1),
-          "lists": tile_lists(conv, softsplat.plan(C)),
-          "note": "float32 sums of ~7,200 terms per pixel in a varying "
-                  "order: tol 5e-2 on values up to out_max_abs"})
+    if sdt is None and C == 130:
+        # a converging flow: every pixel of each image into one tile, which
+        # one block then takes alone (correct for any flow; slow here)
+        ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                                torch.arange(W, device=dev), indexing="ij")
+        spread = torch.rand((B, H, W, 2), device=dev, generator=g) * 7.0
+        conv = (torch.tensor([200.0, 120.0], device=dev) + spread
+                - torch.stack([xs, ys], -1).float()).contiguous()
+        held = hold_splat(softsplat, kernels, img, conv, zn, True, tol=5e-2)
+        emit({"check": "splat_fused", "case": "converging", **held,
+              "ms": cuda_ms(lambda: run(img, conv, zn, True), reps=2,
+                            warmup=1),
+              "lists": tile_lists(conv, softsplat.plan(C)),
+              "note": "float32 sums of ~7,200 terms per pixel in a varying "
+                      "order: tol 5e-2 on values up to out_max_abs"})
 
     # yardstick: the same 4-corner scatter as ONE index_add_ call, its
     # payload and indices prepared outside the timed call
+    # (in the sums' type: a float16 index_add_ for the float16 entry)
     corners = softsplat._corner_data(flow, H, W)
     ez = torch.exp(zn).reshape(B, H * W, 1)
     flat = torch.cat([img.reshape(B, H * W, C) * ez, ez], -1)
@@ -244,29 +296,33 @@ def check_splat(dev, softsplat, kernels):
     idx = torch.cat([(c[0] + boff).reshape(-1) for c in corners])
     src = torch.cat([torch.cat([flat * torch.where(c[2], c[1], 0).reshape(
         B, H * W, 1), c[2].float().reshape(B, H * W, 1)], -1).reshape(-1, C + 2)
-        for c in corners])
-    acc = torch.zeros((B * H * W, C + 2), device=dev)
+        for c in corners]).to(sdt or torch.float32)
+    acc = torch.zeros((B * H * W, C + 2), device=dev, dtype=src.dtype)
     library = device_ms(lambda: acc.index_add_(0, idx, src), reps=10)
     del src, idx, acc
     return dict(max_abs_err=worst, library_ms=library, **lines["z<=0"])
 
 
-def check_splat_request(softsplat, kernels, inputs):
-    """The kernel on request (a)'s own splat inputs (the forward's
-    feat_hr, flow_hr and z): held against the plain version and timed,
-    with its tile lists."""
-    img, flow, z, nonpos = inputs
-    held = hold_splat(softsplat, kernels, img, flow, z, nonpos)
+def check_splat_request(softsplat, kernels, inputs, request):
+    """The kernel on a request's own splat inputs (the forward's feat_hr,
+    flow_hr and z, and its sums' type): held against the plain version and
+    timed, with its tile lists."""
+    img, flow, z, nonpos, sdt = inputs
+    held = hold_splat(softsplat, kernels, img, flow, z, nonpos,
+                      1e-4 if sdt is None else 4, sdt)
     B, H, W, C = img.shape
     b_ms, _ = splat_bound(B, H, W, C, nonpos)
-    ms = device_ms(lambda: softsplat.splat_fused(img, flow, z, nonpos))
-    emit({"check": "splat_fused", "case": "request_a", "shape": [B, H, W, C],
+
+    def run():
+        return softsplat.splat_fused(img, flow, z, nonpos, scatter_dtype=sdt)
+    ms = device_ms(run)
+    emit({"check": "splat_fused", "case": "request_" + request,
+          "sums": dname(sdt or torch.float32), "shape": [B, H, W, C],
           "z_nonpositive": nonpos, **held, "ms": ms, "bound_ms": b_ms,
-          "fraction_of_bound": b_ms / ms,
-          "eager_ms": cuda_ms(lambda: softsplat.splat_fused(img, flow, z,
-                                                            nonpos)),
+          "fraction_of_bound": b_ms / ms, "eager_ms": cuda_ms(run),
           "flow_abs_max": float(flow.abs().max()),
-          "lists": tile_lists(flow, softsplat.plan(C))})
+          "lists": tile_lists(flow, softsplat.plan(C, 4 if sdt is None
+                                                   else 2))})
 
 
 def cold_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
@@ -285,46 +341,51 @@ def cold_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
     return float(np.mean(times[2:]))
 
 
-def dcn_inputs(dev, B, H, W, G, cg, K):
+def dcn_inputs(dev, B, H, W, G, cg, K, dtype=torch.float32):
     """x, offsets up to ±10 px and the sigmoided mask, the last two sliced
     from one conv-like output as DCNSep does (strided views)."""
     g = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn((B, H, W, G * cg), device=dev, generator=g)
+    x = torch.randn((B, H, W, G * cg), device=dev, generator=g).to(dtype)
     n_off = G * K * K * 2
     com = torch.rand((B, H, W, G * K * K * 3), device=dev, generator=g)
     off = com[..., :n_off] * 20.0 - 10.0
-    mask = torch.sigmoid(com[..., n_off:] * 4.0 - 2.0)
     com[..., :n_off] = off
+    com = com.to(dtype)
+    mask = torch.sigmoid(com[..., n_off:] * 4.0 - 2.0)
     return x, com[..., :n_off], mask
 
 
-def time_dcn_v2(dev, dcn):
+def time_dcn_v2(dev, dcn, dtype=torch.float32):
     """The whole dcn_v2 at L1 (2 x 64 x 112, 64 -> 64 channels, G = 8,
     K = 3) through its public signature, which older checkouts of the
     package share: device ms (graph replay) and eager ms per call."""
     G, cg, K = 8, 8, 3
-    x, off, mask = dcn_inputs(dev, 2, 64, 112, G, cg, K)
+    x, off, mask = dcn_inputs(dev, 2, 64, 112, G, cg, K, dtype)
     g = torch.Generator(device=dev).manual_seed(5)
-    w = torch.randn((64, G * cg, K, K), device=dev, generator=g) * 0.05
-    bias = torch.randn((64,), device=dev, generator=g)
+    w = (torch.randn((64, G * cg, K, K), device=dev, generator=g) * 0.05
+         ).to(dtype)
+    bias = torch.randn((64,), device=dev, generator=g).to(dtype)
     full = (x, off, mask, w, bias, K, 1, 1, 1, G)
     return {"dcn_v2_ms": device_ms(lambda: dcn.dcn_v2(*full), reps=10),
             "dcn_v2_eager_ms": cuda_ms(lambda: dcn.dcn_v2(*full))}
 
 
-def check_dcn(dev, dcn, kernels):
+def check_dcn(dev, dcn, kernels, dtype=torch.float32):
     """L1 / L2 / L3 of the BiLSTM's PCD (B = 2, G = 8, cg = 8, K = 3),
     offsets up to ±10 px, and one H % 8 != 0 height; the offsets a strided
     view as on the main path. At L1 also the kernel with the L2 cold and
-    the whole dcn_v2 (kernel + addmm)."""
+    the whole dcn_v2 (kernel + addmm). float32: atol 1e-5. bfloat16: the
+    kernel and the plain version do the same float32 arithmetic and round
+    once, so 1 bfloat16 ulp of the largest column (a fused multiply-add
+    may move a float32 sum across a rounding boundary)."""
     import torch.nn.functional as F
 
     G, cg, K = 8, 8, 3
-    tol = 1e-5
+    esize = torch.empty((), dtype=dtype).element_size()
     worst, first = 0.0, None
     for level, (B, H, W) in (("L1", (2, 64, 112)), ("L2", (2, 32, 56)),
                              ("L3", (2, 16, 28)), ("H%8!=0", (2, 62, 110))):
-        x, off, mask = dcn_inputs(dev, B, H, W, G, cg, K)
+        x, off, mask = dcn_inputs(dev, B, H, W, G, cg, K, dtype)
         args = (x, off, mask, K, 1, 1, 1, G)
         n0 = kernels.LAUNCHES["dcn_im2col"]
         got = dcn.dcn_im2col(*args)
@@ -332,6 +393,8 @@ def check_dcn(dev, dcn, kernels):
         want = dcn.dcn_im2col_plain(*args)
         torch.cuda.synchronize()
         err = max_err(got, want)
+        tol = (1e-5 if dtype == torch.float32
+               else ulp(float(want.abs().max()), 7))
         if not err <= tol:
             raise AssertionError(f"dcn_im2col {level}: err {err} (tol {tol})")
         worst = max(worst, err)
@@ -346,12 +409,13 @@ def check_dcn(dev, dcn, kernels):
         xg = x.reshape(B, H, W, G, cg).permute(0, 3, 4, 1, 2).reshape(
             B * G, cg, H, W).contiguous()
         grid = torch.stack([2.0 * px / (W - 1) - 1.0, 2.0 * py / (H - 1) - 1.0],
-                           -1).reshape(B * G, 1, Q, 2)
+                           -1).reshape(B * G, 1, Q, 2).to(dtype)
         library = device_ms(lambda: F.grid_sample(
             xg, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True))
         # x, offsets and mask read once, the columns written once
-        nbytes = 4 * (x.numel() + off.numel() + mask.numel() + got.numel())
+        nbytes = esize * (x.numel() + off.numel() + mask.numel()
+                          + got.numel())
         flops = B * G * Q * (cg * 9 + 20)
         b_ms, b_by = bound(nbytes, flops)
         line = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
@@ -362,10 +426,13 @@ def check_dcn(dev, dcn, kernels):
             extra["ms_l2_cold"] = cold_ms(lambda: dcn.dcn_im2col(*args),
                                           flush)
             del flush
-            extra.update(time_dcn_v2(dev, dcn))
+            extra.update(time_dcn_v2(dev, dcn, dtype))
             with mock.patch.object(dcn, "dcn_im2col", dcn.dcn_im2col_plain):
-                extra["dcn_v2_plain_ms"] = time_dcn_v2(dev, dcn)["dcn_v2_ms"]
-        emit({"check": "dcn_im2col", "level": level, "launches": launches,
+                extra["dcn_v2_plain_ms"] = time_dcn_v2(dev, dcn,
+                                                       dtype)["dcn_v2_ms"]
+        emit({"check": "dcn_im2col", "dtype": dname(dtype), "level": level,
+              "exact_share": float((got == want).float().mean()),
+              "launches": launches,
               "shape": [B, H, W, G, cg], "Q": Q, "max_abs_err": err,
               "tol": tol, "fraction_of_bound": b_ms / ms, **line, **extra})
         first = first or line
@@ -379,54 +446,80 @@ SIRENS = {  # name: (fan-in, hidden widths, out, tokens on the main path)
 }
 
 
-def check_siren(dev, siren_kernel, Siren, kernels):
-    """fp32 FMA and sinf, as the plain version with TF32 off: 1e-5 (the
-    outputs are about 0.05; TF32 products or a fast __sinf would miss it)."""
-    tol = 1e-5
+def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
+                skip_first=False):
+    """One entry of siren_mlp (element type; whole MLP or from the first
+    layer's pre-activation) on the three MLPs at the main path's token
+    counts. float32: FMA and sinf, as the plain version with TF32 off:
+    1e-5 (the outputs are about 0.05; TF32 products or a fast __sinf would
+    miss it). bfloat16: kernel and plain version accumulate the same exact
+    products in float32 in the same order and round at the same four
+    points, so 1 bfloat16 ulp of the largest output. The bound counts the
+    bfloat16 products at the tensor cores' bf16 peak."""
+    bf = dtype == torch.bfloat16
     worst, first = 0.0, None
     for name, (cin, hidden, cout, n_tok) in SIRENS.items():
         torch.manual_seed(3)
         m = Siren(cin, hidden, len(hidden) - 1, cout).to(dev)
-        lins = m._linears()
-        ws = [lin.weight.detach() for lin in lins]
-        bs = [lin.bias.detach() for lin in lins]
+        lins = m._linears()[1 if skip_first else 0:]
+        ws = [lin.weight.detach().to(dtype) for lin in lins]
+        bs = [lin.bias.detach().to(dtype) for lin in lins]
         g = torch.Generator(device=dev).manual_seed(4)
-        x = torch.rand((n_tok, cin), device=dev, generator=g) * 2.0 - 1.0
+        width = hidden[0] if skip_first else cin
+        # a pre-activation is about ±0.6 (what layer 0 gives on this x)
+        x = ((torch.rand((n_tok, width), device=dev, generator=g) * 2.0 - 1.0)
+             * (0.6 if skip_first else 1.0)).to(dtype)
+
+        def run():
+            return siren_kernel.siren_mlp(x, ws, bs, 30.0, False, skip_first)
+
+        def run_plain():
+            return siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, False,
+                                                skip_first)
         n0 = kernels.LAUNCHES["siren_mlp"]
-        got = siren_kernel.siren_mlp(x, ws, bs)
+        got = run()
         launches = kernels.LAUNCHES["siren_mlp"] - n0
-        want = siren_kernel.siren_mlp_plain(x, ws, bs)
+        want = run_plain()
         torch.cuda.synchronize()
         err = max_err(got, want)
+        tol = ulp(float(want.abs().max()), 7) if bf else 1e-5
+        exact = float((got == want).float().mean())
+        del want
         if not err <= tol:
-            raise AssertionError(f"siren_mlp {name}: err {err} (tol {tol})")
+            raise AssertionError(f"siren_mlp {name} {dname(dtype)} "
+                                 f"skip_first={skip_first}: err {err} "
+                                 f"(tol {tol}), bit-equal share {exact}")
         worst = max(worst, err)
-        ms = device_ms(lambda: siren_kernel.siren_mlp(x, ws, bs), reps=10)
-        eager = cuda_ms(lambda: siren_kernel.siren_mlp(x, ws, bs), reps=10)
-        plain = device_ms(lambda: siren_kernel.siren_mlp_plain(x, ws, bs),
-                          reps=10)
+        ms = device_ms(run, reps=10)
+        eager = cuda_ms(run, reps=10)
+        plain = device_ms(run_plain, reps=10)
 
         def addmm_sin_chain():
             # the fastest one-call-per-layer form: cuBLAS addmm (what
-            # F.linear runs), then the sine
-            h = x
+            # F.linear runs), then the sine, in the entry's element type
+            h = torch.sin(30.0 * x) if skip_first else x
             for i, (w, b) in enumerate(zip(ws, bs)):
                 h = torch.addmm(b, h, w.t())
                 if i < len(ws) - 1:
                     h = torch.sin(30.0 * h)
             return h
         library = device_ms(addmm_sin_chain, reps=10)
-        dims = [cin] + hidden + [cout]
+        dims = [width] + hidden[1 if skip_first else 0:] + [cout]
         macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-        flops = n_tok * (2 * macs + 2 * sum(dims[1:-1]))
-        nbytes = 4 * (x.numel() + got.numel()
-                      + sum(w.numel() + b.numel() for w, b in zip(ws, bs)))
-        b_ms, b_by = bound(nbytes, flops)
+        sines = sum(dims[1:-1]) + (dims[0] if skip_first else 0)
+        flops = n_tok * (2 * macs + 2 * sines)
+        nbytes = x.element_size() * (
+            x.numel() + got.numel()
+            + sum(w.numel() + b.numel() for w, b in zip(ws, bs)))
+        b_ms, b_by = bound(nbytes, flops,
+                           BF16_FLOP_PER_S if bf else FP32_FLOP_PER_S)
         line = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                     library_ms=library, eager_ms=eager)
-        emit({"check": "siren_mlp", "mlp": name, "launches": launches,
+        emit({"check": "siren_mlp", "dtype": dname(dtype),
+              "skip_first": skip_first, "mlp": name, "launches": launches,
               "tokens": n_tok, "dims": dims, "max_abs_err": err, "tol": tol,
-              "fraction_of_bound": b_ms / ms,
+              "exact_share": exact, "fraction_of_bound": b_ms / ms,
+              "peak": "bf16 tensor cores" if bf else "fp32",
               "library": "addmm + sin per layer (cuBLAS)", **line})
         first = first or line
     return dict(max_abs_err=worst, **first)
@@ -474,14 +567,15 @@ def check_frames(name, frames, shape):
         raise AssertionError(f"request {name}: frames outside [0, 1]")
 
 
-def build_request(dev):
+def build_request(dev, **knobs):
     """MoTIF(setting=5) at full width with random weights from seed 0 and
-    perturbed DCN offsets, its Evaluator, and request (a)'s inputs."""
+    perturbed DCN offsets (the same weights whatever the knobs), its
+    Evaluator, and request (a)'s inputs."""
     from motif_tpu_torch.eval import Evaluator
     from motif_tpu_torch.models.motif import build_motif
 
     model = build_motif(channel=64, front_rbs=5, back_rbs=40, device=dev,
-                        seed=0)
+                        seed=0, **knobs)
     n_dcn = perturb_offsets(model, seed=1)
     ev = Evaluator(model, scale=4, iters=4, chunk=3, device=dev)
     rng = np.random.default_rng(0)
@@ -501,114 +595,232 @@ def time_request(ev, lq, times, n):
     return ts
 
 
-def run_slice(dev, args, card):
-    from motif_tpu_torch.ops import dcn, kernels, siren_kernel, softsplat
+def psnr(a, b) -> float:
+    return float(10.0 * np.log10(1.0 / max(float(np.mean((a - b) ** 2)),
+                                           1e-20)))
 
-    t0 = time.perf_counter()
-    model, n_dcn, ev, rng, lq_a, t3 = build_request(dev)
-    t7 = np.linspace(0, 1, 7, dtype=np.float32)[None]
-    lq_c = rng.random((1, 4, 62, 110, 3), dtype=np.float32)
-    emit({"phase": "slice_setup", "params": sum(p.numel() for p in
-                                                model.parameters()),
-          "dcn_modules_perturbed": n_dcn,
-          "seconds": time.perf_counter() - t0})
 
-    # ---- the main path: counters to 0, four requests, counters read ----
-    kernels.reset_launches()
-    per_request = {}
-    t0 = time.perf_counter()
-    fa, stats_a = ev.infer(lq_a, t3, (256, 448))
-    per_request["a"] = dict(kernels.LAUNCHES)
-    fb, _ = ev.infer(lq_a, t7, (256, 448))
-    fc, _ = ev.infer(lq_c, t3, (248, 440))
-    with torch.no_grad():
-        model.alpha.fill_(0.05)          # z > 0: the max splat runs
-    before_d = dict(kernels.LAUNCHES)
-    fd, _ = ev.infer(lq_a, t3, (256, 448))
-    per_request["d"] = {k: v - before_d[k] for k, v in kernels.LAUNCHES.items()}
-    with torch.no_grad():
-        model.alpha.fill_(-20.0)
-    launches = dict(kernels.LAUNCHES)
-    seconds = time.perf_counter() - t0
-    for name, f, shape in (("a", fa, (3, 1, 256, 448, 3)),
-                           ("b", fb, (7, 1, 256, 448, 3)),
-                           ("c", fc, (3, 1, 248, 440, 3)),
-                           ("d", fd, (3, 1, 256, 448, 3))):
-        check_frames(name, f, shape)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing} (counts {launches})")
-    emit({"phase": "main_path", "requests": 4, "seconds": seconds,
-          "launches": launches, "launches_per_request": per_request,
-          "flow_stats_a": stats_a})
+def hold_against(name, frames, ref, tol, min_psnr=None):
+    """Frames of a knob path against the float32 reference-order frames on
+    the same weights: max abs below `tol`, and at least `min_psnr` dB."""
+    err = float(np.abs(frames - ref).max())
+    db = psnr(frames, ref)
+    emit({"phase": "knobs_vs_float32", "request": name, "max_abs_err": err,
+          "tol": tol, "psnr_db": db, "min_psnr_db": min_psnr,
+          "mean_abs_err": float(np.abs(frames - ref).mean())})
+    if not err < tol or (min_psnr is not None and not db >= min_psnr):
+        raise AssertionError(f"request ({name}) against request (a): max abs "
+                             f"{err} (tol {tol}), {db} dB (min {min_psnr})")
 
-    # ---- request (a) against the same forward with the plain versions:
-    # the frames, the synthesis output before the clip (most frames clip
-    # with random weights) and the flow statistics ----
-    tol, stats_rtol = 1e-5, 1e-5
+
+def slice_vs_plain(ev, model, lq, times, name, tol, stats_rtol, mods):
+    """One request against the same forward with the plain versions: the
+    frames, the synthesis output before the clip (most frames clip with
+    random weights) and the flow statistics."""
+    softsplat, dcn, siren_kernel, kernels = mods
     pre_clip = []
     hook = model.synth_net.register_forward_hook(
         lambda mod, inp, out: pre_clip.append(out.double().cpu()))
-    fa_k, stats_k = ev.infer(lq_a, t3, (256, 448))   # kernels, hooked
+    f_k, stats_k = ev.infer(lq, times, (256, 448))   # kernels, hooked
     with plain_versions(softsplat, dcn, siren_kernel):
         kernels.reset_launches()
-        fa_plain, stats_plain = ev.infer(lq_a, t3, (256, 448))
+        f_plain, stats_plain = ev.infer(lq, times, (256, 448))
         if any(kernels.LAUNCHES.values()):
             raise AssertionError("the plain forward launched a kernel")
     hook.remove()
     pre_k, pre_plain = pre_clip
-    err = float(np.abs(fa_k - fa_plain).max())
+    err = float(np.abs(f_k - f_plain).max())
     err_pre = float((pre_k - pre_plain).abs().max())
     err_stats = max(abs(a - b) / abs(b) for a, b in zip(stats_k, stats_plain))
-    emit({"phase": "slice_vs_plain", "request": "a", "max_abs_err": err,
-          "mean_abs_err": float(np.abs(fa_k - fa_plain).mean()), "tol": tol,
-          "clipped_share": float(((fa_plain <= 0) | (fa_plain >= 1)).mean()),
+    emit({"phase": "slice_vs_plain", "request": name, "max_abs_err": err,
+          "mean_abs_err": float(np.abs(f_k - f_plain).mean()), "tol": tol,
+          "psnr_db": psnr(f_k, f_plain),
+          "clipped_share": float(((f_plain <= 0) | (f_plain >= 1)).mean()),
           "pre_clip_max_abs_err": err_pre,
+          "pre_clip_mean_abs_err": float((pre_k - pre_plain).abs().mean()),
           "pre_clip_max_abs": float(pre_plain.abs().max()),
           "flow_stats": stats_k, "flow_stats_plain": stats_plain,
           "flow_stats_max_rel_err": err_stats, "flow_stats_rtol": stats_rtol})
     if not (err <= tol and err_pre <= tol and err_stats <= stats_rtol):
         raise AssertionError(
-            f"request (a) kernels vs plain: frames {err}, before the clip "
-            f"{err_pre} (tol {tol}); flow stats rel {err_stats} (rtol "
+            f"request ({name}) kernels vs plain: frames {err}, before the "
+            f"clip {err_pre} (tol {tol}); flow stats rel {err_stats} (rtol "
             f"{stats_rtol})")
 
-    # ---- the splat kernel on request (a)'s own inputs ----
+
+def capture_splat(ev, softsplat, lq, times):
+    """The splat's inputs on one request."""
     captured = []
     splat = softsplat.splat_fused
 
-    def spy(img, flow, z, z_nonpositive):
-        captured.append((img.clone(), flow.clone(), z.clone(), z_nonpositive))
-        return splat(img, flow, z, z_nonpositive)
+    def spy(img, flow, z, z_nonpositive, scatter_dtype=None):
+        captured.append((img.clone(), flow.clone(), z.clone(), z_nonpositive,
+                         scatter_dtype))
+        return splat(img, flow, z, z_nonpositive, scatter_dtype)
     with mock.patch.object(softsplat, "splat_fused", spy):
-        ev.infer(lq_a, t3, (256, 448))
-    check_splat_request(softsplat, kernels, captured[0])
-    del captured
+        ev.infer(lq, times, (256, 448))
+    return captured[0]
 
-    # ---- time request (a): kernels, plain, kernels, plain ----
-    k1 = time_request(ev, lq_a, t3, 5)
+
+# What request (e) must launch and nothing else of these kernels: 42 DCNs,
+# three SIRENs per decode chunk and one splat per forward.
+def serving_entries(chunks: int) -> dict:
+    return {"dcn_im2col/bfloat16": 42,
+            "siren_mlp/bfloat16/skip_first": 3 * chunks,
+            "splat_fused/float16/C=64": 1}
+
+
+def run_slice(dev, args, card):
+    from motif_tpu_torch.ops import dcn, kernels, siren_kernel, softsplat
+
+    mods = (softsplat, dcn, siren_kernel, kernels)
+    t0 = time.perf_counter()
+    model, n_dcn, ev, rng, lq_a, t3 = build_request(dev)
+    model_s, _, ev_s, _, _, _ = build_request(dev, **SERVING)
+    t7 = np.linspace(0, 1, 7, dtype=np.float32)[None]
+    lq_c = rng.random((1, 4, 62, 110, 3), dtype=np.float32)
+    same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 model_s.state_dict().values()))
+    if not same:
+        raise AssertionError("the serving model's weights differ")
+    emit({"phase": "slice_setup", "params": sum(p.numel() for p in
+                                                model.parameters()),
+          "dcn_modules_perturbed": n_dcn, "serving_knobs": SERVING,
+          "seconds": time.perf_counter() - t0})
+
+    # ---- the main path: counters to 0, the requests, counters read ----
+    kernels.reset_launches()
+    per_request, entries = {}, {}
+
+    def counted(name, fn):
+        before, ebefore = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+        out = fn()
+        per_request[name] = {k: v - before[k]
+                             for k, v in kernels.LAUNCHES.items()}
+        entries[name] = {k: v - ebefore.get(k, 0)
+                         for k, v in kernels.ENTRY_LAUNCHES.items()
+                         if v - ebefore.get(k, 0)}
+        return out
+
+    t0 = time.perf_counter()
+    fa, stats_a = counted("a", lambda: ev.infer(lq_a, t3, (256, 448)))
+    fb, _ = counted("b", lambda: ev.infer(lq_a, t7, (256, 448)))
+    fc, _ = counted("c", lambda: ev.infer(lq_c, t3, (248, 440)))
+    with torch.no_grad():
+        model.alpha.fill_(0.05)          # z > 0: the max splat runs
+    fd, _ = counted("d", lambda: ev.infer(lq_a, t3, (256, 448)))
+    with torch.no_grad():
+        model.alpha.fill_(-20.0)
+    fe, stats_e = counted("e", lambda: ev_s.infer(lq_a, t3, (256, 448)))
+    fe2, _ = counted("e2", lambda: ev_s.infer(lq_a, t3, (256, 448)))
+    model_s.configure(**SERVING, decode_chunks=3)
+    fe3, _ = counted("e3", lambda: ev_s.infer(lq_a, t3, (256, 448)))
+    model_s.configure(fused_decode=True)
+    ff, _ = counted("f", lambda: ev_s.infer(lq_a, t3, (256, 448)))
+    model_s.configure(compute_dtype="bfloat16")
+    fg, _ = counted("g", lambda: ev_s.infer(lq_a, t3, (256, 448)))
+    model_s.configure(**SERVING)
+    launches = dict(kernels.LAUNCHES)
+    entry_launches = dict(kernels.ENTRY_LAUNCHES)
+    seconds = time.perf_counter() - t0
+    for name, f, shape in (("a", fa, (3, 1, 256, 448, 3)),
+                           ("b", fb, (7, 1, 256, 448, 3)),
+                           ("c", fc, (3, 1, 248, 440, 3)),
+                           ("d", fd, (3, 1, 256, 448, 3)),
+                           ("e", fe, (3, 1, 256, 448, 3)),
+                           ("e2", fe2, (3, 1, 256, 448, 3)),
+                           ("e3", fe3, (3, 1, 256, 448, 3)),
+                           ("f", ff, (3, 1, 256, 448, 3)),
+                           ("g", fg, (3, 1, 256, 448, 3))):
+        check_frames(name, f, shape)
+    missing = [k for k, v in launches.items() if v == 0]
+    missing += [k for k in ENTRIES if not entry_launches.get(k)]
+    if missing:
+        raise AssertionError(f"never launched on the main path: {missing} "
+                             f"(counts {launches}, {entry_launches})")
+    if entries["e"] != serving_entries(1) or entries["e3"] != serving_entries(3):
+        raise AssertionError(
+            f"request (e) launched {entries['e']} (wanted "
+            f"{serving_entries(1)}), in three chunks {entries['e3']} "
+            f"(wanted {serving_entries(3)})")
+    emit({"phase": "main_path", "requests": len(per_request),
+          "seconds": seconds, "launches": launches,
+          "entry_launches": entry_launches,
+          "launches_per_request": per_request,
+          "entry_launches_per_request": entries,
+          "flow_stats_a": stats_a, "flow_stats_e": stats_e})
+    emit({"phase": "request_e_entries",
+          "ran_in": {k.split("/")[0]: k.split("/", 1)[1]
+                     for k in entries["e"]},
+          "launches": entries["e"],
+          "no_float32_entry": not any("float32" in k for k in entries["e"])})
+
+    # ---- the knob paths against request (a)'s float32 frames: fused
+    # decode is a reordering (5e-3); the low precisions by the 6e-2 / 35 dB
+    # gate. Decode chunks are exact for the SIRENs (the card tests hold
+    # that bit for bit), but the float16 splat sums in an order that varies
+    # from run to run, so request (e) in three chunks is held to request
+    # (e) as a second run of request (e) itself is: 2e-2 ----
+    again = float(np.abs(fe - fe2).max())
+    chunked = float(np.abs(fe - fe3).max())
+    emit({"phase": "decode_chunks", "request": "e", "chunks": 3,
+          "max_abs_err_vs_one_chunk": chunked,
+          "max_abs_err_run_to_run": again, "tol": 2e-2})
+    if not (chunked <= 2e-2 and again <= 2e-2):
+        raise AssertionError(
+            f"request (e): in three decode chunks off by {chunked}, a second "
+            f"run by {again} (tol 2e-2)")
+    hold_against("f", ff, fa, 5e-3)
+    hold_against("g", fg, fa, 6e-2, 35.0)
+    hold_against("e", fe, fa, 6e-2, 35.0)
+
+    # ---- requests (a) and (e) against the same forward with the plain
+    # versions. (a): 1e-5. (e): every kernel entry is within one ulp of its
+    # plain version, but one bfloat16 ulp in a motion SIREN's output moves
+    # a splatted pixel across a floor(), so the request is held by the
+    # gate of the knobs themselves, frames and pre-clip output ----
+    slice_vs_plain(ev, model, lq_a, t3, "a", 1e-5, 1e-5, mods)
+    slice_vs_plain(ev_s, model_s, lq_a, t3, "e", 6e-2, 1e-2, mods)
+
+    # ---- the splat kernel on the requests' own inputs ----
+    check_splat_request(softsplat, kernels,
+                        capture_splat(ev, softsplat, lq_a, t3), "a")
+    check_splat_request(softsplat, kernels,
+                        capture_splat(ev_s, softsplat, lq_a, t3), "e")
+
+    # ---- time requests (a) and (e), in turns, and (a)'s plain forward ----
+    a1 = time_request(ev, lq_a, t3, 5)
+    e1 = time_request(ev_s, lq_a, t3, 5)
     with plain_versions(softsplat, dcn, siren_kernel):
         p1 = time_request(ev, lq_a, t3, 3)
-    k2 = time_request(ev, lq_a, t3, 5)
+    e2 = time_request(ev_s, lq_a, t3, 5)
+    a2 = time_request(ev, lq_a, t3, 5)
     with plain_versions(softsplat, dcn, siren_kernel):
         p2 = time_request(ev, lq_a, t3, 3)
-    fwd_ms = float(np.median(k1 + k2))
+    fwd_ms = float(np.median(a1 + a2))
     plain_ms = float(np.median(p1 + p2))
     emit({"phase": "request_a_time", "card": card,
           "forward_ms_median": fwd_ms, "hr_frames_per_s": 3e3 / fwd_ms,
-          "forward_ms": k1 + k2, "plain_forward_ms_median": plain_ms,
+          "forward_ms": a1 + a2, "plain_forward_ms_median": plain_ms,
           "plain_forward_ms": p1 + p2,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "note": "Evaluator.infer wall time incl. host copy-out, fp32, "
                   "TF32 off, iters=4, LQ 64x112 -> HR 256x448, 3 times"})
+    e_ms = float(np.median(e1 + e2))
+    emit({"phase": "request_e_time", "card": card,
+          "forward_ms_median": e_ms, "hr_frames_per_s": 3e3 / e_ms,
+          "forward_ms": e1 + e2, "request_a_forward_ms_median": fwd_ms,
+          "knobs": SERVING,
+          "note": "request (a)'s inputs through the serving configuration, "
+                  "timed in turns with request (a): a, e, e, a"})
 
     if args.profile:
-        profile_request(ev, lq_a, t3, args.profile)
-    return launches, per_request
+        profile_request(ev, lq_a, t3, args.profile, "a")
+        profile_request(ev_s, lq_a, t3, args.profile, "e")
+    return launches, entry_launches, per_request, entries
 
 
-def profile_request(ev, lq, times, out_dir):
+def profile_request(ev, lq, times, out_dir, name):
     """One request under torch.profiler: the table goes to `out_dir`; the
     device busy time (kernels and copies only, not the host-side ops that
     enclose them) against the request's wall time."""
@@ -621,26 +833,29 @@ def profile_request(ev, lq, times, out_dir):
         ev.infer(lq, times, (256, 448))
         wall_ms = (time.perf_counter() - t) * 1e3
     events = p.key_averages()
-    with open(os.path.join(out_dir, "profile_request_a.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_request_{name}.txt"), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)
     copies = sum(e.count for e in device if e.key.startswith(("Memcpy",
                                                               "Memset")))
-    emit({"phase": "profile", "request_wall_ms_profiled": wall_ms,
+    emit({"phase": "profile", "request": name,
+          "request_wall_ms_profiled": wall_ms,
           "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
           "device_kernel_launches": sum(e.count for e in device) - copies,
           "device_copies": copies,
           "top_device": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                         for e in top[:20]]})
+                         for e in top[:25]]})
 
 
 def compare_only(dev, card, out_dir):
     """The numbers that compare two checkouts of the package, through the
     entry points they share: dcn_v2 at L1, splat_fused at the smoke's
     shapes (z <= 0), request (a)'s median and single runs, and one profiled
-    request's device kernels."""
+    request's device kernels; and request (e) likewise where the checkout
+    has the serving knobs."""
+    from motif_tpu_torch.models.motif import MoTIF
     from motif_tpu_torch.ops import dcn, softsplat
 
     emit({"phase": "compare_dcn_v2_L1", "card": card,
@@ -656,12 +871,16 @@ def compare_only(dev, card, out_dir):
           "eager_ms": cuda_ms(lambda: softsplat.splat_fused(img, flow, z,
                                                             True))})
     del img, flow, z
-    _, _, ev, _, lq_a, t3 = build_request(dev)
-    time_request(ev, lq_a, t3, 2)                        # warm-up
-    ts = time_request(ev, lq_a, t3, 10)
-    emit({"phase": "compare_request_a", "card": card,
-          "forward_ms_median": float(np.median(ts)), "forward_ms": ts})
-    profile_request(ev, lq_a, t3, out_dir)
+    runs = [("a", {})]
+    if hasattr(MoTIF, "configure"):
+        runs.append(("e", SERVING))
+    for name, knobs in runs:
+        _, _, ev, _, lq_a, t3 = build_request(dev, **knobs)
+        time_request(ev, lq_a, t3, 2)                        # warm-up
+        ts = time_request(ev, lq_a, t3, 10)
+        emit({"phase": f"compare_request_{name}", "card": card,
+              "forward_ms_median": float(np.median(ts)), "forward_ms": ts})
+        profile_request(ev, lq_a, t3, out_dir, name)
 
 
 # ---------------------------------------------------------------------------
@@ -676,10 +895,12 @@ def card_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="write a torch.profiler table of request (a) to DIR")
+                    help="write torch.profiler tables of requests (a) and "
+                         "(e) to DIR")
     ap.add_argument("--compare-only", metavar="DIR",
-                    help="only time dcn_v2 at L1, the splat and request (a) "
-                         "and profile it into DIR, through entry points that "
+                    help="only time dcn_v2 at L1, the splat and requests (a) "
+                         "and (e) and profile them into DIR, through entry "
+                         "points that "
                          "older checkouts share (run one with `python3 -P` "
                          "and its tree first on PYTHONPATH)")
     args = ap.parse_args()
@@ -713,10 +934,26 @@ def main() -> int:
         compare_only(dev, card, args.compare_only)
         return 0
 
-    results = {"splat_fused": check_splat(dev, softsplat, kernels),
-               "dcn_im2col": check_dcn(dev, dcn, kernels),
-               "siren_mlp": check_siren(dev, siren_kernel, Siren, kernels)}
-    launches, per_request = run_slice(dev, args, card)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    results = {
+        "splat_fused/float32/C=130": check_splat(dev, softsplat, kernels),
+        "splat_fused/float32/C=64": check_splat(dev, softsplat, kernels, 64),
+        "splat_fused/float16/C=64": check_splat(dev, softsplat, kernels, 64,
+                                                f16),
+        "dcn_im2col/float32": check_dcn(dev, dcn, kernels),
+        "dcn_im2col/bfloat16": check_dcn(dev, dcn, kernels, bf16),
+        "siren_mlp/float32/whole": check_siren(dev, siren_kernel, Siren,
+                                               kernels),
+        "siren_mlp/float32/skip_first": check_siren(
+            dev, siren_kernel, Siren, kernels, f32, True),
+        "siren_mlp/bfloat16/whole": check_siren(dev, siren_kernel, Siren,
+                                                kernels, bf16),
+        "siren_mlp/bfloat16/skip_first": check_siren(
+            dev, siren_kernel, Siren, kernels, bf16, True),
+    }
+    if set(results) != set(ENTRIES):
+        raise AssertionError("an entry was not held against its plain version")
+    launches, entry_launches, per_request, entries = run_slice(dev, args, card)
 
     meta = {
         "splat_fused": ("motif_tpu_torch/csrc/splat_fused.cu",
@@ -728,14 +965,19 @@ def main() -> int:
     }
     also = {"dcn_im2col": ["motif_tpu/ops/dcn_pallas.py:152"]}
     rows = []
-    for name, (src, rep) in meta.items():
-        r = results[name]
-        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-               "launches": launches[name], "max_abs_err": r["max_abs_err"],
+    for entry in ENTRIES:
+        name, variant = entry.split("/", 1)
+        src, replaces = meta[name]
+        r = results[entry]
+        row = {"name": f"{name}[{variant}]", "kernel": name, "route": "cuda",
+               "source": src, "replaces": replaces,
+               "launches": entry_launches[entry],
+               "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "eager_ms": r["eager_ms"],
-               "launches_request_a": per_request["a"][name]}
+               "launches_request_a": entries["a"].get(entry, 0),
+               "launches_request_e": entries["e"].get(entry, 0)}
         if "device_kernels_per_call" in r:
             row["device_kernels_per_call"] = r["device_kernels_per_call"]
         if name in also:

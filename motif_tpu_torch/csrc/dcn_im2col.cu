@@ -12,7 +12,14 @@
 // multiply and the transpose into the im2col operand). It is exact for
 // every input: no window, no precondition.
 //
-// Layout (float32):
+// Element type E: float32 or bfloat16 (one template, two entries). In
+// bfloat16 x, the offsets, the mask and the columns are bfloat16; the
+// positions, the hat weights, the corner sum and the mask product are
+// float32, and a column is rounded once, at its store. (The JAX package's
+// one-hot sampler rounds its hat weights to bfloat16 before the product;
+// this kernel keeps them float32, which costs it nothing.)
+//
+// Layout:
 //   x    (B, H, W, G * cg)     NHWC, contiguous; group g owns channels
 //                              [g * cg, (g + 1) * cg)
 //   off  (B, Ho, Wo, G*K*K*2)  layout (g, k, [y, x]); pixel p's row starts
@@ -41,16 +48,19 @@
 // the offsets and the mask of neighbouring taps at neighbouring addresses)
 // and hand each chunk thread its tap by warp shuffle. Each thread then
 // loads the four corner runs of VEC contiguous channels of x (16-byte
-// loads when cg % 4 == 0; x stays in L2) and writes VEC columns. No shared
+// loads: 4 floats when cg % 4 == 0, 8 bfloat16s when cg % 8 == 0; x stays
+// in L2) and writes VEC columns. No shared
 // memory and no barrier: at the PCD's L3 (896 pixels) the kernel is a few
 // microseconds of latency, and a form that staged the taps in shared
 // memory behind a barrier was slower there and at L1 on the H100.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
+typedef __nv_bfloat16 bf16;
 
 struct Tap {
   float4 w;  // hat weights of corners (y0, x0), (y0, x1), (y1, x0), (y1, x1)
@@ -60,53 +70,82 @@ struct Tap {
   float m;   // the mask
 };
 
-template <int VEC>
-struct Vec;
+// VEC consecutive elements of type E at p, as floats: one 16-byte access
+// for 4 floats or 8 bfloat16s, else one element.
+template <typename E, int VEC>
+struct Run;
 template <>
-struct Vec<4> {
-  using T = float4;
+struct Run<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
 };
 template <>
-struct Vec<1> {
-  using T = float;
+struct Run<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) {
+    v[0] = __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) {
+    *p = v[0];
+  }
+};
+template <>
+struct Run<bf16, 8> {
+  static __device__ __forceinline__ void load(const bf16* p, float (&v)[8]) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {  // a bfloat16 is the top half of a float
+      v[2 * n] = __uint_as_float(u[n] << 16);
+      v[2 * n + 1] = __uint_as_float(u[n] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[8]) {
+    unsigned u[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * n], v[2 * n + 1]);
+      u[n] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  }
+};
+template <>
+struct Run<bf16, 1> {
+  static __device__ __forceinline__ void load(const bf16* p, float (&v)[1]) {
+    v[0] = __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[1]) {
+    *p = __float2bfloat16_rn(v[0]);
+  }
 };
 
-__device__ __forceinline__ float4 load(const float* p, float4*) {
-  return __ldg(reinterpret_cast<const float4*>(p));
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float load(const float* p, float*) {
-  return __ldg(p);
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
-
-__device__ __forceinline__ float4 combine(float4 a, float4 b, float4 c,
-                                          float4 d, float4 w, float m) {
-  // the plain version's order: the four weighted corners summed in turn,
-  // then the mask
-  float4 v;
-  v.x = (((a.x * w.x + b.x * w.y) + c.x * w.z) + d.x * w.w) * m;
-  v.y = (((a.y * w.x + b.y * w.y) + c.y * w.z) + d.y * w.w) * m;
-  v.z = (((a.z * w.x + b.z * w.y) + c.z * w.z) + d.z * w.w) * m;
-  v.w = (((a.w * w.x + b.w * w.y) + c.w * w.z) + d.w * w.w) * m;
-  return v;
-}
-__device__ __forceinline__ float combine(float a, float b, float c, float d,
-                                         float4 w, float m) {
-  return (((a * w.x + b * w.y) + c * w.z) + d * w.w) * m;
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return __bfloat162float(*p);
 }
 
 // All indices are 32-bit: the wrapper refuses x or columns of 2**31
 // elements or more. KT and NCT are K and cg / VEC where they are known at
-// compile time (3 and 2: every DCN of the model), else 0; the divisions
-// by them then cost a multiply.
-template <int VEC, int KT, int NCT>
+// compile time (3 and 2 or 1: every DCN of the model), else 0; the
+// divisions by them then cost a multiply.
+template <typename E, int VEC, int KT, int NCT>
 __global__ void __launch_bounds__(THREADS)
-    dcn_im2col_kernel(const float* __restrict__ x,
-                      const float* __restrict__ off,
-                      const float* __restrict__ msk, float* __restrict__ cols,
+    dcn_im2col_kernel(const E* __restrict__ x, const E* __restrict__ off,
+                      const E* __restrict__ msk, E* __restrict__ cols,
                       int H, int W, int Ho, int Wo, int G, int cg, int k_any,
                       int stride, int pad, int dil, int off_row, int mask_row,
                       int npix) {
-  using V = typename Vec<VEC>::T;
   const int K = KT ? KT : k_any;
   const int KK = K * K;
   const int GKK = G * KK;
@@ -133,8 +172,7 @@ __global__ void __launch_bounds__(THREADS)
     const int hw = p - b * (Ho * Wo);
     const int ho = hw / Wo;
     const int wo = hw - ho * Wo;
-    const float2 o =
-        *reinterpret_cast<const float2*>(off + p * off_row + 2 * gk);
+    const float2 o = load2(off + p * off_row + 2 * gk);
     // sample_positions' order: (base + tap) first, exact in float, then
     // the offset
     const float py = ((float)(ho * stride - pad) + (float)(ky * dil)) + o.x;
@@ -164,7 +202,7 @@ __global__ void __launch_bounds__(THREADS)
     t.i.y = base + ((vy0 && vx1) ? (iy0 * W + ix1) * C : 0);
     t.i.z = base + ((vy1 && vx0) ? (iy1 * W + ix0) * C : 0);
     t.i.w = base + ((vy1 && vx1) ? (iy1 * W + ix1) * C : 0);
-    t.m = msk[p * mask_row + gk];
+    t.m = load1(msk + p * mask_row + gk);
   }
   // this item's tap, from the lane that computed it (every lane takes part)
   const int e = j / nchunk;
@@ -180,39 +218,60 @@ __global__ void __launch_bounds__(THREADS)
   const float m = __shfl_sync(all, t.m, src);
   if (j >= n_items) return;
   const int c = (j - e * nchunk) * VEC;
-  const V a = load(x + i0 + c, (V*)nullptr);
-  const V bb = load(x + i1 + c, (V*)nullptr);
-  const V cc = load(x + i2 + c, (V*)nullptr);
-  const V d = load(x + i3 + c, (V*)nullptr);
-  *reinterpret_cast<V*>(cols + j * VEC) = combine(a, bb, cc, d, w, m);
+  float a[VEC], bb[VEC], cc[VEC], d[VEC], v[VEC];
+  Run<E, VEC>::load(x + i0 + c, a);
+  Run<E, VEC>::load(x + i1 + c, bb);
+  Run<E, VEC>::load(x + i2 + c, cc);
+  Run<E, VEC>::load(x + i3 + c, d);
+  // the plain version's order: the four weighted corners summed in turn,
+  // then the mask
+#pragma unroll
+  for (int n = 0; n < VEC; ++n)
+    v[n] = (((a[n] * w.x + bb[n] * w.y) + cc[n] * w.z) + d[n] * w.w) * m;
+  Run<E, VEC>::store(cols + j * VEC, v);
+}
+
+template <typename E, int VEC, int KT, int NCT>
+void launch(const void* x, const void* off, const void* mask, void* cols,
+            int H, int W, int Ho, int Wo, int G, int cg, int K, int stride,
+            int pad, int dil, int off_row, int mask_row, int npix,
+            cudaStream_t s) {
+  const int blocks = (npix * G * K * K * (cg / VEC) + THREADS - 1) / THREADS;
+  dcn_im2col_kernel<E, VEC, KT, NCT><<<blocks, THREADS, 0, s>>>(
+      static_cast<const E*>(x), static_cast<const E*>(off),
+      static_cast<const E*>(mask), static_cast<E*>(cols), H, W, Ho, Wo, G,
+      cg, K, stride, pad, dil, off_row, mask_row, npix);
 }
 
 }  // namespace
 
-extern "C" int dcn_im2col_forward(const float* x, const float* off,
-                                  const float* mask, float* cols, int B,
-                                  int H, int W, int Ho, int Wo, int G, int cg,
-                                  int K, int stride, int pad, int dil,
-                                  int off_row, int mask_row, void* stream) {
+// elem: 0 float32, 1 bfloat16 (every tensor).
+extern "C" int dcn_im2col_forward(const void* x, const void* off,
+                                  const void* mask, void* cols, int B, int H,
+                                  int W, int Ho, int Wo, int G, int cg, int K,
+                                  int stride, int pad, int dil, int off_row,
+                                  int mask_row, int elem, void* stream) {
   const int npix = B * Ho * Wo;
   if (npix == 0) return (int)cudaGetLastError();
   const bool aligned =
       ((unsigned long long)x | (unsigned long long)cols) % 16 == 0;
-  const int vec = cg % 4 == 0 && aligned ? 4 : 1;
-  const int blocks = (npix * G * K * K * (cg / vec) + THREADS - 1) / THREADS;
   cudaStream_t s = (cudaStream_t)stream;
-  if (vec == 4 && K == 3 && cg == 8) {
-    dcn_im2col_kernel<4, 3, 2><<<blocks, THREADS, 0, s>>>(
-        x, off, mask, cols, H, W, Ho, Wo, G, cg, K, stride, pad, dil,
-        off_row, mask_row, npix);
-  } else if (vec == 4) {
-    dcn_im2col_kernel<4, 0, 0><<<blocks, THREADS, 0, s>>>(
-        x, off, mask, cols, H, W, Ho, Wo, G, cg, K, stride, pad, dil,
-        off_row, mask_row, npix);
+#define DCN_LAUNCH(E, VEC, KT, NCT)                                        \
+  launch<E, VEC, KT, NCT>(x, off, mask, cols, H, W, Ho, Wo, G, cg, K,      \
+                          stride, pad, dil, off_row, mask_row, npix, s)
+  if (elem == 0) {
+    const bool vec = cg % 4 == 0 && aligned;
+    if (vec && K == 3 && cg == 8) DCN_LAUNCH(float, 4, 3, 2);
+    else if (vec) DCN_LAUNCH(float, 4, 0, 0);
+    else DCN_LAUNCH(float, 1, 0, 0);
+  } else if (elem == 1) {
+    const bool vec = cg % 8 == 0 && aligned;
+    if (vec && K == 3 && cg == 8) DCN_LAUNCH(bf16, 8, 3, 1);
+    else if (vec) DCN_LAUNCH(bf16, 8, 0, 0);
+    else DCN_LAUNCH(bf16, 1, 0, 0);
   } else {
-    dcn_im2col_kernel<1, 0, 0><<<blocks, THREADS, 0, s>>>(
-        x, off, mask, cols, H, W, Ho, Wo, G, cg, K, stride, pad, dil,
-        off_row, mask_row, npix);
+    return (int)cudaErrorInvalidValue;
   }
+#undef DCN_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,15 @@
 // which a corner of weight 0 gets too). Corners outside the image are
 // dropped, as the reference CUDA kernel drops them (softsplat_cp.py:30-38).
 //
+// Two entries, by the type the sums are kept in. float32: everything in
+// float32. float16 (motif_tpu's scatter_dtype=float16 of _splat_fused_base):
+// the corner weights' factors, e^z and img * e^z are rounded to float16,
+// the per-corner products and the running sums (norm and count included)
+// are float16, the tile in shared memory holds halves, and the results are
+// returned as float32; the max stays float32 on the unrounded weights. Each
+// float16 operation is done in float32 on float16 values and rounded once,
+// which is the correctly rounded float16 result (24 >= 2 * 11 + 2 bits).
+//
 // Layout (NHWC, float32, contiguous):
 //   img  (B, H, W, C)   flow (B, H, W, 2) = (dx, dy)   ez (B, H, W)
 //   acc  (B, H, W, C + 2): channels [0, C) the splatted img * e^z, C the
@@ -38,7 +47,8 @@
 //   2. scan: one block turns the counters into list offsets;
 //   3. fill: the same walk writes a record per (source, tile) into that
 //      tile's list (its corner weights, e^z, its index and which of its
-//      corners lie in the tile), the slot from an atomic cursor: integer
+//      corners lie in the tile; for the float16 entry the fractional
+//      position in place of the weights), the slot from an atomic cursor: integer
 //      atomics on n_tiles ints;
 //   4. accumulate: one block per tile zeroes a [TH * TW, C + 2] float tile
 //      and a ones tile for the max in shared memory and walks its list.
@@ -56,6 +66,7 @@
 // makes one tile's list long and its block slow: right for any flow, fast
 // for spread ones.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -67,6 +78,7 @@ constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
 struct Corners {
   int iy0, ix0;
   bool vy0, vy1, vx0, vx1;
+  float wx1, wy1;  // the target's fractional position
   float w00, w01, w10, w11;
 };
 
@@ -89,6 +101,8 @@ __device__ __forceinline__ Corners corners(float dx, float dy, int x, int y,
   c.vy1 = y0 + 1.0f >= 0.0f && y0 + 1.0f <= (float)(H - 1);
   c.ix0 = (c.vx0 || c.vx1) ? (int)x0 : 0;
   c.iy0 = (c.vy0 || c.vy1) ? (int)y0 : 0;
+  c.wx1 = wx1;
+  c.wy1 = wy1;
   c.w00 = wy0 * wx0;
   c.w01 = wy0 * wx1;
   c.w10 = wy1 * wx0;
@@ -142,12 +156,15 @@ __device__ __forceinline__ int tile_of(const Bins& s, int k, const Grid& g) {
 // the fill: the corner weights, the source's flat index, the tile pixel of
 // corner (y0, x0) (which may lie outside the tile), the mask of the
 // corners inside the tile (bit k: corner k in the order 00, 01, 10, 11)
-// and e^z.
+// and e^z. RAW (the float16 entry): w holds the fractional position
+// (wx1, wy1) instead, from which the accumulate kernel forms the float16
+// weights for the sums and the float32 ones for the max.
 struct __align__(16) Record {
   float4 w;
   int4 m;  // p, pixel, mask, e^z bits
 };
 
+template <bool RAW>
 __device__ __forceinline__ Record record(const Bins& s, int k, int p,
                                          float e, const Grid& g) {
   const int ly = s.c.iy0 - (k < 2 ? s.r0 : s.r1) * g.th;
@@ -159,7 +176,8 @@ __device__ __forceinline__ Record record(const Bins& s, int k, int p,
   const int mask = (in_y0 && in_x0) | (in_y0 && in_x1) << 1 |
                    (in_y1 && in_x0) << 2 | (in_y1 && in_x1) << 3;
   Record r;
-  r.w = make_float4(s.c.w00, s.c.w01, s.c.w10, s.c.w11);
+  r.w = RAW ? make_float4(s.c.wx1, s.c.wy1, 0.0f, 0.0f)
+            : make_float4(s.c.w00, s.c.w01, s.c.w10, s.c.w11);
   r.m = make_int4(p, ly * g.tw + lx, mask, __float_as_int(e));
   return r;
 }
@@ -189,6 +207,7 @@ __global__ void __launch_bounds__(THREADS)
     warp_increment(cnt, s.r0 >= 0 ? tile_of(s, k, g) : -1);
 }
 
+template <bool RAW>
 __global__ void __launch_bounds__(THREADS)
     fill_kernel(const float* __restrict__ flow, const float* __restrict__ ez,
                 int* __restrict__ cursor, Record* __restrict__ rec, Grid g,
@@ -205,7 +224,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int k = 0; k < 4; ++k) {
     const int t = s.r0 >= 0 ? tile_of(s, k, g) : -1;
     const int slot = warp_increment(cursor, t);
-    if (t >= 0) rec[slot] = record(s, k, p, e, g);
+    if (t >= 0) rec[slot] = record<RAW>(s, k, p, e, g);
   }
 }
 
@@ -261,34 +280,62 @@ __host__ __device__ constexpr int acc_threads(int C) {
                                                 : MAX_GROUPS) + 1);
 }
 
-// The block's tile of the accumulate kernel: [npx][CP] floats, then the
-// max [npx], after the staged records.
-__device__ __forceinline__ void zero_tile(float* tile, int npx, int CP,
+// The sums' type A: float, or __half with every operation rounded once.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+template <typename A>
+__device__ __forceinline__ A from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
+}
+// v rounded to A, as a float
+template <typename A>
+__device__ __forceinline__ float rnd(float v) {
+  return to_float(from_float<A>(v));
+}
+
+// Bytes of the [npx][CP] tile of A, rounded up to the floats of the max
+// that follow it.
+template <typename A>
+__host__ __device__ constexpr int tile_bytes(int npx, int CP) {
+  return (npx * CP * (int)sizeof(A) + 3) & ~3;
+}
+
+// The block's tile of the accumulate kernel: [npx][CP] sums of type A,
+// then the max [npx] floats, after the staged records.
+template <typename A>
+__device__ __forceinline__ void zero_tile(A* tile, int npx, int CP,
                                           int nthreads) {
-  float* const tmax = tile + npx * CP;
-  if (CP % 4 == 0) {
-    float4* const tile4 = reinterpret_cast<float4*>(tile);
-    const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int i = threadIdx.x; i < npx * CP / 4; i += nthreads) tile4[i] = z4;
-  } else {
-    for (int i = threadIdx.x; i < npx * CP; i += nthreads) tile[i] = 0.0f;
-  }
+  const int bytes = tile_bytes<A>(npx, CP);
+  float* const tmax = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(tile) + bytes);
+  uint4* const tile16 = reinterpret_cast<uint4*>(tile);
+  unsigned* const tile4 = reinterpret_cast<unsigned*>(tile);
+  const uint4 z4 = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < bytes / 16; i += nthreads) tile16[i] = z4;
+  for (int i = bytes / 16 * 4 + threadIdx.x; i < bytes / 4; i += nthreads)
+    tile4[i] = 0u;
   for (int i = threadIdx.x; i < npx; i += nthreads) tmax[i] = 1.0f;
 }
 
-// The tile's in-image pixels to acc and zmax: one contiguous run of
-// cols * CP floats per tile row in both, 16 bytes at a time when CP is a
-// multiple of 4.
-__device__ __forceinline__ void store_tile(const float* tile, float* acc,
+// The tile's in-image pixels to acc and zmax (float32 both): one
+// contiguous run of cols * CP floats per tile row in both, 16 bytes at a
+// time when the tile holds floats and CP is a multiple of 4.
+template <typename A>
+__device__ __forceinline__ void store_tile(const A* tile, float* acc,
                                            float* zmax, const Grid& g, int b,
                                            int ty0, int tx0, int CP,
                                            int nthreads) {
   const int th = g.th, tw = g.tw;
-  const float* const tmax = tile + th * tw * CP;
+  const float* const tmax = reinterpret_cast<const float*>(
+      reinterpret_cast<const char*>(tile) + tile_bytes<A>(th * tw, CP));
   const int rows = min(th, g.H - ty0);
   const int cols = min(tw, g.W - tx0);
   const long long pix0 = (long long)b * g.H * g.W;
-  if (CP % 4 == 0) {
+  if (sizeof(A) == 4 && CP % 4 == 0) {
     const float4* const tile4 = reinterpret_cast<const float4*>(tile);
     const int per_row = cols * CP / 4;
     for (int j = threadIdx.x; j < rows * per_row; j += nthreads) {
@@ -304,7 +351,7 @@ __device__ __forceinline__ void store_tile(const float* tile, float* acc,
       const int r = j / per_row;
       const int k = j - r * per_row;
       acc[(pix0 + (long long)(ty0 + r) * g.W + tx0) * CP + k] =
-          tile[r * tw * CP + k];
+          to_float(tile[r * tw * CP + k]);
     }
   }
   for (int j = threadIdx.x; j < rows * cols; j += nthreads) {
@@ -312,6 +359,27 @@ __device__ __forceinline__ void store_tile(const float* tile, float* acc,
     const int k = j - r * cols;
     zmax[pix0 + (long long)(ty0 + r) * g.W + tx0 + k] = tmax[r * tw + k];
   }
+}
+
+// The float32 corner weights from the fractional position, as corners()
+// forms them.
+__device__ __forceinline__ float4 float_weights(float wx1, float wy1) {
+  const float wx0 = 1.0f - wx1;
+  const float wy0 = 1.0f - wy1;
+  return make_float4(__fmul_rn(wy0, wx0), __fmul_rn(wy0, wx1),
+                     __fmul_rn(wy1, wx0), __fmul_rn(wy1, wx1));
+}
+
+// The float16 corner weights, as floats: the factors rounded to float16,
+// then each product.
+__device__ __forceinline__ float4 half_weights(float wx1f, float wy1f) {
+  const float wx1 = rnd<__half>(wx1f);
+  const float wy1 = rnd<__half>(wy1f);
+  const float wx0 = rnd<__half>(1.0f - wx1);
+  const float wy0 = rnd<__half>(1.0f - wy1);
+  return make_float4(
+      rnd<__half>(__fmul_rn(wy0, wx0)), rnd<__half>(__fmul_rn(wy0, wx1)),
+      rnd<__half>(__fmul_rn(wy1, wx0)), rnd<__half>(__fmul_rn(wy1, wx1)));
 }
 
 // w's component k, by selects (an indexed pick becomes a jump table)
@@ -330,8 +398,11 @@ __device__ __forceinline__ float pick(const float4& w, int k) {
 // records are staged CHUNK at a time; each channel warp walks the chunk
 // with the img loads of the next DEPTH sources in flight. The summation
 // order is the list order, which the fill's atomics make vary from run to
-// run. CT is C where it is known at compile time (MoTIF's 130), else 0.
-template <int CT, bool MAX>
+// run. CT is C where it is known at compile time (MoTIF's 130, and 64 for
+// its payload projected through the synthesis net's first layer), else 0.
+// A is the sums' type; with __half the records hold the fractional
+// position (fill_kernel<true>).
+template <int CT, bool MAX, typename A>
 __global__ void __launch_bounds__(CT ? acc_threads(CT) : 512)
     accumulate_kernel(const float* __restrict__ img,
                       const int* __restrict__ start,
@@ -346,8 +417,10 @@ __global__ void __launch_bounds__(CT ? acc_threads(CT) : 512)
   const int nthreads = CT ? acc_threads(CT) : blockDim.x;
   float4* const cw = smem;                                 // [CHUNK]
   int4* const cm = reinterpret_cast<int4*>(smem + CHUNK);  // [CHUNK]
-  float* const tile = reinterpret_cast<float*>(smem + 2 * CHUNK);  // [npx][CP]
-  float* const tmax = tile + npx * CP;                     // [npx]
+  constexpr bool HALF = sizeof(A) == 2;
+  A* const tile = reinterpret_cast<A*>(smem + 2 * CHUNK);  // [npx][CP]
+  float* const tmax = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(tile) + tile_bytes<A>(npx, CP));  // [npx]
 
   const int t = blockIdx.x;
   const int b = t / g.per_img;
@@ -376,7 +449,8 @@ __global__ void __launch_bounds__(CT ? acc_threads(CT) : 512)
         const int4 m = cm[j];
         if (m.z >> lane & 1) {
           float* const q = tmax + m.y + dq;
-          *q = fmaxf(*q, __fmul_rn(__int_as_float(m.w), pick(cw[j], lane)));
+          const float4 w = HALF ? float_weights(cw[j].x, cw[j].y) : cw[j];
+          *q = fmaxf(*q, __fmul_rn(__int_as_float(m.w), pick(w, lane)));
         }
       }
       continue;
@@ -403,22 +477,31 @@ __global__ void __launch_bounds__(CT ? acc_threads(CT) : 512)
         for (int d = 0; d < DEPTH; ++d) {
           const int j = j0 + d;
           if (j >= n) break;
-          const float4 w = cw[j];
+          const float4 w = HALF ? half_weights(cw[j].x, cw[j].y) : cw[j];
           const int4 m = cm[j];
-          const float e = __int_as_float(m.w);
-          // the plain version's rounding: (img * e^z) * w, then the add;
-          // the four corners are read before any is written back
-          const float v = pay ? __fmul_rn(buf[d], e) : e;
-          float* const a00 = tile + m.y * CP + ch;
-          float* const a10 = a00 + tw * CP;
-          const float s00 = m.z & 1 ? *a00 : 0.0f;
-          const float s01 = m.z & 2 ? a00[CP] : 0.0f;
-          const float s10 = m.z & 4 ? *a10 : 0.0f;
-          const float s11 = m.z & 8 ? a10[CP] : 0.0f;
-          if (m.z & 1) *a00 = s00 + (count ? 1.0f : __fmul_rn(v, w.x));
-          if (m.z & 2) a00[CP] = s01 + (count ? 1.0f : __fmul_rn(v, w.y));
-          if (m.z & 4) *a10 = s10 + (count ? 1.0f : __fmul_rn(v, w.z));
-          if (m.z & 8) a10[CP] = s11 + (count ? 1.0f : __fmul_rn(v, w.w));
+          const float e = rnd<A>(__int_as_float(m.w));
+          // the plain version's rounding: (img * e^z) * w, then the add,
+          // each rounded to A; the four corners are read before any is
+          // written back
+          const float v = pay ? rnd<A>(__fmul_rn(rnd<A>(buf[d]), e)) : e;
+          A* const a00 = tile + m.y * CP + ch;
+          A* const a10 = a00 + tw * CP;
+          const float s00 = m.z & 1 ? to_float(*a00) : 0.0f;
+          const float s01 = m.z & 2 ? to_float(a00[CP]) : 0.0f;
+          const float s10 = m.z & 4 ? to_float(*a10) : 0.0f;
+          const float s11 = m.z & 8 ? to_float(a10[CP]) : 0.0f;
+          if (m.z & 1)
+            *a00 = from_float<A>(
+                s00 + (count ? 1.0f : rnd<A>(__fmul_rn(v, w.x))));
+          if (m.z & 2)
+            a00[CP] = from_float<A>(
+                s01 + (count ? 1.0f : rnd<A>(__fmul_rn(v, w.y))));
+          if (m.z & 4)
+            *a10 = from_float<A>(
+                s10 + (count ? 1.0f : rnd<A>(__fmul_rn(v, w.z))));
+          if (m.z & 8)
+            a10[CP] = from_float<A>(
+                s11 + (count ? 1.0f : rnd<A>(__fmul_rn(v, w.w))));
         }
 #pragma unroll
         for (int d = 0; d < DEPTH; ++d) buf[d] = nxt[d];
@@ -438,29 +521,52 @@ cudaError_t allow_all_shared_memory() {
   return err;
 }
 
-template <int CT, bool MAX>
+template <int CT, bool MAX, typename A>
 cudaError_t accumulate(const float* img, const int* start, const Record* rec,
                        float* acc, float* zmax, const Grid& g, int C,
                        int n_tiles, cudaStream_t s) {
-  const cudaError_t err = allow_all_shared_memory<accumulate_kernel<CT, MAX>>();
+  const cudaError_t err =
+      allow_all_shared_memory<accumulate_kernel<CT, MAX, A>>();
   if (err != cudaSuccess) return err;
+  const int npx = g.th * g.tw;
   const size_t smem = 2 * CHUNK * sizeof(float4) +
-                      (size_t)g.th * g.tw * (C + 3) * sizeof(float);
-  accumulate_kernel<CT, MAX><<<n_tiles, acc_threads(C), smem, s>>>(
+                      (size_t)tile_bytes<A>(npx, C + 2) + npx * sizeof(float);
+  accumulate_kernel<CT, MAX, A><<<n_tiles, acc_threads(C), smem, s>>>(
       img, start, rec, acc, zmax, g, C);
   return cudaGetLastError();
+}
+
+// The accumulate kernel for sums of type A: C = 130 (MoTIF's payload:
+// 64 + 2 + 64 channels) and C = 64 (the payload projected through the
+// synthesis net's first layer) are compiled in; any other C is generic.
+template <typename A>
+cudaError_t accumulate_any(const float* img, const int* start,
+                           const Record* rec, float* acc, float* zmax,
+                           const Grid& g, int C, int n_tiles, bool with_max,
+                           cudaStream_t s) {
+#define SPLAT_ACC(CT)                                                       \
+  (with_max ? accumulate<CT, true, A>(img, start, rec, acc, zmax, g, C,     \
+                                      n_tiles, s)                           \
+            : accumulate<CT, false, A>(img, start, rec, acc, zmax, g, C,    \
+                                       n_tiles, s))
+  if (C == 130) return SPLAT_ACC(130);
+  if (C == 64) return SPLAT_ACC(64);
+  return SPLAT_ACC(0);
+#undef SPLAT_ACC
 }
 
 }  // namespace
 
 // One splat: memset, count, scan, fill and accumulate on `stream`. `work`
 // holds 4 * B * H * W records of 32 bytes, then n_tiles counters and
-// n_tiles + 1 offsets (ints). The caller checks that th * tw * (C + 3)
-// floats fit in SMEM_LIMIT bytes and that 4 * B * H * W fits in an int.
+// n_tiles + 1 offsets (ints). half_acc: the float16 entry. The caller
+// checks that the tile (th * tw pixels of C + 2 sums of 4 or 2 bytes and a
+// float) fits in SMEM_LIMIT bytes beside the staged records and that
+// 4 * B * H * W fits in an int.
 extern "C" int splat_fused_forward(const float* img, const float* flow,
                                    const float* ez, float* acc, float* zmax,
                                    void* work, int B, int H, int W, int C,
-                                   int th, int tw, int with_max,
+                                   int th, int tw, int with_max, int half_acc,
                                    void* stream) {
   const int n_pix = B * H * W;
   if (n_pix == 0) return (int)cudaGetLastError();
@@ -481,18 +587,16 @@ extern "C" int splat_fused_forward(const float* img, const float* flow,
   const int blocks = (n_pix + THREADS - 1) / THREADS;
   count_kernel<<<blocks, THREADS, 0, s>>>(flow, cnt, g, n_pix);
   scan_kernel<<<1, SCAN_THREADS, 0, s>>>(cnt, start, n_tiles);
-  fill_kernel<<<blocks, THREADS, 0, s>>>(flow, ez, cnt, rec, g, n_pix);
+  if (half_acc)
+    fill_kernel<true><<<blocks, THREADS, 0, s>>>(flow, ez, cnt, rec, g, n_pix);
+  else
+    fill_kernel<false><<<blocks, THREADS, 0, s>>>(flow, ez, cnt, rec, g,
+                                                  n_pix);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (C == 130)  // MoTIF's payload: 64 + 2 + 64 channels
-    err = with_max ? accumulate<130, true>(img, start, rec, acc, zmax, g, C,
-                                           n_tiles, s)
-                   : accumulate<130, false>(img, start, rec, acc, zmax, g,
-                                            C, n_tiles, s);
-  else
-    err = with_max ? accumulate<0, true>(img, start, rec, acc, zmax, g, C,
-                                         n_tiles, s)
-                   : accumulate<0, false>(img, start, rec, acc, zmax, g, C,
-                                          n_tiles, s);
+  err = half_acc ? accumulate_any<__half>(img, start, rec, acc, zmax, g, C,
+                                          n_tiles, with_max != 0, s)
+                 : accumulate_any<float>(img, start, rec, acc, zmax, g, C,
+                                         n_tiles, with_max != 0, s);
   return (int)err;
 }

@@ -18,11 +18,17 @@ from motif_tpu_torch import resolve_device
 class Evaluator:
     """Runs a MoTIF over requests. `device` is CUDA unless the caller names
     another device (raises without CUDA); the model is moved there. The
-    padded LQ and the times take the model's parameter dtype."""
+    padded LQ and the times take the model's parameter dtype. `knobs`, if
+    any, are MoTIF's serving knobs by name (`fused_decode`,
+    `compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`) and
+    reconfigure the model in place (`MoTIF.configure`); with none given the
+    model serves as it was built."""
 
     def __init__(self, model: torch.nn.Module, scale: int = 4, iters: int = 4,
-                 chunk: int = 3, device=None):
+                 chunk: int = 3, device=None, **knobs):
         self.device = resolve_device(device)
+        if knobs:
+            model.configure(**knobs)
         self.model = model.to(self.device).eval()
         self.dtype = next(model.parameters()).dtype
         self.scale = scale

@@ -5,6 +5,10 @@ input as NCHW (a permute, which is the channels_last memory format, not a
 copy), runs `F.conv2d` and permutes back. Parameter names follow the
 reference torch modules, so the port's `state_dict` keys are the reference
 checkpoint's keys (see checkpoint.py).
+
+Mixed precision: parameters stay float32 whatever the compute dtype, so one
+checkpoint loads in both modes; a module casts its weights to its input's
+dtype at use, as the JAX package does, through `cast_param`.
 """
 
 from __future__ import annotations
@@ -26,6 +30,26 @@ class LReLU(nn.Module):
 
     def forward(self, x):
         return lrelu(x)
+
+
+def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
+    """`module.<name>` in `dtype`: the parameter itself when it has that
+    dtype (or is None), else a cast copy kept on the module, so that a
+    forward does not cast every weight again. The copy is stamped with the
+    parameter's version counter, address and device, and is made anew when
+    any of them changed: `load_state_dict` copies into the parameter in
+    place, which raises its version, and a move to another device replaces
+    its storage."""
+    p = getattr(module, name)
+    if p is None or p.dtype == dtype:
+        return p
+    cache = module.__dict__.setdefault("_cast_cache", {})
+    stamp = (p._version, p.data_ptr(), p.device)
+    hit = cache.get((name, dtype))
+    if hit is None or hit[0] != stamp:
+        hit = (stamp, p.detach().to(dtype))
+        cache[(name, dtype)] = hit
+    return hit[1]
 
 
 def _pair(v):
@@ -88,7 +112,8 @@ class Conv2d(nn.Module):
         if self.padding_mode == "reflect" and (ph or pw):
             y = F.pad(y, (pw, pw, ph, ph), mode="reflect")
             pad = (0, 0)
-        y = F.conv2d(y, self.weight, self.bias, self.stride, pad,
+        y = F.conv2d(y, cast_param(self, "weight", x.dtype),
+                     cast_param(self, "bias", x.dtype), self.stride, pad,
                      self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 

@@ -1,8 +1,11 @@
 """MoTIF continuous space-time video super-resolution — the counterpart of
 motif_tpu/models/motif.py::MoTIF for the serving forward this port covers:
-setting=5, n_anchors=2 (the reference `Ours`), groups=1, in the reference
-float-op order (fused_decode=False, no compute_dtype, raft_resolution=1.0,
-decode_chunks=1), inference only.
+setting=5, n_anchors=2 (the reference `Ours`), groups=1, inference only.
+With no knob given it runs the reference float-op order in the input's
+dtype; the serving knobs of the JAX package (`fused_decode`,
+`compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`) are
+taken under its names. `splat_method` has no counterpart (one splat
+kernel), nor has `fused_siren` (every SIREN runs through `siren_mlp`).
 
 Pipeline: RAFT-small on the two cross pairs of the two center frames at HR
 → reliability metrics psi_photo / psi_flow / psi_var → ZSM encoder →
@@ -47,6 +50,17 @@ def liif_nearest_axis(src: int, dst: int, eps: float = 1e-6):
     return idx, rel
 
 
+def _chunked_tokens(net, toks: torch.Tensor, chunks: int) -> torch.Tensor:
+    """A per-token network over the token axis of toks (M, T, C) in
+    `chunks` pieces: exact (the SIRENs are pointwise over tokens); it only
+    bounds the live activations."""
+    T = toks.shape[1]
+    if chunks <= 1 or T <= chunks:
+        return net(toks)
+    c = -(-T // chunks)
+    return torch.cat([net(toks[:, i:i + c]) for i in range(0, T, c)], dim=1)
+
+
 def _gauss_blur_reflect(x: torch.Tensor) -> torch.Tensor:
     """3x3 [1,2,1]⊗[1,2,1]/16 blur with reflect padding; x (B, H, W, C)."""
     k0, k1 = 0.25, 0.5
@@ -59,16 +73,36 @@ def _gauss_blur_reflect(x: torch.Tensor) -> torch.Tensor:
 class MoTIF(nn.Module):
     """The MoTIF model, setting=5 with two anchors. Parameter names are the
     reference torch names, so `load_state_dict(strict=True)` takes the
-    bridged JAX parameters (checkpoint.py).
+    bridged JAX parameters (checkpoint.py). The parameters are float32 (or
+    what `.double()` makes them) whatever the knobs: one checkpoint loads
+    in every mode.
 
     Each SIREN runs whole through `siren_mlp`: the JAX package's
-    fused_siren=True."""
+    fused_siren=True. The knobs, all off by default (the parity path):
+
+    fused_decode: each SIREN's first linear layer is folded through the
+      LIIF nearest takes (and the synthesis net's through the splat, whose
+      payload shrinks from 130 to 64 channels), so the wide HR inputs
+      never exist; the SIRENs then start from their pre-activation. Exact
+      math in another float-op order.
+    compute_dtype: "bfloat16" runs RAFT's convs, the encoder, the
+      flow-context convs, the LIIF takes and the SIRENs in bfloat16; the
+      flow, RAFT's coordinates and norm statistics, the reliability
+      metrics, the splat and the frames stay in the input's dtype.
+    splat_dtype: "float16" keeps the splat's sums in float16.
+    raft_resolution: RAFT runs on the HR grid times this factor (a multiple
+      of 8, at least 64), the flow rescaled per component.
+    decode_chunks: the SIRENs decode the HR tokens in this many pieces.
+    """
 
     n_anchors = 2
     positions = (0.0, 8.0)
 
     def __init__(self, channel: int = 64, front_rbs: int = 5,
-                 back_rbs: int = 40):
+                 back_rbs: int = 40, fused_decode: bool = False,
+                 compute_dtype: str | None = None,
+                 splat_dtype: str | None = None,
+                 raft_resolution: float = 1.0, decode_chunks: int = 1):
         super().__init__()
         ch = self.channel = channel
         n = self.n_anchors
@@ -81,7 +115,8 @@ class MoTIF(nn.Module):
             *[LateralBlock(ch) for _ in range(5)],
             LReLU(),
             Conv2d(ch, ch, 3, 1, 1, padding_mode="reflect"))
-        # checkpointed but unused by this forward (reference Ours.py)
+        # checkpointed; alpha scales z, the norms and shuffle are unused by
+        # this forward (reference Ours.py)
         self.alpha = nn.Parameter(torch.full((1,), -20.0))
         self.norm_gamma = nn.Parameter(torch.ones(1, 3, 1))
         self.norm_beta = nn.Parameter(torch.zeros(1, 3, 1))
@@ -90,30 +125,108 @@ class MoTIF(nn.Module):
         self.imnet = Siren(ch + 2, [64, 64, 256], 2, 64)
         self.synth_net = Siren(64 + 2 + ch + 3 + ch + 1, [64, 64, 64, 256], 3,
                                3)
+        self._tables: dict = {}
+        self._alpha_sign = None
+        self.configure(fused_decode=fused_decode, compute_dtype=compute_dtype,
+                       splat_dtype=splat_dtype,
+                       raft_resolution=raft_resolution,
+                       decode_chunks=decode_chunks)
+
+    def configure(self, fused_decode: bool = False,
+                  compute_dtype: str | None = None,
+                  splat_dtype: str | None = None,
+                  raft_resolution: float = 1.0, decode_chunks: int = 1):
+        """Set every serving knob (one not named goes back to its default);
+        the parameters are untouched. Returns self."""
+        self.fused_decode = bool(fused_decode)
+        self.compute_dtype = _dtype("compute_dtype", compute_dtype,
+                                    ("bfloat16",))
+        self.splat_dtype = _dtype("splat_dtype", splat_dtype, ("float16",))
+        self.raft_resolution = float(raft_resolution)
+        self.decode_chunks = int(decode_chunks)
+        for net in (self.flow_imnet, self.imnet, self.synth_net):
+            net.skip_first_linear = self.fused_decode
+        return self
+
+    def _alpha_nonpositive(self) -> bool:
+        """alpha <= 0, read from the device once per loaded state: the
+        stamp changes when alpha is written in place (a load, a fill) or
+        replaced (a move)."""
+        a = self.alpha
+        stamp = (a._version, a.data_ptr(), a.device)
+        if self._alpha_sign is None or self._alpha_sign[0] != stamp:
+            self._alpha_sign = (stamp, bool(a.detach()[0].item() <= 0.0))
+        return self._alpha_sign[1]
+
+    def _shape_tables(self, H, W, HH, WW, RH, RW, dtype, cdt, device):
+        """What depends only on the shapes, built once per (shapes, dtypes,
+        device) and kept on the device: the LIIF nearest indices and the
+        relative coordinates (in the compute dtype), the anchor-position
+        rows of the flow-context input and the flow rescale of a reduced
+        RAFT grid."""
+        key = (H, W, HH, WW, RH, RW, dtype, cdt, device)
+        hit = self._tables.get(key)
+        if hit is None:
+            n = self.n_anchors
+            iy, rel_y = liif_nearest_axis(H, HH, 1e-6)
+            ix, rel_x = liif_nearest_axis(W, WW, 1e-6)
+            ry, rx = np.meshgrid(rel_y, rel_x, indexing="ij")
+            rel = torch.as_tensor(np.stack([ry, rx], -1)[None],
+                                  device=device).to(dtype)   # (1, HH, WW, 2)
+            rsd = np.array([[self.positions[i], self.positions[j]]
+                            for i in range(n) for j in range(n)], np.float32)
+            r22 = torch.as_tensor(
+                rsd.reshape(n, 1, n, 1, 1, 2) / self.positions[-1],
+                device=device).to(dtype)
+            hit = dict(
+                iy=torch.as_tensor(iy, device=device),
+                ix=torch.as_tensor(ix, device=device),
+                rel=rel if cdt is None else rel.to(cdt), r22=r22,
+                flow_scale=torch.tensor([W / RW, H / RH], dtype=dtype,
+                                        device=device))
+            if len(self._tables) >= 8:          # a server sees few shapes
+                self._tables.pop(next(iter(self._tables)))
+            self._tables[key] = hit
+        return hit
 
     def forward(self, x: torch.Tensor, target_t: torch.Tensor, out_hw,
                 iters: int = 12):
         """x (B, N_in, H, W, 3) LR frames in [0, 1]; target_t (B, N) times in
         [0, 1]; out_hw (HH, WW). Returns (frames (N, B, HH, WW, 3), flow
-        (2BN, HH, WW, 2) / 20 / (HH/H), the all-zero teacher flow likewise)."""
+        (2BN, HH, WW, 2) / 20 / (HH/H), the all-zero teacher flow likewise),
+        all in x's dtype."""
         B, N_in, H, W, _ = x.shape
         HH, WW = out_hw
         N = target_t.shape[1]
         ch = self.channel
         n = self.n_anchors
         n2 = n * n
-        rsd_div = self.positions[-1]
         c = N_in // 2
         frames = [x[:, c - 1], x[:, c]]
+        # cd casts into the compute dtype, cf back to the input's; both
+        # are the identity without a compute dtype
+        cdt = self.compute_dtype
+        cd = (lambda a: a.to(cdt)) if cdt is not None else (lambda a: a)
+        cf = (lambda a: a.to(x.dtype)) if cdt is not None else (lambda a: a)
 
         # ---- motion + reliability: RAFT on the cross pairs only; the
         # self-pair flows are exact zeros ----
-        hr_frames = [interpolate_bilinear(f, (HH, WW)) for f in frames]
+        if self.raft_resolution != 1.0:
+            RH = max(64, int(round(HH * self.raft_resolution / 8.0)) * 8)
+            RW = max(64, int(round(WW * self.raft_resolution / 8.0)) * 8)
+        else:
+            RH, RW = HH, WW
+        tab = self._shape_tables(H, W, HH, WW, RH, RW, x.dtype, cdt, x.device)
+        hr_frames = [interpolate_bilinear(f, (RH, RW)) for f in frames]
         pairs = [(i, j) for i in range(n) for j in range(n) if i != j]
         src = torch.cat([hr_frames[i] for i, _ in pairs], 0)
         dst = torch.cat([hr_frames[j] for _, j in pairs], 0)
-        fl = self.flow_predictor(src * 255.0, dst * 255.0, iters=iters)
-        fl = interpolate_bilinear(fl, (H, W)) * (H / HH)
+        fl = cf(self.flow_predictor(cd(src * 255.0), cd(dst * 255.0),
+                                    iters=iters))
+        if (RH, RW) == (HH, WW):
+            fl = interpolate_bilinear(fl, (H, W)) * (H / HH)
+        else:
+            fl = interpolate_bilinear(fl, (H, W)) * tab["flow_scale"]
         fl = fl.reshape(len(pairs), B, H, W, 2)
         flow = x.new_zeros((n2, B, H, W, 2))
         for k, (i, j) in enumerate(pairs):
@@ -136,62 +249,99 @@ class MoTIF(nn.Module):
         flow_gt = x.new_zeros((n * B * N, HH, WW, 2))
 
         # ---- encoder ----
-        feat_t = self.encoder(torch.stack(frames, 1))        # (B, 3, H, W, ch)
+        feat_t = self.encoder(cd(torch.stack(frames, 1)))    # (B, 3, H, W, ch)
         residual_bn = feat_t[:, feat_t.shape[1] // 2][:, None].expand(
             B, N, H, W, ch).reshape(B * N, H, W, ch)
         feat = torch.cat([feat_t[:, 2 * i] for i in range(n)], 0)  # (nB,H,W,ch)
 
         # ---- flow-context encoder: per source frame i, the targets j of
         # [flow_ij / 20 | psi_ij | rsd row] into a grouped conv ----
-        rsd = np.array([[self.positions[i], self.positions[j]]
-                        for i in range(n) for j in range(n)], np.float32)
         f22 = (flow / 20.0).reshape(n, n, B, H, W, 2).permute(0, 2, 1, 3, 4, 5)
         p22 = psies.reshape(n, n, B, H, W, 3).permute(0, 2, 1, 3, 4, 5)
-        r22 = torch.as_tensor(rsd.reshape(n, 1, n, 1, 1, 2) / rsd_div,
-                              device=x.device).to(x.dtype).expand(
-                                  n, B, n, H, W, 2)
+        r22 = tab["r22"].expand(n, B, n, H, W, 2)
         ff = torch.cat([f22, p22, r22], dim=-1)              # (n,B,n,H,W,7)
         ff = ff.reshape(n * B, n, H, W, 7).permute(0, 2, 3, 1, 4)
-        flow_feat = self.flow_process(ff.reshape(n * B, H, W, n * 7))
+        flow_feat = self.flow_process(cd(ff.reshape(n * B, H, W, n * 7)))
 
         # ---- LIIF query as separable nearest takes (one shift, weight 1) --
-        iy, rel_y = liif_nearest_axis(H, HH, 1e-6)
-        ix, rel_x = liif_nearest_axis(W, WW, 1e-6)
-        iy_t = torch.as_tensor(iy, device=x.device)
-        ix_t = torch.as_tensor(ix, device=x.device)
+        iy_t, ix_t, rel = tab["iy"], tab["ix"], tab["rel"]   # rel (1,HH,WW,2)
 
         def up(img):
             return img.index_select(1, iy_t).index_select(2, ix_t)
 
-        ry, rx = np.meshgrid(rel_y, rel_x, indexing="ij")
-        rel = torch.as_tensor(np.stack([ry, rx], -1)[None],
-                              device=x.device).to(x.dtype)  # (1, HH, WW, 2)
-        t_tokens = target_t.reshape(B * N, 1, 1, 1).repeat(n, HH, WW, 1)
+        def rep_n(a):                    # (nB, HH, WW, c) -> (nBN, HH, WW, c)
+            return a.repeat_interleave(N, 0)
 
-        q_feat = up(feat)                                    # (nB,HH,WW,ch)
-        q_flow_feat = up(flow_feat)
-        q_residual = up(residual_bn)                         # (BN,HH,WW,ch)
-        sti = torch.cat([q_flow_feat.repeat_interleave(N, 0), t_tokens,
-                         rel.expand(n * B * N, HH, WW, 2)], dim=-1)
-        si = torch.cat([q_feat, rel.expand(n * B, HH, WW, 2)], dim=-1)
-        q_flow_o = self.flow_imnet(sti.reshape(n * B * N, HH * WW, -1)
-                                   ).reshape(n * B * N, HH, WW, 3)
-        q_feat_o = self.imnet(si.reshape(n * B, HH * WW, -1)
-                              ).reshape(n * B, HH, WW, 64)
-        # the single-shift LIIF area weight is area / area == 1 exactly, so
-        # the weighted sum of the JAX package is the identity here
+        t_tok = cd(target_t.reshape(B * N, 1, 1, 1).repeat(n, 1, 1, 1))
+        chunks = self.decode_chunks
+        if self.fused_decode:
+            # Each SIREN's first layer folded through the takes: a channel
+            # product commutes with a spatial take, so the feature products
+            # run at LR and sti / si never exist. net.0's rows follow the
+            # original concats [flow_feat | t | rel] and [feat | rel]; the
+            # terms are added in the JAX package's order.
+            wq, bq = self.flow_imnet.first_linear(rel.dtype)
+            wq = wq.t()                                      # (ch + 3, 64)
+            h0 = rep_n(up(torch.matmul(flow_feat, wq[:ch])))
+            h0 = h0 + t_tok * wq[ch] + torch.matmul(rel, wq[ch + 1:]) + bq
+            q_flow_o = _chunked_tokens(
+                self.flow_imnet, h0.reshape(n * B * N, HH * WW, -1), chunks
+            ).reshape(n * B * N, HH, WW, 3)
+            wi, bi = self.imnet.first_linear(rel.dtype)
+            wi = wi.t()                                      # (ch + 2, 64)
+            g0 = up(torch.matmul(feat, wi[:ch]))
+            g0 = g0 + torch.matmul(rel, wi[ch:]) + bi
+            q_feat_o = _chunked_tokens(
+                self.imnet, g0.reshape(n * B, HH * WW, -1), chunks
+            ).reshape(n * B, HH, WW, 64)
+        else:
+            q_feat = up(feat)                                # (nB,HH,WW,ch)
+            q_flow_feat = up(flow_feat)
+            q_residual = up(residual_bn)                     # (BN,HH,WW,ch)
+            sti = torch.cat([rep_n(q_flow_feat),
+                             t_tok.expand(n * B * N, HH, WW, 1),
+                             rel.expand(n * B * N, HH, WW, 2)], dim=-1)
+            si = torch.cat([q_feat, rel.expand(n * B, HH, WW, 2)], dim=-1)
+            q_flow_o = _chunked_tokens(
+                self.flow_imnet, sti.reshape(n * B * N, HH * WW, -1), chunks
+            ).reshape(n * B * N, HH, WW, 3)
+            q_feat_o = _chunked_tokens(
+                self.imnet, si.reshape(n * B, HH * WW, -1), chunks
+            ).reshape(n * B, HH, WW, 64)
+            # the single-shift LIIF area weight is area / area == 1 exactly,
+            # so the weighted sum of the JAX package is the identity here
 
-        # ---- HR flow / z / features and the splat ----
-        feat_hr = torch.cat([q_feat_o.repeat_interleave(N, 0),
-                             q_flow_o[..., :2],
-                             q_feat.repeat_interleave(N, 0)], dim=-1)
-        flow_hr = q_flow_o[..., :2] * 20.0 * (HH / H)
-        z = torch.relu(q_flow_o[..., 2:3]) * self.alpha
+        # ---- HR flow / z / features and the splat, in the input's dtype --
+        flow_raw = cf(q_flow_o)
+        if self.fused_decode:
+            # The synthesis net's first layer folded through the splat,
+            # which is linear in its payload: [q_feat_o | flow | q_feat]
+            # goes through net.0's matching rows before it is scattered
+            # (130 -> 64 channels); the rows of the extras, the residual
+            # and the time are added after the merge. The flow's two rows
+            # stay in the input's dtype.
+            ws_raw, _ = self.synth_net.first_linear(x.dtype)
+            ws, bs = self.synth_net.first_linear(rel.dtype)
+            ws_raw, ws = ws_raw.t(), ws.t()                  # (198, 64)
+            w_a, w_b = ws[:64], ws[66:66 + ch]
+            off = 66 + ch
+            w_e = ws[off:off + 3]
+            w_r = ws[off + 3:off + 3 + ch]
+            w_t = ws[off + 3 + ch]
+            pay = rep_n(torch.matmul(q_feat_o, w_a)
+                        + up(torch.matmul(feat, w_b)))
+            feat_hr = cf(pay) + torch.matmul(flow_raw[..., :2],
+                                             ws_raw[64:66])  # (nBN,HH,WW,64)
+        else:
+            feat_hr = torch.cat([rep_n(cf(q_feat_o)), flow_raw[..., :2],
+                                 rep_n(cf(q_feat))], dim=-1)
+        flow_hr = flow_raw[..., :2] * 20.0 * (HH / H)
+        z = torch.relu(flow_raw[..., 2:3]) * self.alpha
         # z = relu(.) * alpha <= 0 whenever alpha <= 0: the max splat is then
-        # identically 1 and is skipped (one host read of alpha per forward)
-        z_nonpos = bool(self.alpha.detach()[0].item() <= 0.0)
+        # identically 1 and is skipped
         output, warped_z, z_max, count = softsplat.splat_fused(
-            feat_hr, flow_hr, z, z_nonpositive=z_nonpos)
+            feat_hr, flow_hr, z, z_nonpositive=self._alpha_nonpositive(),
+            scatter_dtype=self.splat_dtype)
 
         # ---- merge the two directions + extras ----
         Cf = output.shape[-1]
@@ -209,26 +359,54 @@ class MoTIF(nn.Module):
                           dim=-1)
 
         # ---- synthesis ----
-        tmap = target_t.reshape(B * N, 1, 1, 1) * x.new_ones((1, HH, WW, 1))
-        synth_in = torch.cat([output, extra, q_residual, tmap], dim=-1)
-        out = self.synth_net(synth_in.reshape(B * N, HH * WW, -1))
-        frames_out = torch.clamp(out.reshape(B, N, HH, WW, 3), 0.0, 1.0
+        if self.fused_decode:
+            # net.0's pre-activation: the merged splat output (already
+            # through w_a, the flow rows and w_b) + the extras', the
+            # residual's and the time's rows + the bias
+            h = (cd(output).reshape(B * N, HH, WW, 64)
+                 + torch.matmul(cd(extra).reshape(B * N, HH, WW, -1), w_e)
+                 + up(torch.matmul(cd(residual_bn), w_r))
+                 + cd(target_t).reshape(B * N, 1, 1, 1) * w_t[None, None, None]
+                 + bs)
+            out = _chunked_tokens(self.synth_net,
+                                  h.reshape(B * N, HH * WW, -1), chunks)
+        else:
+            tmap = cd(target_t.reshape(B * N, 1, 1, 1)
+                      * x.new_ones((1, HH, WW, 1)))
+            synth_in = torch.cat([cd(output), cd(extra), q_residual, tmap],
+                                 dim=-1)
+            out = _chunked_tokens(self.synth_net,
+                                  synth_in.reshape(B * N, HH * WW, -1), chunks)
+        frames_out = torch.clamp(cf(out).reshape(B, N, HH, WW, 3), 0.0, 1.0
                                  ).permute(1, 0, 2, 3, 4)
         flow_norm = flow_hr / 20.0 / (HH / H)
         flow_gt_norm = flow_gt / 20.0 / (HH / H)
         return frames_out, flow_norm, flow_gt_norm
 
 
+def _dtype(knob: str, name, allowed):
+    """The torch dtype a knob names (the JAX package takes dtype names), or
+    None; raises on a name the port has no entry for."""
+    if name is None:
+        return None
+    if name not in allowed:
+        raise ValueError(f"{knob}={name!r}: the port takes None or one of "
+                         f"{list(allowed)}")
+    return getattr(torch, name)
+
+
 def build_motif(channel: int = 64, front_rbs: int = 5, back_rbs: int = 40,
-                device=None, seed: int = 0) -> MoTIF:
-    """A float32 MoTIF with random weights from `seed`, in eval mode, on
+                device=None, seed: int = 0, **knobs) -> MoTIF:
+    """A MoTIF with float32 random weights from `seed`, in eval mode, on
     `device` (CUDA unless the caller passes another device; raises without
-    CUDA).
-    On CUDA the conv weights take the channels_last memory format."""
+    CUDA). `knobs` are MoTIF's serving knobs by name (`fused_decode`,
+    `compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`);
+    the weights do not depend on them. On CUDA the conv weights take the
+    channels_last memory format."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = MoTIF(channel, front_rbs, back_rbs)
+        model = MoTIF(channel, front_rbs, back_rbs, **knobs)
     model = model.to(dev).eval()
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

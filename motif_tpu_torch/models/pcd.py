@@ -11,7 +11,8 @@ import math
 import torch
 from torch import nn
 
-from motif_tpu_torch.models.layers import Conv2d, ConvLSTMCell, lrelu
+from motif_tpu_torch.models.layers import (Conv2d, ConvLSTMCell, cast_param,
+                                           lrelu)
 from motif_tpu_torch.ops import dcn
 from motif_tpu_torch.ops.resize import interpolate_bilinear
 
@@ -40,7 +41,8 @@ class DCNSep(nn.Module):
         com = self.conv_offset_mask(fea)
         offset = com[..., :2 * G * K * K]
         mask = torch.sigmoid(com[..., 2 * G * K * K:])
-        return dcn.dcn_v2(x, offset, mask, self.weight, self.bias,
+        return dcn.dcn_v2(x, offset, mask, cast_param(self, "weight", x.dtype),
+                          cast_param(self, "bias", x.dtype),
                           kernel_size=K, stride=self.stride,
                           padding=self.padding, dilation=self.dilation,
                           deformable_groups=G)

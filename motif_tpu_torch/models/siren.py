@@ -14,7 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from motif_tpu_torch.models.layers import Linear
+from motif_tpu_torch.models.layers import Linear, cast_param
 from motif_tpu_torch.ops import siren_kernel
 
 
@@ -41,13 +41,22 @@ class Siren(nn.Module):
     """layers = [first] + hidden_layers x [sine] + [out], widths
     in_features → hidden_features[0..hidden_layers] → out_features, one
     omega0 for every layer (as every MoTIF SIREN has). The whole MLP runs in
-    `siren_mlp` (the CUDA kernel on CUDA tensors)."""
+    `siren_mlp` (the CUDA kernel on CUDA tensors), in the input's dtype: the
+    float32 parameters are cast at use (`cast_param`).
+
+    With `skip_first_linear` the forward takes net.0's pre-activation
+    (width hidden_features[0]) in x's place: the caller has applied net.0's
+    linear map, whose parameters stay here under their reference names
+    (`first_linear` reads them), and the MLP starts with sin(omega0 * x).
+    The parameters are the same either way."""
 
     def __init__(self, in_features: int, hidden_features: Sequence[int],
                  hidden_layers: int, out_features: int,
-                 outermost_linear: bool = True, omega_0: float = 30.0):
+                 outermost_linear: bool = True, omega_0: float = 30.0,
+                 skip_first_linear: bool = False):
         super().__init__()
         self.omega0 = omega_0
+        self.skip_first_linear = skip_first_linear
         self.outermost_linear = outermost_linear
         layers = [SineLayer(in_features, hidden_features[0], is_first=True,
                             omega_0=omega_0)]
@@ -65,8 +74,16 @@ class Siren(nn.Module):
     def _linears(self):
         return [m.linear if isinstance(m, SineLayer) else m for m in self.net]
 
+    def first_linear(self, dtype: torch.dtype):
+        """net.0's (weight (out, in), bias) in `dtype`, for a caller that
+        applies the first linear map itself."""
+        lin = self._linears()[0]
+        return cast_param(lin, "weight", dtype), cast_param(lin, "bias", dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lins = self._linears()
-        return siren_kernel.siren_mlp(x, [m.weight for m in lins],
-                                      [m.bias for m in lins], self.omega0,
-                                      sine_last=not self.outermost_linear)
+        lins = self._linears()[1 if self.skip_first_linear else 0:]
+        return siren_kernel.siren_mlp(
+            x, [cast_param(m, "weight", x.dtype) for m in lins],
+            [cast_param(m, "bias", x.dtype) for m in lins], self.omega0,
+            sine_last=not self.outermost_linear,
+            skip_first=self.skip_first_linear)

@@ -20,10 +20,15 @@ from motif_tpu_torch.ops.resize import avg_pool2d
 
 
 def all_pairs_corr(fmap1: torch.Tensor, fmap2: torch.Tensor) -> torch.Tensor:
-    """fmap1/fmap2 (B, H, W, C) → (B*H*W, H, W, 1), scaled by 1/sqrt(C)."""
+    """fmap1/fmap2 (B, H, W, C) → (B*H*W, H, W, 1), scaled by 1/sqrt(C).
+    Accumulated and returned in at least float32, as the JAX package does
+    (bfloat16 features are widened first: their products are exact in
+    float32), so the pyramid and the lookup stay float32 under a bfloat16
+    compute dtype."""
     B, H, W, C = fmap1.shape
-    a = fmap1.reshape(B, H * W, C)
-    b = fmap2.reshape(B, H * W, C)
+    acc = torch.promote_types(fmap1.dtype, torch.float32)
+    a = fmap1.reshape(B, H * W, C).to(acc)
+    b = fmap2.reshape(B, H * W, C).to(acc)
     corr = torch.bmm(a, b.transpose(1, 2)) / math.sqrt(C)
     return corr.reshape(B * H * W, H, W, 1)
 

@@ -9,6 +9,17 @@ offsets, bilinear sampling, times the already sigmoided mask) and
 contracts it with the weights in one `addmm` — the plain large product that
 the JAX package leaves to XLA stays a torch call here.
 
+Element types: float32 and bfloat16 on the card (float64 too on the CPU).
+In bfloat16 x, the offsets, the mask and the columns are bfloat16; the
+sample positions, the hat weights, the four-corner sum and the mask product
+are formed in float32 and a column is rounded to bfloat16 once, when it is
+stored. The JAX package's one-hot sampler rounds more often (its hat
+weights, the row contraction, the sample and the masked sample are each
+rounded to bfloat16), so the two agree to a few bfloat16 ulps, not bit for
+bit; the port keeps the float32 weights because they cost its kernel
+nothing. The weight contraction is then one bfloat16 `addmm`, which
+accumulates in float32.
+
 Layouts: x (B, H, W, Cin) NHWC; offset (B, Ho, Wo, G*K*K*2) with layout
 (g, k, [y, x]) fastest-last; mask (B, Ho, Wo, G*K*K) layout (g, k);
 weight (Cout, Cin, K, K) as torch stores it; the im2col matrix
@@ -25,7 +36,8 @@ from motif_tpu_torch.ops import kernels
 
 _SIGNATURES = {"dcn_im2col_forward": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    *[ctypes.c_int] * 13, ctypes.c_void_p]}
+    *[ctypes.c_int] * 14, ctypes.c_void_p]}
+DTYPES = (torch.float32, torch.bfloat16)    # the kernel's entries
 
 
 def dcn_sample_plain(x: torch.Tensor, py: torch.Tensor,
@@ -91,29 +103,32 @@ def dcn_im2col_plain(x: torch.Tensor, offset: torch.Tensor,
                      mask: torch.Tensor, K: int, stride: int, padding: int,
                      dilation: int, G: int) -> torch.Tensor:
     """The plain version of `dcn_im2col`: `sample_positions`, then
-    `dcn_sample_plain`, times the mask, in the column order (g, k, c).
+    `dcn_sample_plain`, times the mask, in the column order (g, k, c),
+    all in at least float32 and rounded to x's dtype at the end (one
+    rounding per column for bfloat16, none for float32 / float64).
     Returns (B*Ho*Wo, G*K*K*cg)."""
     B, H, W, Cin = x.shape
     Ho, Wo = offset.shape[1], offset.shape[2]
     cg = Cin // G
+    acc = torch.promote_types(x.dtype, torch.float32)
     py, px = sample_positions(offset, K, stride, padding, dilation, G)
-    val = dcn_sample_plain(x, py, px)                          # (B, Q, G, cg)
+    val = dcn_sample_plain(x.to(acc), py, px)                  # (B, Q, G, cg)
     val = val.reshape(B, Ho, Wo, K * K, G, cg).permute(0, 1, 2, 4, 3, 5)
-    val = val * mask.reshape(B, Ho, Wo, G, K * K, 1).to(val.dtype)
-    return val.reshape(B * Ho * Wo, G * K * K * cg)
+    val = val * mask.reshape(B, Ho, Wo, G, K * K, 1).to(acc)
+    return val.reshape(B * Ho * Wo, G * K * K * cg).to(x.dtype)
 
 
 def _pixel_rows(t: torch.Tensor, align: int):
-    """t (B, Ho, Wo, n) as rows of n dense floats, one per pixel, `row`
-    floats apart: read in place when its pixels are evenly spaced (a
+    """t (B, Ho, Wo, n) as rows of n dense elements, one per pixel, `row`
+    elements apart: read in place when its pixels are evenly spaced (a
     channel slice of one conv output, as DCNSep takes its offsets), else
-    copied. `align` is the row and address alignment in floats that the
-    kernel's vector loads need."""
+    copied. `align` is the row and address alignment in elements (of 4 or
+    2 bytes) that the kernel's vector loads need."""
     B, Ho, Wo, n = t.shape
     s = t.stride()
     row = s[2]
     even = (s[3] == 1 and row >= n and row % align == 0
-            and t.data_ptr() % (4 * align) == 0
+            and t.data_ptr() % (t.element_size() * align) == 0
             and (Ho == 1 or s[1] == Wo * row)
             and (B == 1 or s[0] == Ho * Wo * row))
     if not even:
@@ -127,11 +142,12 @@ def dcn_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                G: int) -> torch.Tensor:
     """The deformable im2col matrix (B*Ho*Wo, G*K*K*cg), columns (g, k, c).
     On CPU tensors: the plain version; on CUDA tensors: the `dcn_im2col`
-    kernel (float32). offset and mask may be strided views."""
+    kernel's float32 or bfloat16 entry, by the tensors' dtype. offset and
+    mask may be strided views."""
     if x.device.type == "cpu":
         return dcn_im2col_plain(x, offset, mask, K, stride, padding,
                                 dilation, G)
-    kernels.require_cuda_float32("dcn_im2col", x, offset, mask)
+    dtype = kernels.require_cuda("dcn_im2col", DTYPES, x, offset, mask)
     B, H, W, Cin = x.shape
     Ho, Wo = output_size(H, W, K, stride, padding, dilation)
     if Cin % G or offset.shape != (B, Ho, Wo, G * K * K * 2) or \
@@ -154,8 +170,9 @@ def dcn_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     err = lib.dcn_im2col_forward(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
         B, H, W, Ho, Wo, G, cg, K, stride, padding, dilation, off_row,
-        mask_row, kernels.stream_handle(x.device))
-    kernels.LAUNCHES["dcn_im2col"] += 1
+        mask_row, int(dtype == torch.bfloat16),
+        kernels.stream_handle(x.device))
+    kernels.count("dcn_im2col", str(dtype).removeprefix("torch."))
     kernels.check(err, "dcn_im2col")
     return cols
 

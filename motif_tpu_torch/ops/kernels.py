@@ -10,8 +10,9 @@ every module on a machine without `nvcc`.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` raises when that is not 0. `LAUNCHES` counts
-kernel launches per kernel; a wrapper adds one where it launches its
-kernel and nowhere else.
+kernel launches per kernel and `ENTRY_LAUNCHES` per entry of a kernel (its
+element type and variant, such as "siren_mlp/bfloat16/skip_first"); a
+wrapper calls `count` where it launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {name: 0 for name in KERNELS}
+ENTRY_LAUNCHES: dict[str, int] = {}
 BUILD_LOGS: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -41,6 +43,14 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ENTRY_LAUNCHES.clear()
+
+
+def count(name: str, entry: str) -> None:
+    """One launch of kernel `name` through its entry `entry`."""
+    LAUNCHES[name] += 1
+    key = f"{name}/{entry}"
+    ENTRY_LAUNCHES[key] = ENTRY_LAUNCHES.get(key, 0) + 1
 
 
 def _nvcc() -> str:
@@ -115,12 +125,21 @@ def check(err: int, name: str) -> None:
                            f"{err}")
 
 
-def require_cuda_float32(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is float32 on one CUDA device."""
+def require_cuda(name: str, dtypes, *tensors: torch.Tensor) -> torch.dtype:
+    """Raise unless every tensor lies on one CUDA device and all share one
+    of `dtypes`, the element types this kernel has an entry for; nothing is
+    converted. Returns the shared dtype."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA "
                              f"device, got {[str(x.device) for x in tensors]}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+    dtype = tensors[0].dtype
+    for t in tensors:
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: the kernel takes {names}, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: all tensors must share one of {names}, "
+                            f"got {[str(x.dtype) for x in tensors]}")
+    return dtype

@@ -38,6 +38,17 @@ def resize_matrix_linear(in_size: int, out_size: int,
     return m
 
 
+@functools.lru_cache(maxsize=256)
+def _matrix_on(in_size: int, out_size: int, align_corners: bool,
+               dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`resize_matrix_linear` as a tensor of `dtype` on `device`, kept so
+    that a forward (which resizes some hundred times, at a handful of
+    sizes) uploads each matrix once and not on every call. Read only."""
+    return torch.as_tensor(resize_matrix_linear(in_size, out_size,
+                                                align_corners),
+                           dtype=dtype, device=device)
+
+
 def interpolate_bilinear(img: torch.Tensor, out_hw,
                          align_corners: bool = False) -> torch.Tensor:
     """F.interpolate(mode='bilinear') for NHWC images: (B, H, W, C) →
@@ -46,10 +57,8 @@ def interpolate_bilinear(img: torch.Tensor, out_hw,
     OH, OW = int(out_hw[0]), int(out_hw[1])
     if (OH, OW) == (H, W):
         return img
-    mh = torch.as_tensor(resize_matrix_linear(H, OH, align_corners),
-                         dtype=img.dtype, device=img.device)
-    mw = torch.as_tensor(resize_matrix_linear(W, OW, align_corners),
-                         dtype=img.dtype, device=img.device)
+    mh = _matrix_on(H, OH, align_corners, img.dtype, img.device)
+    mw = _matrix_on(W, OW, align_corners, img.dtype, img.device)
     out = torch.einsum("oh,bhwc->bowc", mh, img)
     return torch.einsum("ow,bhwc->bhoc", mw, out)
 

@@ -9,6 +9,12 @@ per splat, no host synchronisation.
 
 Layout: NHWC. img (B, H, W, C), flow (B, H, W, 2) = (dx, dy) in pixels,
 z (B, H, W, 1). Source and target grids have the same shape.
+
+Entries: sums in the inputs' float32, or with `scatter_dtype=float16` in
+float16 (the JAX package's `_splat_fused_base(scatter_dtype=float16)`): the
+corner weights' factors, e^z and img * e^z rounded to float16, the products
+and the sums (norm and count too) in float16, the results returned in the
+input dtype; the max stays float32.
 """
 
 from __future__ import annotations
@@ -23,11 +29,13 @@ from motif_tpu_torch.ops.warp import pixel_grid
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"splat_fused_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                        _I, _I, _I, _I, _P]}
+                                        _I, _I, _I, _I, _I, _P]}
 TILE = (8, 8)            # the target tile at MoTIF's C = 130 (38 KB;
                          # faster than 4x16, 8x16, 16x8 and 4x8 on an H100)
 STAGE_BYTES = 128 * 32   # the kernel's staged tile records (CHUNK of them)
 SMEM_LIMIT = 232_448     # shared memory a block may use on Hopper
+COMPILED_C = (130, 64)   # payload widths the kernel is specialised for:
+                         # MoTIF's reference order and its fused decode
 
 
 def _corner_data(flow: torch.Tensor, H: int, W: int):
@@ -54,24 +62,59 @@ def _corner_data(flow: torch.Tensor, H: int, W: int):
     return corners
 
 
+def _half_sums(img, flow, ez, corners, boff):
+    """The float16 sums of `splat_fused_plain`, in the JAX package's
+    `_splat_fused_base` order: the fractional positions rounded to float16,
+    their complements and the four products in float16, the payload
+    [img * e^z | e^z] in float16, each corner kind (NW, NE, SW, SE) summed
+    on its own in float16 (norm and count too), the four sums added in
+    that order in float16, and the result widened to img's dtype."""
+    B, H, W, C = img.shape
+    h = torch.float16
+    gx, gy = pixel_grid(H, W, flow.device)
+    fx = gx + flow[..., 0]
+    fy = gy + flow[..., 1]
+    wx1 = (fx - torch.floor(fx)).to(h)
+    wy1 = (fy - torch.floor(fy)).to(h)
+    wx0 = (1.0 - wx1.float()).to(h)
+    wy0 = (1.0 - wy1.float()).to(h)
+    ezh = ez.to(h)
+    u = torch.cat([img.to(h) * ezh, ezh], dim=-1).reshape(B * H * W, C + 1)
+    total = None
+    for (idx, _, valid), w in zip(corners, (wy0 * wx0, wy0 * wx1, wy1 * wx0,
+                                            wy1 * wx1)):
+        ok = valid.reshape(-1, 1)
+        vals = torch.cat([u * w.reshape(-1, 1), torch.ones_like(u[:, :1])], -1)
+        vals = torch.where(ok, vals, torch.zeros_like(vals))
+        part = torch.zeros((B * H * W, C + 2), dtype=h, device=img.device)
+        part.index_add_(0, (idx + boff).reshape(-1), vals)
+        total = part if total is None else total + part
+    return total.to(img.dtype)
+
+
 def splat_fused_plain(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
-                      z_nonpositive: bool):
+                      z_nonpositive: bool, scatter_dtype=None):
     """The plain version of `splat_fused`: one `index_add_` per corner into
-    a (B*H*W, C + 2) accumulator, and `scatter_reduce("amax")` over ones for
-    the max. Same contract as `splat_fused`."""
+    a (B*H*W, C + 2) accumulator (with `scatter_dtype=float16`: float16
+    sums, see `_half_sums`), and `scatter_reduce("amax")` over ones for the
+    max. Same contract as `splat_fused`."""
     B, H, W, C = img.shape
     HW = H * W
     ez = torch.exp(z)
     corners = _corner_data(flow, H, W)
     boff = (torch.arange(B, device=img.device) * HW)[:, None, None]
-    ezf = ez.reshape(B, HW, 1)
-    flat = torch.cat([img.reshape(B, HW, C) * ezf, ezf], dim=-1)
-    acc = torch.zeros((B * HW, C + 2), dtype=img.dtype, device=img.device)
-    for idx, w, valid in corners:
-        wv = torch.where(valid, w, torch.zeros_like(w)).to(img.dtype)
-        vals = torch.cat([flat * wv.reshape(B, HW, 1),
-                          valid.to(img.dtype).reshape(B, HW, 1)], dim=-1)
-        acc.index_add_(0, (idx + boff).reshape(-1), vals.reshape(-1, C + 2))
+    if _half(scatter_dtype, img):
+        acc = _half_sums(img, flow, ez, corners, boff)
+    else:
+        ezf = ez.reshape(B, HW, 1)
+        flat = torch.cat([img.reshape(B, HW, C) * ezf, ezf], dim=-1)
+        acc = torch.zeros((B * HW, C + 2), dtype=img.dtype, device=img.device)
+        for idx, w, valid in corners:
+            wv = torch.where(valid, w, torch.zeros_like(w)).to(img.dtype)
+            vals = torch.cat([flat * wv.reshape(B, HW, 1),
+                              valid.to(img.dtype).reshape(B, HW, 1)], dim=-1)
+            acc.index_add_(0, (idx + boff).reshape(-1),
+                           vals.reshape(-1, C + 2))
     acc = acc.reshape(B, H, W, C + 2)
     if z_nonpositive:
         z_max = torch.ones((B, H, W, 1), dtype=img.dtype, device=img.device)
@@ -86,13 +129,29 @@ def splat_fused_plain(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
     return acc[..., :C], acc[..., C:C + 1], z_max, acc[..., C + 1:]
 
 
-def plan(C: int) -> tuple[int, int]:
-    """The kernel's target tile (th, tw) for C payload channels: the first
-    of 8x8, 4x8, 2x8, 1x8, 1x4, 1x2, 1x1 whose [th * tw, C + 3] float
-    tile (the sums, norm, count and max) fits in a block's shared memory
-    beside the staged records. Raises when not even one pixel fits."""
+def _half(scatter_dtype, img: torch.Tensor) -> bool:
+    """Whether the sums are float16: `scatter_dtype` is None or img's dtype
+    (sums as the inputs) or float16."""
+    if scatter_dtype in (None, img.dtype):
+        return False
+    if scatter_dtype != torch.float16:
+        raise ValueError(f"splat_fused: the sums are kept in the inputs' "
+                         f"dtype or in float16, not {scatter_dtype}")
+    return True
+
+
+def plan(C: int, elem_size: int = 4) -> tuple[int, int]:
+    """The kernel's target tile (th, tw) for C payload channels summed in
+    elements of `elem_size` bytes (4, or 2 for float16 sums): the first of
+    8x8, 4x8, 2x8, 1x8, 1x4, 1x2, 1x1 whose tile ([th * tw, C + 2] sums,
+    norm and count, rounded up to 4 bytes, and th * tw floats of the max)
+    fits in a block's shared memory beside the staged records. Raises when
+    not even one pixel fits."""
     th, tw = TILE
-    while th * tw * (C + 3) * 4 + STAGE_BYTES > SMEM_LIMIT:
+
+    def tile_bytes():
+        return -(-th * tw * (C + 2) * elem_size // 4) * 4 + th * tw * 4
+    while tile_bytes() + STAGE_BYTES > SMEM_LIMIT:
         if th > 1:
             th //= 2
         elif tw > 1:
@@ -105,7 +164,7 @@ def plan(C: int) -> tuple[int, int]:
 
 
 def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
-                z_nonpositive: bool):
+                z_nonpositive: bool, scatter_dtype=None):
     """Fused softmax splat + count splat, and the max splat unless
     `z_nonpositive` (z <= 0 everywhere makes e^z * w <= 1, so the
     ones-initialised max is identically 1 — exact). The caller decides
@@ -116,13 +175,17 @@ def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
       norm  = splat_sum(e^z)                (B, H, W, 1)
       z_max = max(1, max-splat(e^z * w))    (B, H, W, 1)
       count = unweighted in-image corner hits (B, H, W, 1)
-    On CPU tensors: the plain version; on CUDA tensors: the kernel, which
+    `scatter_dtype=torch.float16` keeps the sums (out, norm, count) in
+    float16 and returns them in the input dtype; z_max stays float32.
+    On CPU tensors: the plain version; on CUDA tensors: the kernel's
+    float32-sum or float16-sum entry (float32 tensors either way), which
     sums in an order that varies from run to run (the count and z_max are
-    exact).
+    exact; float16 sums then differ by about 1e-3 relative).
     """
     if img.device.type == "cpu":
-        return splat_fused_plain(img, flow, z, z_nonpositive)
-    kernels.require_cuda_float32("splat_fused", img, flow, z)
+        return splat_fused_plain(img, flow, z, z_nonpositive, scatter_dtype)
+    kernels.require_cuda("splat_fused", (torch.float32,), img, flow, z)
+    half = _half(scatter_dtype, img)
     B, H, W, C = img.shape
     if flow.shape != (B, H, W, 2) or z.shape != (B, H, W, 1):
         raise ValueError(f"splat_fused: bad shapes img {tuple(img.shape)}, "
@@ -130,7 +193,7 @@ def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
     if 4 * B * H * W >= 2 ** 31:
         raise ValueError(f"splat_fused: {B * H * W} pixels exceed the "
                          f"kernel's 32-bit tile lists")
-    th, tw = plan(C)
+    th, tw = plan(C, 2 if half else 4)
     n_pix = B * H * W
     n_tiles = B * -(-H // th) * -(-W // tw)
     img, flow = img.contiguous(), flow.contiguous()
@@ -148,7 +211,8 @@ def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
     err = lib.splat_fused_forward(
         img.data_ptr(), flow.data_ptr(), ez.data_ptr(), acc.data_ptr(),
         z_max.data_ptr(), work.data_ptr(), B, H, W, C, th, tw,
-        int(not z_nonpositive), kernels.stream_handle(img.device))
-    kernels.LAUNCHES["splat_fused"] += 1
+        int(not z_nonpositive), int(half), kernels.stream_handle(img.device))
+    kernels.count("splat_fused", ("float16" if half else "float32")
+                  + (f"/C={C}" if C in COMPILED_C else "/generic"))
     kernels.check(err, "splat_fused")
     return acc[..., :C], acc[..., C:C + 1], z_max, acc[..., C + 1:]

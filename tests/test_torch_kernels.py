@@ -8,6 +8,10 @@ suite's conftest.py sets up JAX):
     python -m pytest -q -m cuda --noconftest tests/test_torch_kernels.py
 
 TF32 is off for the plain versions' matrix products and convolutions.
+Every entry of a kernel is covered: float32 and bfloat16 for the DCN im2col
+and the SIREN, the SIREN whole and from its first layer's pre-activation,
+the splat with float32 and float16 sums at its compiled widths (130, 64)
+and a generic one; each also replayed from a CUDA graph.
 """
 
 import numpy as np
@@ -29,6 +33,29 @@ def dev():
     return torch.device("cuda")
 
 
+def ulp_at(scale: float, bits: int) -> float:
+    """One unit in the last place at magnitude `scale` of a type with
+    `bits` stored mantissa bits (bfloat16 7, float16 10)."""
+    return 2.0 ** (np.floor(np.log2(scale)) - bits)
+
+
+def _replayed(fn, static, updates):
+    """fn() captured in a CUDA graph after a warm-up, then replayed after
+    each of `updates` (lists of tensors copied into `static` in place);
+    yields the captured outputs after each replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    for new in updates:
+        for s_, t in zip(static, new):
+            s_.copy_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        yield outs
+
+
 def _launches(name, fn):
     before = kernels.LAUNCHES[name]
     out = fn()
@@ -39,7 +66,8 @@ def _launches(name, fn):
 def _splat_inputs(dev, case):
     """img, flow, z for one splat case."""
     B, H, W, C = {"c130": (3, 40, 56, 130), "c5-ragged": (2, 37, 45, 5),
-                  "c1000": (2, 12, 21, 1000)}.get(case, (2, 21, 35, 130))
+                  "c1000": (2, 12, 21, 1000), "c64": (3, 40, 56, 64),
+                  "c64-ragged": (2, 37, 45, 64)}.get(case, (2, 21, 35, 130))
     g = torch.Generator(device=dev).manual_seed(0)
     img = torch.randn((B, H, W, C), device=dev, generator=g)
     z = torch.randn((B, H, W, 1), device=dev, generator=g) * 0.5
@@ -69,14 +97,15 @@ def _splat_inputs(dev, case):
 
 
 SPLAT_CASES = ["c130", "c5-ragged", "c1000", "zero", "integer",
-               "converging", "off-image", "non-finite"]
+               "converging", "off-image", "non-finite", "c64", "c64-ragged"]
 
 
 @pytest.mark.parametrize("z_nonpositive", [True, False])
 @pytest.mark.parametrize("case", SPLAT_CASES)
 def test_splat_fused(dev, case, z_nonpositive):
-    """The binned kernel against the plain version: C = 130 (specialised)
-    and C = 5 (generic) at H, W that are not tile multiples, C = 1000 (a
+    """The binned kernel against the plain version: C = 130 and C = 64
+    (specialised) and C = 5 (generic) at H, W that are not tile multiples,
+    C = 1000 (a
     smaller tile, warps that take several channel groups), B > 1
     throughout; zero and integer flows (corners of
     weight 0 on tile borders still count), a converging flow, everything
@@ -101,6 +130,56 @@ def test_splat_fused(dev, case, z_nonpositive):
         assert not got[3].any() and (got[2] == 1.0).all()
     elif case == "converging":
         assert got[3].max() >= 20          # ~28 corner hits per target
+
+
+@pytest.mark.parametrize("z_nonpositive", [True, False])
+@pytest.mark.parametrize("case", SPLAT_CASES)
+def test_splat_fused_float16_sums(dev, case, z_nonpositive):
+    """The float16-sum entry against the plain version with float16 sums,
+    on the float32 entry's cases. The kernel sums a tile's list in an order
+    that varies from run to run and the plain version sums each corner
+    kind on its own, so out / norm agree to 4 float16 ulps of the largest
+    value (16 for the converging flow's ~28-term sums); the count (small
+    integers, exact in float16) and the float32 max are exact. The results
+    are float32."""
+    img, flow, z = _splat_inputs(dev, case)
+    if z_nonpositive:
+        z = -z.abs()
+    got, n = _launches("splat_fused", lambda: softsplat.splat_fused(
+        img, flow, z, z_nonpositive, scatter_dtype=torch.float16))
+    assert n == 1
+    want = softsplat.splat_fused_plain(img, flow, z, z_nonpositive,
+                                       scatter_dtype=torch.float16)
+    ulps = 16 if case == "converging" else 4
+    for a, b in zip(got[:2], want[:2]):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        tol = ulps * ulp_at(max(float(b.abs().max()), 1e-3), 10)
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=0)
+    if case in ("c130", "c64"):
+        full = softsplat.splat_fused(img, flow, z, z_nonpositive)
+        assert not torch.equal(got[0], full[0])   # really float16 sums
+        torch.testing.assert_close(got[0], full[0], rtol=0, atol=5e-2)
+
+
+def test_splat_fused_float16_replays_from_a_cuda_graph(dev):
+    """The float16-sum entry replayed from a CUDA graph on new inputs:
+    count and z_max exact, out / norm to 4 float16 ulps of the largest
+    value (the summation order varies between runs)."""
+    img, flow, z = _splat_inputs(dev, "c64")
+    static = [t.clone() for t in (img, flow, z)]
+    runs = _replayed(lambda: softsplat.splat_fused(
+        *static, z_nonpositive=False, scatter_dtype=torch.float16), static,
+        [(img, flow * sc, z) for sc in (1.0, 2.5)])
+    for sc, outs in zip((1.0, 2.5), runs):
+        want = softsplat.splat_fused(img, flow * sc, z, z_nonpositive=False,
+                                     scatter_dtype=torch.float16)
+        for a, b in zip(outs[:2], want[:2]):
+            tol = 4 * ulp_at(float(b.abs().max()), 10)
+            torch.testing.assert_close(a, b, rtol=0, atol=tol)
+        for a, b in zip(outs[2:], want[2:]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_splat_fused_replays_from_a_cuda_graph(dev):
@@ -169,6 +248,71 @@ def test_dcn_im2col(dev, H, W, G, cg, K, stride, pad, dil, strided):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
+DCN_SHAPES = [
+    (64, 112, 8, 8, 3, 1, 1, 1, False), (64, 112, 8, 8, 3, 1, 1, 1, True),
+    (30, 28, 8, 8, 3, 1, 1, 1, True), (30, 28, 8, 8, 3, 2, 1, 1, False),
+    (30, 28, 4, 8, 3, 1, 2, 2, True), (30, 28, 8, 2, 3, 1, 1, 1, False),
+    (30, 28, 2, 12, 5, 1, 2, 1, True), (17, 9, 1, 4, 1, 1, 0, 1, False),
+    (30, 28, 4, 16, 3, 1, 1, 1, True)]
+
+
+@pytest.mark.parametrize("H,W,G,cg,K,stride,pad,dil,strided", DCN_SHAPES)
+def test_dcn_im2col_bfloat16(dev, H, W, G, cg, K, stride, pad, dil, strided):
+    """The bfloat16 entry on the float32 entry's shapes (cg = 8 and 16 take
+    16-byte loads of 8 bfloat16s, the others the scalar path; strided
+    bfloat16 views are read in place at half the byte offsets). Kernel and
+    plain version do the same float32 arithmetic on the same bfloat16
+    inputs and round once: 1 bfloat16 ulp of the largest column."""
+    x, off, mask = (t.bfloat16() for t in _dcn_inputs(
+        dev, 2, H, W, G, cg, K, stride, pad, dil, False))
+    if strided:
+        com = torch.cat([off, mask], -1)
+        off, mask = com[..., :off.shape[-1]], com[..., off.shape[-1]:]
+    got, n = _launches("dcn_im2col", lambda: dcn.dcn_im2col(
+        x, off, mask, K, stride, pad, dil, G))
+    assert n == 1 and got.dtype == torch.bfloat16
+    want = dcn.dcn_im2col_plain(x, off, mask, K, stride, pad, dil, G)
+    assert got.shape == want.shape
+    tol = ulp_at(float(want.abs().max()), 7)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert (got == want).float().mean() > 0.999
+
+
+def test_dcn_v2_bfloat16_through_the_kernel(dev):
+    """dcn_v2 in bfloat16 (kernel + one bfloat16 addmm) against the same
+    contraction of the plain im2col: 2 bfloat16 ulps of the largest
+    output (a column off by an ulp moves a float32 sum)."""
+    G, cg, K = 8, 8, 3
+    x, off, mask = (t.bfloat16() for t in _dcn_inputs(
+        dev, 2, 30, 28, G, cg, K, 1, 1, 1, False))
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = (torch.randn((64, G * cg, K, K), device=dev, generator=g) * 0.05
+         ).bfloat16()
+    b = torch.randn((64,), device=dev, generator=g).bfloat16()
+    got, n = _launches("dcn_im2col", lambda: dcn.dcn_v2(
+        x, off, mask, w, b, K, 1, 1, 1, G))
+    assert n == 1 and got.dtype == torch.bfloat16
+    cols = dcn.dcn_im2col_plain(x, off, mask, K, 1, 1, 1, G)
+    wm = w.reshape(64, G, cg, K * K).transpose(2, 3).reshape(64, -1)
+    want = torch.addmm(b, cols, wm.t()).reshape(got.shape)
+    tol = 2 * ulp_at(float(want.abs().max()), 7)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dcn_im2col_replays_from_a_cuda_graph(dev, dtype):
+    """Both entries captured in a CUDA graph and replayed on new inputs
+    written in place: bit-equal to the eager call (no atomics)."""
+    x, off, mask = (t.to(dtype) for t in _dcn_inputs(
+        dev, 2, 30, 28, 8, 8, 3, 1, 1, 1, False))
+    static = [t.clone() for t in (x, off, mask)]
+    runs = _replayed(lambda: dcn.dcn_im2col(*static, 3, 1, 1, 1, 8), static,
+                     [(x, off * sc, mask) for sc in (1.0, 0.5)])
+    for sc, out in zip((1.0, 0.5), runs):
+        want = dcn.dcn_im2col(x, off * sc, mask, 3, 1, 1, 1, 8)
+        assert torch.equal(out, want)
+
+
 def test_dcn_v2_through_the_kernel(dev):
     """dcn_v2 (kernel + addmm) against the same contraction of the plain
     im2col, TF32 off. atol 1e-5."""
@@ -214,6 +358,106 @@ def test_siren_mlp(dev, dims, sine_last):
     torch.testing.assert_close(
         got, siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, sine_last),
         rtol=0, atol=1e-5)
+
+
+def _siren_tol(want, dtype):
+    """float32: 1e-5. bfloat16: 1 ulp of the largest output — the kernel
+    and the plain version accumulate the same exact products in float32
+    in the same order and round at the same four points."""
+    if dtype == torch.float32:
+        return 1e-5
+    return ulp_at(float(want.abs().max()), 7)
+
+
+SKIP_MLPS = [d[1:] for d in MOTIF_MLPS] + [[20, 7], [64, 100, 12]]
+ENTRIES = ([(torch.float32, True, d) for d in SKIP_MLPS]
+           + [(torch.bfloat16, True, d) for d in SKIP_MLPS]
+           + [(torch.bfloat16, False, d) for d in MOTIF_MLPS + [[5, 7]]])
+
+
+@pytest.mark.parametrize("dtype,skip_first,dims", ENTRIES, ids=lambda v: (
+    str(v).removeprefix("torch.") if not isinstance(v, list)
+    else "-".join(map(str, v))))
+@pytest.mark.parametrize("sine_last", [False, True])
+def test_siren_mlp_entries(dev, dtype, skip_first, dims, sine_last):
+    """The entries beside the float32 whole MLP: from the first layer's
+    pre-activation in float32 and bfloat16 (the three MoTIF MLPs without
+    their layer 0, a narrow pre-activation of 20 and a stored layer of
+    100), and the whole MLP in bfloat16 (fan-ins 67 / 66 / 198: odd and
+    wider than a chunk). 5001 tokens: not a tile multiple."""
+    ws, bs, g = _siren(dev, dims)
+    ws, bs = [w.to(dtype) for w in ws], [b.to(dtype) for b in bs]
+    x = ((torch.rand((5001, dims[0]), device=dev, generator=g) * 2 - 1)
+         * (0.6 if skip_first else 1.0)).to(dtype)
+    got, n = _launches("siren_mlp", lambda: siren_kernel.siren_mlp(
+        x, ws, bs, 30.0, sine_last, skip_first))
+    assert n == 1 and got.dtype == dtype
+    want = siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, sine_last,
+                                        skip_first)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_siren_tol(want, dtype))
+    if dtype == torch.bfloat16:
+        assert (got == want).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("dtype,skip_first", [
+    (torch.float32, False), (torch.float32, True), (torch.bfloat16, False),
+    (torch.bfloat16, True)])
+def test_siren_mlp_replays_from_a_cuda_graph(dev, dtype, skip_first):
+    """Each entry captured in a CUDA graph and replayed on new tokens
+    written in place: bit-equal to the eager call."""
+    dims = MOTIF_MLPS[1][1 if skip_first else 0:]
+    ws, bs, g = _siren(dev, dims)
+    ws, bs = [w.to(dtype) for w in ws], [b.to(dtype) for b in bs]
+    x = (torch.rand((3001, dims[0]), device=dev, generator=g) - 0.5).to(dtype)
+    static = [x.clone()]
+    runs = _replayed(lambda: siren_kernel.siren_mlp(
+        static[0], ws, bs, 30.0, False, skip_first), static,
+        [(x * sc,) for sc in (1.0, 0.5)])
+    for sc, out in zip((1.0, 0.5), runs):
+        want = siren_kernel.siren_mlp(x * sc, ws, bs, 30.0, False, skip_first)
+        assert torch.equal(out, want)
+
+
+def test_siren_skip_first_equals_the_whole_mlp_float32(dev):
+    """Layer 0's linear map by F.linear, then the skip-first entry, is bit
+    for bit the whole-MLP entry in float32 (both are F.linear + sin)."""
+    dims = MOTIF_MLPS[0]
+    ws, bs, g = _siren(dev, dims)
+    x = torch.rand((4097, dims[0]), device=dev, generator=g) * 2 - 1
+    whole = siren_kernel.siren_mlp(x, ws, bs)
+    pre = torch.nn.functional.linear(x, ws[0], bs[0])
+    assert torch.equal(siren_kernel.siren_mlp(pre, ws[1:], bs[1:],
+                                              skip_first=True), whole)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_chunks_are_bit_equal(dev, dtype):
+    """A skip-first Siren over the token axis in 3 pieces (a batch of 2, so
+    the pieces are strided views) is bit for bit the one-piece call: the
+    kernel is pointwise over tokens."""
+    from motif_tpu_torch.models.motif import _chunked_tokens
+    from motif_tpu_torch.models.siren import Siren
+
+    torch.manual_seed(0)
+    net = Siren(67, [64, 64, 256], 2, 3, skip_first_linear=True).to(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = (torch.rand((2, 1000, 64), device=dev, generator=g) - 0.5).to(dtype)
+    with torch.no_grad():
+        whole, n1 = _launches("siren_mlp", lambda: net(toks))
+        pieces, n3 = _launches("siren_mlp",
+                               lambda: _chunked_tokens(net, toks, 3))
+    assert (n1, n3) == (1, 3)
+    assert torch.equal(whole, pieces)
+
+
+def test_siren_skip_first_refuses_a_wide_pre_activation(dev):
+    ws, bs, g = _siren(dev, [100, 64, 3])
+    before = kernels.LAUNCHES["siren_mlp"]
+    with pytest.raises(ValueError, match="pre-activation"):
+        siren_kernel.siren_mlp(torch.zeros((10, 100), device=dev), ws, bs,
+                               skip_first=True)
+    assert kernels.LAUNCHES["siren_mlp"] == before
 
 
 @pytest.mark.parametrize("dims", MOTIF_MLPS)
@@ -270,6 +514,56 @@ def test_wrappers_reject_float64(dev):
     mask = torch.zeros((2, 4, 4, 18), device=dev, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         dcn.dcn_im2col(x, off, mask, 3, 1, 1, 1, 2)
+
+
+def test_wrappers_reject_mixed_dtypes_and_devices(dev):
+    """Nothing is converted: bfloat16 features with float32 offsets, a
+    bfloat16 splat input (its entries take float32 tensors), float16
+    tokens, and a tensor left on the CPU all raise before any launch."""
+    x = torch.zeros((2, 4, 4, 8), device=dev)
+    off = torch.zeros((2, 4, 4, 36), device=dev)
+    mask = torch.zeros((2, 4, 4, 18), device=dev)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(TypeError, match="share"):
+        dcn.dcn_im2col(x.bfloat16(), off, mask, 3, 1, 1, 1, 2)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        dcn.dcn_im2col(x, off.cpu(), mask, 3, 1, 1, 1, 2)
+    img = torch.zeros((1, 4, 4, 3), device=dev)
+    flow = torch.zeros((1, 4, 4, 2), device=dev)
+    z = torch.zeros((1, 4, 4, 1), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        softsplat.splat_fused(img.bfloat16(), flow.bfloat16(), z.bfloat16(),
+                              True)
+    with pytest.raises(ValueError, match="float16"):
+        softsplat.splat_fused(img, flow, z, True, scatter_dtype=torch.bfloat16)
+    w, b = torch.zeros((4, 3), device=dev), torch.zeros((4,), device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        siren_kernel.siren_mlp(torch.zeros((5, 3), device=dev).half(),
+                               [w.half()], [b.half()])
+    assert kernels.LAUNCHES == before
+
+
+def test_entry_counters_name_the_entry(dev):
+    """Each wrapper counts its launch under its kernel and its entry."""
+    kernels.reset_launches()
+    ws, bs, g = _siren(dev, [64, 64, 3])
+    x = torch.zeros((10, 64), device=dev)
+    siren_kernel.siren_mlp(x.bfloat16(), [w.bfloat16() for w in ws],
+                           [b.bfloat16() for b in bs], skip_first=True)
+    siren_kernel.siren_mlp(x, ws, bs)
+    img, flow, z = _splat_inputs(dev, "c64")
+    softsplat.splat_fused(img, flow, z, False, scatter_dtype=torch.float16)
+    softsplat.splat_fused(img[..., :5].contiguous(), flow, z, False)
+    xd, off, mask = _dcn_inputs(dev, 1, 9, 9, 2, 8, 3, 1, 1, 1, False)
+    dcn.dcn_im2col(xd.bfloat16(), off.bfloat16(), mask.bfloat16(), 3, 1, 1, 1,
+                   2)
+    torch.cuda.synchronize()
+    assert kernels.ENTRY_LAUNCHES == {
+        "siren_mlp/bfloat16/skip_first": 1, "siren_mlp/float32/whole": 1,
+        "splat_fused/float16/C=64": 1, "splat_fused/float32/generic": 1,
+        "dcn_im2col/bfloat16": 1}
+    assert kernels.LAUNCHES == {"siren_mlp": 2, "splat_fused": 2,
+                                "dcn_im2col": 1}
 
 
 def test_kernels_build_from_the_sources(dev):

@@ -60,6 +60,29 @@ def test_build_motif_raises_without_cuda(no_cuda):
         build_motif(16, 1, 2)
 
 
+SERVING = dict(fused_decode=True, compute_dtype="bfloat16",
+               splat_dtype="float16", raft_resolution=0.5, decode_chunks=3)
+
+
+def test_entry_points_raise_without_cuda_with_the_knobs_too(no_cuda):
+    """The serving knobs change nothing about where the entry points run."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_motif(16, 1, 2, **SERVING)
+    m = build_motif(16, 1, 2, device="cpu", **SERVING)
+    assert m.fused_decode and m.compute_dtype == torch.bfloat16
+    assert m.splat_dtype == torch.float16 and m.decode_chunks == 3
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Evaluator(m, **SERVING)
+    plain = build_motif(16, 1, 2, device="cpu")
+    ev = Evaluator(plain, device="cpu", **SERVING)
+    assert ev.model.fused_decode and ev.model.raft_resolution == 0.5
+    assert all(net.skip_first_linear for net in
+               (plain.flow_imnet, plain.imnet, plain.synth_net))
+    plain.configure()                      # every knob back to its default
+    assert not plain.fused_decode and plain.compute_dtype is None
+    assert not plain.synth_net.skip_first_linear
+
+
 def test_evaluator_raises_without_cuda(no_cuda):
     m = build_motif(16, 1, 2, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
