@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py                  # the smoke run
     python3 chip_smoke.py --profile DIR    # also write a torch.profiler
-                                           # table of one request to DIR and
-                                           # count its device kernels
+                                           # table of one request to DIR,
+                                           # count its device kernels, and
+                                           # dump the bfloat16 SIREN's SASS
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -14,13 +15,17 @@ Phases, each fatal on failure:
      at C = 130 and C = 64 with float32 and float16 sums) against its plain
      PyTorch version on the card at the main path's shapes, TF32 off, with
      its time, the plain version's time, one PyTorch library call's time,
-     the bound of the card and the fraction of it reached; the DCN im2col
-     also with the L2 cold, and the
-     whole dcn_v2 (kernel + addmm) at L1; the splat also at other tile
-     shapes, on a converging flow and on request (a)'s own inputs, with
-     its tile lists and its device kernels per call. Times are device
-     times (calls replayed from a CUDA graph), with the eager per-call time
-     beside them;
+     the bound of the card and the fraction of it reached. The bfloat16
+     SIREN entries contract on the tensor cores, which sum in another order
+     than the plain version: they are held by accuracy against a float64
+     evaluation (whole MLPs) and, layer by layer, by the share of bit-equal
+     outputs and the reach of one flipped rounding. The DCN im2col also
+     with the L2 cold, and the whole dcn_v2 (kernel + addmm) at L1 (and in
+     bfloat16 at L1 - L3 with the whole op's bound and library time); the
+     splat also at other tile shapes, on a converging flow and on request
+     (a)'s own inputs, with its tile lists and its device kernels per call.
+     Times are device times (calls replayed from a CUDA graph), with the
+     eager per-call time beside them;
   4. the slice: MoTIF(setting=5) at full width (channel 64, 5 + 40 residual
      blocks, RAFT-small) with random weights from a seed, DCN offsets
      perturbed, driven through Evaluator.infer: requests (a)-(d) on the
@@ -355,12 +360,15 @@ def dcn_inputs(dev, B, H, W, G, cg, K, dtype=torch.float32):
     return x, com[..., :n_off], mask
 
 
-def time_dcn_v2(dev, dcn, dtype=torch.float32):
-    """The whole dcn_v2 at L1 (2 x 64 x 112, 64 -> 64 channels, G = 8,
-    K = 3) through its public signature, which older checkouts of the
-    package share: device ms (graph replay) and eager ms per call."""
+LEVELS = {"L1": (2, 64, 112), "L2": (2, 32, 56), "L3": (2, 16, 28)}
+
+
+def time_dcn_v2(dev, dcn, dtype=torch.float32, level="L1"):
+    """The whole dcn_v2 at a PCD level (L1: 2 x 64 x 112; 64 -> 64 channels,
+    G = 8, K = 3) through its public signature, which older checkouts of
+    the package share: device ms (graph replay) and eager ms per call."""
     G, cg, K = 8, 8, 3
-    x, off, mask = dcn_inputs(dev, 2, 64, 112, G, cg, K, dtype)
+    x, off, mask = dcn_inputs(dev, *LEVELS[level], G, cg, K, dtype)
     g = torch.Generator(device=dev).manual_seed(5)
     w = (torch.randn((64, G * cg, K, K), device=dev, generator=g) * 0.05
          ).to(dtype)
@@ -439,6 +447,63 @@ def check_dcn(dev, dcn, kernels, dtype=torch.float32):
     return dict(max_abs_err=worst, **first)
 
 
+def check_dcn_v2(dev, dcn):
+    """The whole bfloat16 dcn_v2 (the dcn_im2col kernel + one bfloat16 addmm)
+    at L1 / L2 / L3 of the PCD against dcn_v2_plain (the plain im2col + the
+    same addmm): 2 bfloat16 ulps of the largest output (a column off by an
+    ulp moves a float32 sum). Times: the whole op, its plain version, the
+    library composition (F.grid_sample + addmm), and the whole op's bound:
+    x, offsets, mask and weight read once, the output written once (the
+    columns are the op's own traffic); products at the bf16 tensor-core
+    peak."""
+    import torch.nn.functional as F
+
+    G, cg, K, dtype = 8, 8, 3, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+    w = (torch.randn((64, G * cg, K, K), device=dev, generator=g) * 0.05
+         ).to(dtype)
+    bias = torch.randn((64,), device=dev, generator=g).to(dtype)
+    for level, (B, H, W) in LEVELS.items():
+        x, off, mask = dcn_inputs(dev, B, H, W, G, cg, K, dtype)
+        args = (x, off, mask, w, bias, K, 1, 1, 1, G)
+        got, want = dcn.dcn_v2(*args), dcn.dcn_v2_plain(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = 2 * ulp(float(want.abs().max()), 7)
+        if not err <= tol:
+            raise AssertionError(f"dcn_v2 bfloat16 {level}: err {err} "
+                                 f"(tol {tol})")
+        py, px = dcn.sample_positions(off, K, 1, 1, 1, G)
+        Q = py.shape[2]
+        xg = x.reshape(B, H, W, G, cg).permute(0, 3, 4, 1, 2).reshape(
+            B * G, cg, H, W).contiguous()
+        grid = torch.stack([2.0 * px / (W - 1) - 1.0, 2.0 * py / (H - 1) - 1.0],
+                           -1).reshape(B * G, 1, Q, 2).to(dtype)
+        cols = torch.empty((B * H * W, G * K * K * cg), device=dev,
+                           dtype=dtype)
+        wm = w.reshape(64, -1)
+
+        def library():
+            # the same sampling by F.grid_sample (without the mask and the
+            # column order), then the product
+            F.grid_sample(xg, grid, mode="bilinear", padding_mode="zeros",
+                          align_corners=True)
+            return torch.addmm(bias, cols, wm.t())
+        nbytes = 2 * (x.numel() + off.numel() + mask.numel() + w.numel()
+                      + bias.numel() + got.numel())
+        flops = 2 * B * H * W * 64 * G * K * K * cg
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        ms = device_ms(lambda: dcn.dcn_v2(*args))
+        emit({"check": "dcn_v2", "dtype": "bfloat16", "level": level,
+              "shape": [B, H, W, G, cg], "max_abs_err": err, "tol": tol,
+              "ms": ms, "plain_ms": device_ms(lambda: dcn.dcn_v2_plain(*args),
+                                              reps=5),
+              "library_ms": device_ms(library), "bound_ms": b_ms,
+              "bound_by": b_by, "fraction_of_bound": b_ms / ms,
+              "eager_ms": cuda_ms(lambda: dcn.dcn_v2(*args)),
+              "library": "F.grid_sample + addmm"})
+
+
 SIRENS = {  # name: (fan-in, hidden widths, out, tokens on the main path)
     "stinf": (67, [64, 64, 256], 3, 688128),
     "sinf": (66, [64, 64, 256], 64, 229376),
@@ -452,10 +517,14 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
     layer's pre-activation) on the three MLPs at the main path's token
     counts. float32: FMA and sinf, as the plain version with TF32 off:
     1e-5 (the outputs are about 0.05; TF32 products or a fast __sinf would
-    miss it). bfloat16: kernel and plain version accumulate the same exact
-    products in float32 in the same order and round at the same four
-    points, so 1 bfloat16 ulp of the largest output. The bound counts the
-    bfloat16 products at the tensor cores' bf16 peak."""
+    miss it). bfloat16: the tensor cores sum in another order than the
+    plain version, so the entry is held by accuracy (siren_kernel.mlp_gate:
+    against the float64 evaluation of the same bfloat16 inputs its RMS
+    error is at most 1.25 x the plain version's, its mean signed error
+    below 10% of its RMS error, its max error at most 2 x the plain
+    version's); the bit-equal share and the max abs difference from the
+    plain version are printed and not gated. The bound counts the bfloat16
+    products at the tensor cores' bf16 peak."""
     bf = dtype == torch.bfloat16
     worst, first = 0.0, None
     for name, (cin, hidden, cout, n_tok) in SIRENS.items():
@@ -482,13 +551,20 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
         want = run_plain()
         torch.cuda.synchronize()
         err = max_err(got, want)
-        tol = ulp(float(want.abs().max()), 7) if bf else 1e-5
         exact = float((got == want).float().mean())
+        tol, held = 1e-5, {}
+        if bf:
+            ref = siren_kernel.siren_mlp_reference64(x, ws, bs, 30.0, False,
+                                                     skip_first)
+            held = siren_kernel.mlp_gate(got, want, ref)
+            tol = None
+            del ref
         del want
-        if not err <= tol:
+        if not (held["ok"] if bf else err <= tol):
             raise AssertionError(f"siren_mlp {name} {dname(dtype)} "
                                  f"skip_first={skip_first}: err {err} "
-                                 f"(tol {tol}), bit-equal share {exact}")
+                                 f"(tol {tol}), bit-equal share {exact}, "
+                                 f"accuracy {held}")
         worst = max(worst, err)
         ms = device_ms(run, reps=10)
         eager = cuda_ms(run, reps=10)
@@ -520,9 +596,52 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
               "tokens": n_tok, "dims": dims, "max_abs_err": err, "tol": tol,
               "exact_share": exact, "fraction_of_bound": b_ms / ms,
               "peak": "bf16 tensor cores" if bf else "fp32",
-              "library": "addmm + sin per layer (cuBLAS)", **line})
+              "library": "addmm + sin per layer (cuBLAS)", **line,
+              **({"accuracy_vs_float64": held} if bf else {})})
         first = first or line
     return dict(max_abs_err=worst, **first)
+
+
+def siren_case(dev, dims, n_tok, dtype, skip_first, scale=1.0):
+    """Weights with SIREN's hidden init, biases and tokens from a seed."""
+    from motif_tpu_torch.models.siren import hidden_bound
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    ws = [((torch.rand((o, i), device=dev, generator=g) * 2 - 1)
+           * hidden_bound(i, 30.0)).to(dtype)
+          for i, o in zip(dims[:-1], dims[1:])]
+    bs = [(torch.rand((o,), device=dev, generator=g) * 0.2 - 0.1).to(dtype)
+          for o in dims[1:]]
+    x = ((torch.rand((n_tok, dims[0]), device=dev, generator=g) * 2 - 1)
+         * scale).to(dtype)
+    return x, ws, bs
+
+
+def check_siren_layers(dev, siren_kernel):
+    """Gate 1 of the bfloat16 entries: ONE layer K -> N at the widths of
+    the MoTIF MLPs, with and without the sine, on the same bfloat16 input
+    as the plain version (siren_kernel.layer_gate: at least 99% of the
+    outputs bit-equal, none further off than one flipped rounding of the
+    product puts it). 256 -> 256 does not fit a block's shared memory."""
+    for K in (64, 67, 198, 256):
+        for N in (64, 256, 3):
+            if (K, N) == (256, 256):
+                continue
+            x, ws, bs = siren_case(dev, [K, N], 100_000, torch.bfloat16,
+                                   False)
+            pre = torch.nn.functional.linear(x.double(), ws[0].double())
+            pre_max = float(torch.maximum(
+                pre.abs(), (pre + bs[0].double()).abs()).max())
+            for sine in (False, True):
+                got = siren_kernel.siren_mlp(x, ws, bs, 30.0, sine)
+                want = siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, sine)
+                held = siren_kernel.layer_gate(got, want, pre_max, 30.0, sine)
+                emit({"check": "siren_mlp_layer", "dtype": "bfloat16",
+                      "K": K, "N": N, "sine": sine, "tokens": 100_000,
+                      "pre_max": pre_max, **held})
+                if not held["ok"]:
+                    raise AssertionError(f"siren_mlp bfloat16 layer {K} -> "
+                                         f"{N}, sine={sine}: {held}")
 
 
 # ---------------------------------------------------------------------------
@@ -533,11 +652,12 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
 def plain_versions(softsplat, dcn, siren_kernel):
     """Route the model's kernel calls to the plain versions (the reference
     forward for the comparison; the package itself has no such switch)."""
+    def siren_plain(*a, packed=None, **kw):   # the kernel's buffer: unused
+        return siren_kernel.siren_mlp_plain(*a, **kw)
     with mock.patch.object(softsplat, "splat_fused",
                            softsplat.splat_fused_plain), \
             mock.patch.object(dcn, "dcn_im2col", dcn.dcn_im2col_plain), \
-            mock.patch.object(siren_kernel, "siren_mlp",
-                              siren_kernel.siren_mlp_plain):
+            mock.patch.object(siren_kernel, "siren_mlp", siren_plain):
         yield
 
 
@@ -817,6 +937,7 @@ def run_slice(dev, args, card):
     if args.profile:
         profile_request(ev, lq_a, t3, args.profile, "a")
         profile_request(ev_s, lq_a, t3, args.profile, "e")
+        sass_counts(kernels, args.profile)
     return launches, entry_launches, per_request, entries
 
 
@@ -849,17 +970,82 @@ def profile_request(ev, lq, times, out_dir, name):
                          for e in top[:25]]})
 
 
+def sass_counts(kernels, out_dir, source="siren_mlp_bf16"):
+    """The SASS of one built source into `out_dir` (cuobjdump), and per
+    kernel in it the static instruction counts by opcode, and the same for
+    each straight-line run of code that holds 32 branch-free sines (one
+    F2I each: sin_rr over an accumulator tile, with the roundings that
+    follow it). The fp32-pipe floor of the bfloat16 SIREN's sines and
+    roundings is reckoned from these: instructions per value x values per
+    token x tokens, over SMs x 128 lanes x the clock."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(kernels._library_path(source))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{source}.sass"), "w") as f:
+        f.write(sass)
+    ops = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            ops[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_]+)",
+                     line)
+        if m and name:
+            ops[name].append(m.group(1))
+    ends = {"BRA", "BSSY", "BSYNC", "HMMA", "EXIT", "CALL", "RET"}
+    for fn, seq in ops.items():
+        runs, cur = [], []
+        for op in seq + ["EXIT"]:
+            if op in ends:
+                runs.append(cur)
+                cur = []
+            else:
+                cur.append(op)
+        sines = [collections.Counter(r) for r in runs
+                 if r.count("F2I") == 32 and "MUFU" not in r]
+        emit({"phase": "sass", "source": source, "function": fn,
+              "instructions": len(seq),
+              "by_opcode": dict(collections.Counter(seq).most_common(16)),
+              "runs_of_32_sines": [{"instructions": sum(c.values()),
+                                    "by_opcode": dict(c.most_common(10))}
+                                   for c in sines]})
+
+
 def compare_only(dev, card, out_dir):
     """The numbers that compare two checkouts of the package, through the
     entry points they share: dcn_v2 at L1, splat_fused at the smoke's
     shapes (z <= 0), request (a)'s median and single runs, and one profiled
-    request's device kernels; and request (e) likewise where the checkout
-    has the serving knobs."""
+    request's device kernels; and, where the checkout has the serving
+    knobs, dcn_v2 in bfloat16 at L1 - L3, siren_mlp in bfloat16 (both
+    entries, the three MLPs) and request (e) likewise."""
     from motif_tpu_torch.models.motif import MoTIF
-    from motif_tpu_torch.ops import dcn, softsplat
+    from motif_tpu_torch.ops import dcn, siren_kernel, softsplat
 
     emit({"phase": "compare_dcn_v2_L1", "card": card,
           **time_dcn_v2(dev, dcn)})
+    if hasattr(MoTIF, "configure"):          # the checkout has bfloat16
+        for level in LEVELS:
+            emit({"phase": "compare_dcn_v2_bfloat16", "level": level,
+                  "card": card,
+                  **time_dcn_v2(dev, dcn, torch.bfloat16, level)})
+        for skip_first in (True, False):
+            for name, (cin, hidden, cout, n_tok) in SIRENS.items():
+                dims = ([] if skip_first else [cin]) + hidden + [cout]
+                x, ws, bs = siren_case(dev, dims, n_tok, torch.bfloat16,
+                                       skip_first, 0.6 if skip_first else 1.0)
+                emit({"phase": "compare_siren_mlp_bfloat16", "mlp": name,
+                      "skip_first": skip_first, "tokens": n_tok, "card": card,
+                      "device_ms": device_ms(lambda: siren_kernel.siren_mlp(
+                          x, ws, bs, 30.0, False, skip_first), reps=10)})
     B, H, W, C = 6, 256, 448, 130
     g = torch.Generator(device=dev).manual_seed(1)
     img = torch.randn((B, H, W, C), device=dev, generator=g)
@@ -885,8 +1071,8 @@ def compare_only(dev, card, out_dir):
 
 # ---------------------------------------------------------------------------
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def card_line(query: str = "name,power.limit") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
@@ -898,9 +1084,10 @@ def main() -> int:
                     help="write torch.profiler tables of requests (a) and "
                          "(e) to DIR")
     ap.add_argument("--compare-only", metavar="DIR",
-                    help="only time dcn_v2 at L1, the splat and requests (a) "
-                         "and (e) and profile them into DIR, through entry "
-                         "points that "
+                    help="only time dcn_v2 (float32 at L1, bfloat16 at L1 - "
+                         "L3), the bfloat16 siren_mlp entries, the splat and "
+                         "requests (a) and (e) and profile the requests into "
+                         "DIR, through entry points that "
                          "older checkouts share (run one with `python3 -P` "
                          "and its tree first on PYTHONPATH)")
     args = ap.parse_args()
@@ -916,14 +1103,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
-          "nvidia_smi": card, "torch": torch.__version__,
+          "nvidia_smi": card, "clocks_sm_max_and_now": card_line(
+              "clocks.max.sm,clocks.sm"), "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     build_s = kernels.build()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "bytes stack" in ln]
              for name, log in kernels.BUILD_LOGS.items()}
-    emit({"phase": "build", "seconds": build_s, "kernels": kernels.KERNELS,
+    emit({"phase": "build", "seconds": build_s, "sources": getattr(kernels, "SOURCES", kernels.KERNELS),
           "ptxas": ptxas})
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -951,6 +1139,8 @@ def main() -> int:
         "siren_mlp/bfloat16/skip_first": check_siren(
             dev, siren_kernel, Siren, kernels, bf16, True),
     }
+    check_siren_layers(dev, siren_kernel)
+    check_dcn_v2(dev, dcn)
     if set(results) != set(ENTRIES):
         raise AssertionError("an entry was not held against its plain version")
     launches, entry_launches, per_request, entries = run_slice(dev, args, card)
@@ -968,6 +1158,8 @@ def main() -> int:
     for entry in ENTRIES:
         name, variant = entry.split("/", 1)
         src, replaces = meta[name]
+        if entry.startswith("siren_mlp/bfloat16"):
+            src = "motif_tpu_torch/csrc/siren_mlp_bf16.cu"
         r = results[entry]
         row = {"name": f"{name}[{variant}]", "kernel": name, "route": "cuda",
                "source": src, "replaces": replaces,

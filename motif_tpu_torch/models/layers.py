@@ -52,6 +52,20 @@ def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
     return hit[1]
 
 
+def cached(module: nn.Module, key, params, make):
+    """`make()`, a tensor derived from `params` (parameters of `module`),
+    kept on the module under `key` the way `cast_param` keeps its copies:
+    stamped with every parameter's version counter, address and device and
+    made anew when any of them changed."""
+    stamp = tuple((p._version, p.data_ptr(), p.device) for p in params)
+    cache = module.__dict__.setdefault("_derived_cache", {})
+    hit = cache.get(key)
+    if hit is None or hit[0] != stamp:
+        hit = (stamp, make())
+        cache[key] = hit
+    return hit[1]
+
+
 def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 

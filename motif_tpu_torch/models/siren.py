@@ -14,7 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from motif_tpu_torch.models.layers import Linear, cast_param
+from motif_tpu_torch.models.layers import Linear, cached, cast_param
 from motif_tpu_torch.ops import siren_kernel
 
 
@@ -42,7 +42,8 @@ class Siren(nn.Module):
     in_features → hidden_features[0..hidden_layers] → out_features, one
     omega0 for every layer (as every MoTIF SIREN has). The whole MLP runs in
     `siren_mlp` (the CUDA kernel on CUDA tensors), in the input's dtype: the
-    float32 parameters are cast at use (`cast_param`).
+    float32 parameters are cast at use (`cast_param`) and packed for the
+    kernel once (`packed`), not per forward.
 
     With `skip_first_linear` the forward takes net.0's pre-activation
     (width hidden_features[0]) in x's place: the caller has applied net.0's
@@ -80,10 +81,27 @@ class Siren(nn.Module):
         lin = self._linears()[0]
         return cast_param(lin, "weight", dtype), cast_param(lin, "bias", dtype)
 
+    def _kernel_linears(self):
+        return self._linears()[1 if self.skip_first_linear else 0:]
+
+    def packed(self, dtype: torch.dtype) -> torch.Tensor:
+        """The kernel's parameter buffer (`siren_kernel.pack`) in `dtype`,
+        kept on the module as `cast_param` keeps its copies: stamped with
+        every parameter's version counter, address and device, and made
+        anew when any of them changed (a `load_state_dict`, a move)."""
+        lins = self._kernel_linears()
+        return cached(
+            self, ("packed", dtype),
+            [p for m in lins for p in (m.weight, m.bias)],
+            lambda: siren_kernel.pack(
+                [cast_param(m, "weight", dtype) for m in lins],
+                [cast_param(m, "bias", dtype) for m in lins]))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lins = self._linears()[1 if self.skip_first_linear else 0:]
+        lins = self._kernel_linears()
         return siren_kernel.siren_mlp(
             x, [cast_param(m, "weight", x.dtype) for m in lins],
             [cast_param(m, "bias", x.dtype) for m in lins], self.omega0,
             sine_last=not self.outermost_linear,
-            skip_first=self.skip_first_linear)
+            skip_first=self.skip_first_linear,
+            packed=self.packed(x.dtype) if x.is_cuda else None)

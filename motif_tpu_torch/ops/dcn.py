@@ -7,7 +7,11 @@ around them (sample positions, mask, transpose).
 dcn_v2 builds the im2col matrix with `dcn_im2col` (positions from the
 offsets, bilinear sampling, times the already sigmoided mask) and
 contracts it with the weights in one `addmm` — the plain large product that
-the JAX package leaves to XLA stays a torch call here.
+the JAX package leaves to XLA stays a torch call here. `dcn_v2_plain` is
+the same composition on the plain im2col. (A kernel that fused the
+contraction in for bfloat16, the columns kept in shared memory and
+contracted by mma.sync, was built and measured on an H100: faster at the
+PCD's L2 and L3, slower at L1, where most of the time is; it is not kept.)
 
 Element types: float32 and bfloat16 on the card (float64 too on the CPU).
 In bfloat16 x, the offsets, the mask and the columns are bfloat16; the
@@ -177,6 +181,36 @@ def dcn_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     return cols
 
 
+def _contract(cols: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor | None, G: int) -> torch.Tensor:
+    """The im2col matrix times the weight (Cout, Cin, K, K), whose columns
+    are brought into the im2col's order (g, k, c), plus the bias, in one
+    product in the columns' dtype."""
+    Cout, Cin, K, _ = weight.shape
+    cg = Cin // G
+    w = weight.reshape(Cout, G, cg, K * K).transpose(2, 3).reshape(
+        Cout, G * K * K * cg).to(cols.dtype)
+    if bias is None:
+        return cols @ w.t()
+    return torch.addmm(bias.to(cols.dtype), cols, w.t())
+
+
+def dcn_v2_plain(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                 weight: torch.Tensor, bias: torch.Tensor | None,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 dilation: int = 1, deformable_groups: int = 1
+                 ) -> torch.Tensor:
+    """The plain version of `dcn_v2`: `dcn_im2col_plain`, then one matrix
+    product with the weights in x's dtype (in bfloat16 it accumulates in
+    float32, adds the bias and rounds once). Returns (B, Ho, Wo, Cout)."""
+    B = x.shape[0]
+    Ho, Wo = offset.shape[1], offset.shape[2]
+    cols = dcn_im2col_plain(x, offset, mask, kernel_size, stride, padding,
+                            dilation, deformable_groups)
+    return _contract(cols, weight, bias, deformable_groups).reshape(
+        B, Ho, Wo, weight.shape[0])
+
+
 def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
            weight: torch.Tensor, bias: torch.Tensor | None,
            kernel_size: int = 3, stride: int = 1, padding: int = 1,
@@ -186,19 +220,11 @@ def dcn_v2(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     K, G = kernel_size, deformable_groups
     if Cin % G:
         raise ValueError("input channels must divide deformable_groups")
-    cg = Cin // G
     Ho, Wo = output_size(H, W, K, stride, padding, dilation)
     if offset.shape != (B, Ho, Wo, G * K * K * 2) or \
             mask.shape != (B, Ho, Wo, G * K * K):
         raise ValueError(f"dcn_v2: offset {tuple(offset.shape)} / mask "
                          f"{tuple(mask.shape)} do not match the output grid")
     cols = dcn_im2col(x, offset, mask, K, stride, padding, dilation, G)
-    Cout = weight.shape[0]
-    # (Cout, G, cg, K*K) -> (Cout, G, K*K, cg): the columns' order
-    w = weight.reshape(Cout, G, cg, K * K).transpose(2, 3).reshape(
-        Cout, G * K * K * cg).to(cols.dtype)
-    if bias is None:
-        out = cols @ w.t()
-    else:
-        out = torch.addmm(bias.to(cols.dtype), cols, w.t())
-    return out.reshape(B, Ho, Wo, Cout)
+    return _contract(cols, weight, bias, G).reshape(B, Ho, Wo,
+                                                    weight.shape[0])

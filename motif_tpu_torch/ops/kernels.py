@@ -1,7 +1,8 @@
 """Build, load and count the package's CUDA kernels.
 
-Each kernel is one CUDA C++ source under `motif_tpu_torch/csrc/` with a
-plain C interface. At first use it is compiled with `nvcc` for `sm_90a`
+Each kernel is one or two CUDA C++ sources under `motif_tpu_torch/csrc/`
+(`SOURCES`; `siren_mlp` has one per element type) with a plain C
+interface. At first use a source is compiled with `nvcc` for `sm_90a`
 into `build/kernels/` at the repository root (listed in `.gitignore`),
 under a name that carries a hash of the source, of every header under
 `csrc/` (any of which it may include) and of the flags, and loaded with
@@ -27,7 +28,8 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("splat_fused", "dcn_im2col", "siren_mlp")
+KERNELS = ("splat_fused", "dcn_im2col", "siren_mlp")     # the counters
+SOURCES = ("splat_fused", "dcn_im2col", "siren_mlp", "siren_mlp_bf16")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -69,8 +71,8 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names=KERNELS) -> float:
-    """Compile every named kernel that is not built yet, all `nvcc`s at
+def build(names=SOURCES) -> float:
+    """Compile every named source that is not built yet, all `nvcc`s at
     once. Returns the wall seconds; raises with the compiler's output if
     one fails."""
     t0 = time.perf_counter()
@@ -143,3 +145,13 @@ def require_cuda(name: str, dtypes, *tensors: torch.Tensor) -> torch.dtype:
             raise TypeError(f"{name}: all tensors must share one of {names}, "
                             f"got {[str(x.dtype) for x in tensors]}")
     return dtype
+
+
+def bfloat16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How many bfloat16 values lie between a and b, elementwise (0 where
+    they are bit-equal, 1 for neighbours): their bit patterns mapped to
+    integers in the values' order."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()

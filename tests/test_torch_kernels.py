@@ -278,10 +278,12 @@ def test_dcn_im2col_bfloat16(dev, H, W, G, cg, K, stride, pad, dil, strided):
     assert (got == want).float().mean() > 0.999
 
 
-def test_dcn_v2_bfloat16_through_the_kernel(dev):
-    """dcn_v2 in bfloat16 (kernel + one bfloat16 addmm) against the same
-    contraction of the plain im2col: 2 bfloat16 ulps of the largest
-    output (a column off by an ulp moves a float32 sum)."""
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_dcn_v2_bfloat16_through_the_kernel(dev, with_bias):
+    """dcn_v2 in bfloat16 (kernel + one bfloat16 addmm) against
+    dcn_v2_plain, the same contraction of the plain im2col: 2 bfloat16
+    ulps of the largest output (a column off by an ulp moves a float32
+    sum)."""
     G, cg, K = 8, 8, 3
     x, off, mask = (t.bfloat16() for t in _dcn_inputs(
         dev, 2, 30, 28, G, cg, K, 1, 1, 1, False))
@@ -289,12 +291,11 @@ def test_dcn_v2_bfloat16_through_the_kernel(dev):
     w = (torch.randn((64, G * cg, K, K), device=dev, generator=g) * 0.05
          ).bfloat16()
     b = torch.randn((64,), device=dev, generator=g).bfloat16()
-    got, n = _launches("dcn_im2col", lambda: dcn.dcn_v2(
-        x, off, mask, w, b, K, 1, 1, 1, G))
+    args = (x, off, mask, w, b if with_bias else None, K, 1, 1, 1, G)
+    got, n = _launches("dcn_im2col", lambda: dcn.dcn_v2(*args))
     assert n == 1 and got.dtype == torch.bfloat16
-    cols = dcn.dcn_im2col_plain(x, off, mask, K, 1, 1, 1, G)
-    wm = w.reshape(64, G, cg, K * K).transpose(2, 3).reshape(64, -1)
-    want = torch.addmm(b, cols, wm.t()).reshape(got.shape)
+    want = dcn.dcn_v2_plain(*args)
+    assert want.shape == got.shape
     tol = 2 * ulp_at(float(want.abs().max()), 7)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
@@ -360,44 +361,161 @@ def test_siren_mlp(dev, dims, sine_last):
         rtol=0, atol=1e-5)
 
 
-def _siren_tol(want, dtype):
-    """float32: 1e-5. bfloat16: 1 ulp of the largest output — the kernel
-    and the plain version accumulate the same exact products in float32
-    in the same order and round at the same four points."""
-    if dtype == torch.float32:
-        return 1e-5
-    return ulp_at(float(want.abs().max()), 7)
-
-
 SKIP_MLPS = [d[1:] for d in MOTIF_MLPS] + [[20, 7], [64, 100, 12]]
-ENTRIES = ([(torch.float32, True, d) for d in SKIP_MLPS]
-           + [(torch.bfloat16, True, d) for d in SKIP_MLPS]
-           + [(torch.bfloat16, False, d) for d in MOTIF_MLPS + [[5, 7]]])
 
 
-@pytest.mark.parametrize("dtype,skip_first,dims", ENTRIES, ids=lambda v: (
-    str(v).removeprefix("torch.") if not isinstance(v, list)
-    else "-".join(map(str, v))))
+@pytest.mark.parametrize("dims", SKIP_MLPS, ids=lambda d: "-".join(map(str, d)))
 @pytest.mark.parametrize("sine_last", [False, True])
-def test_siren_mlp_entries(dev, dtype, skip_first, dims, sine_last):
-    """The entries beside the float32 whole MLP: from the first layer's
-    pre-activation in float32 and bfloat16 (the three MoTIF MLPs without
-    their layer 0, a narrow pre-activation of 20 and a stored layer of
-    100), and the whole MLP in bfloat16 (fan-ins 67 / 66 / 198: odd and
-    wider than a chunk). 5001 tokens: not a tile multiple."""
+def test_siren_mlp_entries(dev, dims, sine_last):
+    """The float32 entry from the first layer's pre-activation (the three
+    MoTIF MLPs without their layer 0, a narrow pre-activation of 20 and a
+    stored layer of 100). 5001 tokens: not a tile multiple. atol 1e-5."""
     ws, bs, g = _siren(dev, dims)
-    ws, bs = [w.to(dtype) for w in ws], [b.to(dtype) for b in bs]
-    x = ((torch.rand((5001, dims[0]), device=dev, generator=g) * 2 - 1)
-         * (0.6 if skip_first else 1.0)).to(dtype)
+    x = (torch.rand((5001, dims[0]), device=dev, generator=g) * 2 - 1) * 0.6
     got, n = _launches("siren_mlp", lambda: siren_kernel.siren_mlp(
-        x, ws, bs, 30.0, sine_last, skip_first))
-    assert n == 1 and got.dtype == dtype
+        x, ws, bs, 30.0, sine_last, True))
+    assert n == 1 and got.dtype == torch.float32
+    want = siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, sine_last, True)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def _bf16_case(dev, dims, n_tok, skip_first):
+    ws, bs, g = _siren(dev, dims)
+    ws, bs = [w.bfloat16() for w in ws], [b.bfloat16() for b in bs]
+    x = ((torch.rand((n_tok, dims[0]), device=dev, generator=g) * 2 - 1)
+         * (0.6 if skip_first else 1.0)).bfloat16()
+    return x, ws, bs
+
+
+def _hold_bf16(x, ws, bs, sine_last, skip_first, got=None):
+    """The bfloat16 entries' gate (siren_kernel.layer_gate / mlp_gate): one
+    layer 99% bit-equal to the plain version and nowhere further off than
+    one flipped rounding puts it; a whole MLP as accurate against the
+    float64 evaluation as the plain version is."""
+    if got is None:
+        got = siren_kernel.siren_mlp(x, ws, bs, 30.0, sine_last, skip_first)
     want = siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, sine_last,
                                         skip_first)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                               atol=_siren_tol(want, dtype))
-    if dtype == torch.bfloat16:
-        assert (got == want).float().mean() > 0.99
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    if len(ws) == 1 and not skip_first:
+        pre = torch.nn.functional.linear(x.double(), ws[0].double())
+        pre_max = float(torch.maximum(pre.abs(), (pre + bs[0].double()).abs()
+                                      ).max())
+        held = siren_kernel.layer_gate(got, want, pre_max, 30.0, sine_last)
+    else:
+        held = siren_kernel.mlp_gate(got, want, siren_kernel.
+                                     siren_mlp_reference64(
+                                         x, ws, bs, 30.0, sine_last,
+                                         skip_first))
+    assert held["ok"], held
+    return got
+
+
+BF16_ENTRIES = ([(True, d) for d in SKIP_MLPS]
+                + [(False, d) for d in MOTIF_MLPS + [[5, 7]]]
+                + [(False, [64] * 9), (True, [64] * 9), (False, [16, 100]),
+                   (False, [100, 72, 3]), (False, [32, 64, 64, 80, 3])])
+
+
+@pytest.mark.parametrize("skip_first,dims", BF16_ENTRIES, ids=lambda v: (
+    "-".join(map(str, v)) if isinstance(v, list) else
+    "skip_first" if v else "whole"))
+@pytest.mark.parametrize("sine_last", [False, True])
+def test_siren_mlp_bfloat16(dev, skip_first, dims, sine_last):
+    """The tensor-core entries, whole and from the pre-activation: the
+    three MoTIF MLPs (fan-ins 67 / 66 / 198: odd, wider than a chunk), a
+    narrow pre-activation of 20, a wide layer of 100 that feeds 12, 8
+    layers, a wide last layer, and a ragged wide chunk (80). 5001 tokens:
+    not a tile multiple. Held by accuracy, not equality."""
+    x, ws, bs = _bf16_case(dev, dims, 5001, skip_first)
+    got, n = _launches("siren_mlp", lambda: siren_kernel.siren_mlp(
+        x, ws, bs, 30.0, sine_last, skip_first))
+    assert n == 1
+    _hold_bf16(x, ws, bs, sine_last, skip_first, got)
+
+
+@pytest.mark.parametrize("K", [64, 67, 198, 256])
+@pytest.mark.parametrize("N", [64, 256, 3])
+@pytest.mark.parametrize("sine_last", [False, True])
+def test_siren_mlp_bfloat16_one_layer(dev, K, N, sine_last):
+    """Gate 1: one layer K -> N at the MoTIF MLPs' widths, both ways of
+    the last sine: at least 99% bit-equal to the plain layer and within
+    one flipped rounding of it everywhere. 256 -> 256 does not fit a block
+    and raises."""
+    x, ws, bs = _bf16_case(dev, [K, N], 20001, False)
+    if (K, N) == (256, 256):
+        with pytest.raises(ValueError, match="shared memory"):
+            siren_kernel.siren_mlp(x, ws, bs, 30.0, sine_last)
+        return
+    _hold_bf16(x, ws, bs, sine_last, False)
+
+
+@pytest.mark.parametrize("skip_first", [False, True])
+@pytest.mark.parametrize("n_tok", [1, 15, 17, 127, 129])
+def test_siren_mlp_bfloat16_ragged_tokens(dev, n_tok, skip_first):
+    """A token's result does not depend on its tile or on how many tokens
+    the launch has: the first n rows of a large launch, bit for bit."""
+    dims = MOTIF_MLPS[1][1 if skip_first else 0:]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    big = n_sm * siren_kernel.BF16_WARPS * siren_kernel.BF16_TILE * 2 + 7
+    x, ws, bs = _bf16_case(dev, dims, big, skip_first)
+    whole = _hold_bf16(x, ws, bs, False, skip_first)
+    got = siren_kernel.siren_mlp(x[:n_tok], ws, bs, 30.0, False, skip_first)
+    assert torch.equal(got, whole[:n_tok])
+    # the same rows off a 16-byte boundary take the 2-byte staging
+    odd = torch.empty(n_tok * dims[0] + 1, dtype=x.dtype,
+                      device=dev)[1:].view(n_tok, dims[0])
+    odd.copy_(x[:n_tok])
+    assert odd.data_ptr() % 16 != 0
+    got = siren_kernel.siren_mlp(odd, ws, bs, 30.0, False, skip_first)
+    assert torch.equal(got, whole[:n_tok])
+
+
+def test_siren_mlp_bfloat16_wide_arguments(dev):
+    """Pre-activations up to 1e4 make omega0 * x exceed the branch-free
+    sine's range, so whole groups of sines take sinf's slow path (kept out
+    of line in the kernel): still the plain version's values but for the
+    few sums that the order flips."""
+    x, ws, bs = _bf16_case(dev, [64, 64, 3], 5001, True)
+    x = (x.float() * 1e4).bfloat16()
+    got = siren_kernel.siren_mlp(x, ws, bs, 30.0, False, True)
+    want = siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, False, True)
+    assert torch.isfinite(got.float()).all()
+    assert (got == want).float().mean() > 0.99
+
+
+def test_siren_mlp_bfloat16_refuses_what_it_does_not_take(dev):
+    """A wide layer that feeds a wide layer, and an MLP whose weights and
+    slabs exceed a block's shared memory, raise before any launch."""
+    before = kernels.LAUNCHES["siren_mlp"]
+    x, ws, bs = _bf16_case(dev, [64, 256, 256, 3], 10, False)
+    with pytest.raises(ValueError, match="must be last or feed"):
+        siren_kernel.siren_mlp(x, ws, bs)
+    x, ws, bs = _bf16_case(dev, [64, 64, 1024, 64], 10, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        siren_kernel.siren_mlp(x, ws, bs)
+    assert kernels.LAUNCHES["siren_mlp"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_siren_packs_once_and_follows_a_load(dev, dtype):
+    """Siren keeps the kernel's parameter buffer per dtype; a
+    load_state_dict is followed by a new one and new results."""
+    from motif_tpu_torch.models.siren import Siren
+
+    torch.manual_seed(0)
+    net = Siren(67, [64, 64, 256], 2, 3, skip_first_linear=True).to(dev)
+    other = Siren(67, [64, 64, 256], 2, 3, skip_first_linear=True).to(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = (torch.rand((1000, 64), device=dev, generator=g) - 0.5).to(dtype)
+    with torch.no_grad():
+        first = net(toks)
+        buf = net.packed(dtype)
+        assert net.packed(dtype) is buf and torch.equal(net(toks), first)
+        net.load_state_dict(other.state_dict())
+        assert net.packed(dtype) is not buf
+        assert torch.equal(net(toks), other(toks))
+        assert not torch.equal(net(toks), first)
 
 
 @pytest.mark.parametrize("dtype,skip_first", [
@@ -568,6 +686,6 @@ def test_entry_counters_name_the_entry(dev):
 
 def test_kernels_build_from_the_sources(dev):
     kernels.build()
-    for name in kernels.KERNELS:
+    for name in kernels.SOURCES:
         assert kernels._library_path(name).exists()
     assert np.isfinite(kernels.build())  # all built: nothing to do

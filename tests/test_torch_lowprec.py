@@ -254,17 +254,23 @@ def test_splat_plan_takes_the_element_size(C, elem, tile):
 
 
 @pytest.mark.parametrize("dims,elem,smem", [
-    ([64, 64, 256, 3], 2, 78_480), ([64, 64, 256, 64], 2, 107_264),
-    ([64, 64, 64, 256, 3], 2, 86_800), ([64, 64, 64, 256, 3], 4, 173_600),
-    ([198, 64, 64, 64, 256, 3], 2, 112_272),
+    ([64, 64, 256, 3], 2, 124_688), ([64, 64, 256, 64], 2, 154_368),
+    ([64, 64, 64, 256, 3], 2, 134_032), ([64, 64, 64, 256, 3], 4, 173_600),
+    ([198, 64, 64, 64, 256, 3], 2, 198_672),
 ], ids=["stinf-skip", "sinf-skip", "synth-skip", "synth-skip-f32",
         "synth-whole-bf16"])
 def test_siren_plan_takes_the_element_size(dims, elem, smem):
-    """Shared memory of the skip-first entries (layer 0 not resident) and
-    of bfloat16 elements: half of float32's, so two blocks fit on an SM."""
-    fused, rows, got = tsk.plan(dims, elem)
-    assert (rows, got) == (64, smem)
-    assert got * 4 // elem == tsk.plan(dims)[2]
+    """Shared memory of the skip-first entries (layer 0 not resident) by
+    element type: float32 keeps two activation buffers of 64 x 128 beside
+    the weights (`plan`), bfloat16 keeps the weights in the tensor cores'
+    layout and a slab or two of 16 tokens per warp (`plan_bf16`). Each fits
+    one block per SM."""
+    if elem == 2:
+        got = tsk.plan_bf16(dims)[1]
+    else:
+        fused, rows, got = tsk.plan(dims)
+        assert rows == 64
+    assert got == smem <= tsk.SMEM_LIMIT
 
 
 def test_require_cuda_names_the_dtypes():

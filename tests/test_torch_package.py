@@ -38,8 +38,10 @@ def test_no_jax_or_motif_tpu_imports(path):
 
 
 def test_every_kernel_has_a_source():
-    for name in kernels.KERNELS:
+    for name in kernels.SOURCES:
         assert (kernels.CSRC / f"{name}.cu").is_file()
+    assert all(any(src.startswith(name) for src in kernels.SOURCES)
+               for name in kernels.KERNELS)
 
 
 @pytest.fixture
