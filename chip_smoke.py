@@ -22,8 +22,9 @@ Phases, each fatal on failure:
      outputs and the reach of one flipped rounding. The DCN im2col also
      with the L2 cold, and the whole dcn_v2 (kernel + addmm) at L1 (and in
      bfloat16 at L1 - L3 with the whole op's bound and library time); the
-     splat also at other tile shapes, on a converging flow and on request
-     (a)'s own inputs, with its tile lists and its device kernels per call.
+     splat also by phase (memset, count, scan, fill, accumulate), at other
+     tile shapes, on a converging flow and on requests (a) and (e)'s own
+     inputs, with its tile lists and its device kernels per call.
      Times are device times (calls replayed from a CUDA graph), with the
      eager per-call time beside them;
   4. the slice: MoTIF(setting=5) at full width (channel 64, 5 + 40 residual
@@ -161,6 +162,34 @@ def device_work(fn):
     return sum(e.count for e in device) - copies, copies
 
 
+SPLAT_PHASES = ("memset", "count", "scan", "fill", "accumulate")
+
+
+def splat_phases(fn, reps: int = 10) -> dict:
+    """Device ms per call of each phase of a splat call (the memset of the
+    tile counters, then the count, scan, fill and accumulate kernels), by
+    torch.profiler's kernel names over `reps` eager calls; "other" is the
+    wrapper's remaining device work (e^z)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(SPLAT_PHASES + ("other",), 0.0)
+    for e in p.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        phase = ("memset" if e.key.startswith("Memset") else
+                 next((ph for ph in SPLAT_PHASES[1:] if ph + "_" in e.key),
+                      "other"))
+        ms[phase] += e.self_device_time_total / 1e3 / reps
+    return ms
+
+
 def splat_bound(B, H, W, C, nonpos):
     """img, flow and e^z read once, acc written once, and z_max when the
     max runs: bytes over the HBM rate (the tile lists are the kernel's own
@@ -229,14 +258,15 @@ def check_splat(dev, softsplat, kernels, C=130, sdt=None):
     """Main-path shapes: n*B*N = 6 images of 256x448, payload C = 130 (the
     reference order) or C = 64 (the fused decode), sums in float32 or in
     float16 (`sdt`). Device time from graph replay, the eager per-call
-    time beside it; the kernel's tile shape against others; for float32
-    sums a converging flow. Float16 sums depend on the order, which varies
-    from run to run: out / norm within 4 float16 ulps of the largest
-    value (the count and the max exact)."""
+    time beside it, the device time of each phase and the plan's tile;
+    that tile against others; a converging flow. Float16 sums depend on
+    the order, which varies from run to run: out / norm within 4 float16
+    ulps of the largest value (the count and the max exact)."""
     B, H, W = 6, 256, 448
     entry = dname(sdt or torch.float32)
     tol = 1e-4 if sdt is None else 4
     elem = 4 if sdt is None else 2
+    tile = list(softsplat.plan(C, elem))
 
     def run(*a):
         return softsplat.splat_fused(*a, scatter_dtype=sdt)
@@ -261,35 +291,51 @@ def check_splat(dev, softsplat, kernels, C=130, sdt=None):
                            eager_ms=eager, device_kernels_per_call=kern,
                            device_memsets_per_call=copies)
         emit({"check": "splat_fused", "sums": entry, "case": case,
-              "shape": [B, H, W, C], "fraction_of_bound": b_ms / ms, **held,
-              **lines[case],
-              "lists": tile_lists(flow, softsplat.plan(C, elem))})
+              "shape": [B, H, W, C], "tile": tile,
+              "fraction_of_bound": b_ms / ms, **held, **lines[case],
+              "phases_ms": splat_phases(lambda: run(img, flow, zz, nonpos)),
+              "lists": tile_lists(flow, tile)})
 
     # the tile shape: the plan's against others that fit, z <= 0
     zn = -z.abs()
     tiles = {}
-    for tile in ((8, 8), (4, 16), (8, 16), (16, 8), (4, 8)):
-        with mock.patch.object(softsplat, "TILE", tile):
-            tiles["%dx%d" % tile] = device_ms(
+    for other in ((8, 8), (8, 4), (4, 8), (4, 16), (8, 16), (16, 8),
+                  (16, 16)):
+        with mock.patch.object(softsplat, "TILE", {(C, elem): other}):
+            tiles["%dx%d" % other] = device_ms(
                 lambda: run(img, flow, zn, True), reps=10)
-    emit({"check": "splat_tiles", "sums": entry, "C": C,
-          "plan": list(softsplat.plan(C, elem)), "device_ms": tiles})
+    emit({"check": "splat_tiles", "sums": entry, "C": C, "plan": tile,
+          "device_ms": tiles})
 
-    if sdt is None and C == 130:
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    pos = torch.stack([xs, ys], -1).float()
+    if C == 130:
         # a converging flow: every pixel of each image into one tile, which
         # one block then takes alone (correct for any flow; slow here)
-        ys, xs = torch.meshgrid(torch.arange(H, device=dev),
-                                torch.arange(W, device=dev), indexing="ij")
         spread = torch.rand((B, H, W, 2), device=dev, generator=g) * 7.0
         conv = (torch.tensor([200.0, 120.0], device=dev) + spread
-                - torch.stack([xs, ys], -1).float()).contiguous()
-        held = hold_splat(softsplat, kernels, img, conv, zn, True, tol=5e-2)
-        emit({"check": "splat_fused", "case": "converging", **held,
-              "ms": cuda_ms(lambda: run(img, conv, zn, True), reps=2,
-                            warmup=1),
-              "lists": tile_lists(conv, softsplat.plan(C)),
-              "note": "float32 sums of ~7,200 terms per pixel in a varying "
-                      "order: tol 5e-2 on values up to out_max_abs"})
+                - pos).contiguous()
+        ctol = 5e-2
+        note = ("float32 sums of ~7,200 terms per pixel in a varying order: "
+                "tol 5e-2 on values up to out_max_abs")
+    else:
+        # each image contracted by 2 towards a point, with a jitter: tile
+        # lists ~4x the random flow's, ~16 terms per target pixel
+        jitter = torch.rand((B, H, W, 2), device=dev, generator=g)
+        conv = (torch.tensor([200.0, 120.0], device=dev) + 0.5 * pos + jitter
+                - pos).contiguous()
+        ctol = tol if sdt is None else 16
+        note = ("float16 sums of ~16 terms in a varying order: 16 float16 "
+                "ulps of the largest value, as the card tests' converging "
+                "case" if sdt is not None else "tol 1e-4")
+    held = hold_splat(softsplat, kernels, img, conv, zn, True, ctol, sdt)
+    emit({"check": "splat_fused", "sums": entry, "case": "converging",
+          "shape": [B, H, W, C], "tile": tile, **held,
+          "ms": cuda_ms(lambda: run(img, conv, zn, True), reps=2, warmup=1),
+          "phases_ms": splat_phases(lambda: run(img, conv, zn, True),
+                                    reps=2),
+          "lists": tile_lists(conv, tile), "note": note})
 
     # yardstick: the same 4-corner scatter as ONE index_add_ call, its
     # payload and indices prepared outside the timed call
@@ -311,23 +357,24 @@ def check_splat(dev, softsplat, kernels, C=130, sdt=None):
 def check_splat_request(softsplat, kernels, inputs, request):
     """The kernel on a request's own splat inputs (the forward's feat_hr,
     flow_hr and z, and its sums' type): held against the plain version and
-    timed, with its tile lists."""
+    timed, by phase too, with its tile lists."""
     img, flow, z, nonpos, sdt = inputs
     held = hold_splat(softsplat, kernels, img, flow, z, nonpos,
                       1e-4 if sdt is None else 4, sdt)
     B, H, W, C = img.shape
     b_ms, _ = splat_bound(B, H, W, C, nonpos)
+    tile = list(softsplat.plan(C, 4 if sdt is None else 2))
 
     def run():
         return softsplat.splat_fused(img, flow, z, nonpos, scatter_dtype=sdt)
     ms = device_ms(run)
     emit({"check": "splat_fused", "case": "request_" + request,
           "sums": dname(sdt or torch.float32), "shape": [B, H, W, C],
-          "z_nonpositive": nonpos, **held, "ms": ms, "bound_ms": b_ms,
-          "fraction_of_bound": b_ms / ms, "eager_ms": cuda_ms(run),
+          "z_nonpositive": nonpos, "tile": tile, **held, "ms": ms,
+          "bound_ms": b_ms, "fraction_of_bound": b_ms / ms,
+          "eager_ms": cuda_ms(run), "phases_ms": splat_phases(run),
           "flow_abs_max": float(flow.abs().max()),
-          "lists": tile_lists(flow, softsplat.plan(C, 4 if sdt is None
-                                                   else 2))})
+          "lists": tile_lists(flow, tile)})
 
 
 def cold_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
@@ -1046,17 +1093,25 @@ def compare_only(dev, card, out_dir):
                       "skip_first": skip_first, "tokens": n_tok, "card": card,
                       "device_ms": device_ms(lambda: siren_kernel.siren_mlp(
                           x, ws, bs, 30.0, False, skip_first), reps=10)})
-    B, H, W, C = 6, 256, 448, 130
-    g = torch.Generator(device=dev).manual_seed(1)
-    img = torch.randn((B, H, W, C), device=dev, generator=g)
-    flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
-    z = -(torch.randn((B, H, W, 1), device=dev, generator=g) * 0.5).abs()
-    emit({"phase": "compare_splat", "card": card, "shape": [B, H, W, C],
-          "device_ms": device_ms(lambda: softsplat.splat_fused(
-              img, flow, z, True)),
-          "eager_ms": cuda_ms(lambda: softsplat.splat_fused(img, flow, z,
-                                                            True))})
-    del img, flow, z
+    B, H, W = 6, 256, 448
+    entries = [(130, None)]
+    if hasattr(MoTIF, "configure"):          # the checkout has C = 64, f16
+        entries += [(64, None), (64, torch.float16)]
+    for C, sdt in entries:
+        g = torch.Generator(device=dev).manual_seed(1)
+        img = torch.randn((B, H, W, C), device=dev, generator=g)
+        flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
+        z = -(torch.randn((B, H, W, 1), device=dev, generator=g) * 0.5).abs()
+
+        def run():
+            return softsplat.splat_fused(img, flow, z, True,
+                                         **({"scatter_dtype": sdt} if sdt
+                                            else {}))
+        emit({"phase": "compare_splat", "card": card, "shape": [B, H, W, C],
+              "sums": dname(sdt or torch.float32),
+              "device_ms": device_ms(run), "eager_ms": cuda_ms(run),
+              "phases_ms": splat_phases(run)})
+        del img, flow, z
     runs = [("a", {})]
     if hasattr(MoTIF, "configure"):
         runs.append(("e", SERVING))
@@ -1067,6 +1122,28 @@ def compare_only(dev, card, out_dir):
         emit({"phase": f"compare_request_{name}", "card": card,
               "forward_ms_median": float(np.median(ts)), "forward_ms": ts})
         profile_request(ev, lq_a, t3, out_dir, name)
+        if name == "e":
+            img, flow, z, nonpos, sdt = capture_splat(ev, softsplat, lq_a, t3)
+
+            def run():
+                return softsplat.splat_fused(img, flow, z, nonpos,
+                                             scatter_dtype=sdt)
+            # the float16 sums' distance from the plain version over 100
+            # runs, in float16 ulps of the largest value: the order, and so
+            # the distance, varies from run to run (the smoke's gate is 4)
+            want = softsplat.splat_fused_plain(img, flow, z, nonpos,
+                                               scatter_dtype=sdt)
+            unit = ulp(max(float(want[0].abs().max()),
+                           float(want[1].abs().max())), 10)
+            ulps = {}
+            for _ in range(100):
+                got = run()
+                k = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+                ulps[k / unit] = ulps.get(k / unit, 0) + 1
+            emit({"phase": "compare_splat_request_e", "card": card,
+                  "shape": list(img.shape), "device_ms": device_ms(run),
+                  "phases_ms": splat_phases(run),
+                  "ulps_of_100_runs": {str(k): ulps[k] for k in sorted(ulps)}})
 
 
 # ---------------------------------------------------------------------------

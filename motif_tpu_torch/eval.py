@@ -20,15 +20,16 @@ class Evaluator:
     another device (raises without CUDA); the model is moved there. The
     padded LQ and the times take the model's parameter dtype. `knobs`, if
     any, are MoTIF's serving knobs by name (`fused_decode`,
-    `compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`) and
-    reconfigure the model in place (`MoTIF.configure`); with none given the
+    `compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`):
+    those named are set on the model in place and the others keep the
+    model's values (`MoTIF.knobs`, `MoTIF.configure`); with none given the
     model serves as it was built."""
 
     def __init__(self, model: torch.nn.Module, scale: int = 4, iters: int = 4,
                  chunk: int = 3, device=None, **knobs):
         self.device = resolve_device(device)
         if knobs:
-            model.configure(**knobs)
+            model.configure(**{**model.knobs(), **knobs})
         self.model = model.to(self.device).eval()
         self.dtype = next(model.parameters()).dtype
         self.scale = scale

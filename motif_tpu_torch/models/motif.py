@@ -148,6 +148,16 @@ class MoTIF(nn.Module):
             net.skip_first_linear = self.fused_decode
         return self
 
+    def knobs(self) -> dict:
+        """The serving knobs' current values, as `configure` takes them."""
+        def name(dtype):
+            return None if dtype is None else str(dtype).removeprefix("torch.")
+        return dict(fused_decode=self.fused_decode,
+                    compute_dtype=name(self.compute_dtype),
+                    splat_dtype=name(self.splat_dtype),
+                    raft_resolution=self.raft_resolution,
+                    decode_chunks=self.decode_chunks)
+
     def _alpha_nonpositive(self) -> bool:
         """alpha <= 0, read from the device once per loaded state: the
         stamp changes when alpha is written in place (a load, a fill) or

@@ -30,9 +30,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"splat_fused_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                         _I, _I, _I, _I, _I, _P]}
-TILE = (8, 8)            # the target tile at MoTIF's C = 130 (38 KB;
-                         # faster than 4x16, 8x16, 16x8 and 4x8 on an H100)
-STAGE_BYTES = 128 * 32   # the kernel's staged tile records (CHUNK of them)
+# The target tile (th, tw) by (C, bytes per sum) for the compiled widths,
+# the fastest of the smoke's tile sweep (chip_smoke.py, `splat_tiles`) on an
+# H100; any other width starts from 8x8 (MoTIF's C = 130: 38 KB, faster
+# than 4x16, 8x16, 16x8, 16x16 and 4x8).
+TILE = {(64, 4): (8, 4), (64, 2): (8, 8)}
+STAGE_BYTES = 128 * 32   # the kernel's staged tile records (the most of its
+                         # two designs: 128 of 32 B, or 64 of 48 B at C = 64)
 SMEM_LIMIT = 232_448     # shared memory a block may use on Hopper
 COMPILED_C = (130, 64)   # payload widths the kernel is specialised for:
                          # MoTIF's reference order and its fused decode
@@ -142,12 +146,14 @@ def _half(scatter_dtype, img: torch.Tensor) -> bool:
 
 def plan(C: int, elem_size: int = 4) -> tuple[int, int]:
     """The kernel's target tile (th, tw) for C payload channels summed in
-    elements of `elem_size` bytes (4, or 2 for float16 sums): the first of
-    8x8, 4x8, 2x8, 1x8, 1x4, 1x2, 1x1 whose tile ([th * tw, C + 2] sums,
-    norm and count, rounded up to 4 bytes, and th * tw floats of the max)
-    fits in a block's shared memory beside the staged records. Raises when
-    not even one pixel fits."""
-    th, tw = TILE
+    elements of `elem_size` bytes (4, or 2 for float16 sums): `TILE`'s for
+    a compiled (C, elem_size), else the first of 8x8, 4x8, 2x8, 1x8, 1x4,
+    1x2, 1x1 whose tile ([th * tw, C + 2] sums, norm and count, rounded up
+    to 4 bytes, and th * tw floats of the max) fits in a block's shared
+    memory beside the staged records (a compiled width's tile is halved
+    the same way if it does not fit). Raises when not even one pixel
+    fits."""
+    th, tw = TILE.get((C, elem_size), (8, 8))
 
     def tile_bytes():
         return -(-th * tw * (C + 2) * elem_size // 4) * 4 + th * tw * 4

@@ -67,7 +67,10 @@ def _splat_inputs(dev, case):
     """img, flow, z for one splat case."""
     B, H, W, C = {"c130": (3, 40, 56, 130), "c5-ragged": (2, 37, 45, 5),
                   "c1000": (2, 12, 21, 1000), "c64": (3, 40, 56, 64),
-                  "c64-ragged": (2, 37, 45, 64)}.get(case, (2, 21, 35, 130))
+                  "c64-ragged": (2, 37, 45, 64),
+                  "c64-tile16": (2, 24, 40, 64),
+                  "c64-converging": (2, 21, 35, 64)}.get(case,
+                                                         (2, 21, 35, 130))
     g = torch.Generator(device=dev).manual_seed(0)
     img = torch.randn((B, H, W, C), device=dev, generator=g)
     z = torch.randn((B, H, W, 1), device=dev, generator=g) * 0.5
@@ -81,7 +84,7 @@ def _splat_inputs(dev, case):
     elif case == "integer":                      # zero-weight corners
         flow = torch.randint(-17, 18, flow.shape, device=dev,
                              generator=g).float()
-    elif case == "converging":                   # most pixels into one tile
+    elif case.endswith("converging"):            # most pixels into one tile
         target = torch.tensor([20.0, 9.0], device=dev)
         spread = torch.rand(flow.shape, device=dev, generator=g)
         flow = target - pos + spread * torch.tensor([14.0, 6.0], device=dev)
@@ -97,18 +100,19 @@ def _splat_inputs(dev, case):
 
 
 SPLAT_CASES = ["c130", "c5-ragged", "c1000", "zero", "integer",
-               "converging", "off-image", "non-finite", "c64", "c64-ragged"]
+               "converging", "off-image", "non-finite", "c64", "c64-ragged",
+               "c64-tile16", "c64-converging"]
 
 
 @pytest.mark.parametrize("z_nonpositive", [True, False])
 @pytest.mark.parametrize("case", SPLAT_CASES)
 def test_splat_fused(dev, case, z_nonpositive):
     """The binned kernel against the plain version: C = 130 and C = 64
-    (specialised) and C = 5 (generic) at H, W that are not tile multiples,
-    C = 1000 (a
+    (specialised) and C = 5 (generic) at H, W that are not tile multiples
+    (C = 64 also at multiples of 8 but not of 16), C = 1000 (a
     smaller tile, warps that take several channel groups), B > 1
     throughout; zero and integer flows (corners of
-    weight 0 on tile borders still count), a converging flow, everything
+    weight 0 on tile borders still count), converging flows, everything
     thrown off the image, and NaN / inf / huge entries, which are dropped.
     z <= 0 with the max skipped, and z of both signs with the max. One
     launch per call either way. Shared atomics sum in a varying order:
@@ -128,7 +132,7 @@ def test_splat_fused(dev, case, z_nonpositive):
     torch.testing.assert_close(got[3], want[3], rtol=0, atol=0)
     if case == "off-image":
         assert not got[3].any() and (got[2] == 1.0).all()
-    elif case == "converging":
+    elif case.endswith("converging"):
         assert got[3].max() >= 20          # ~28 corner hits per target
 
 
@@ -150,7 +154,7 @@ def test_splat_fused_float16_sums(dev, case, z_nonpositive):
     assert n == 1
     want = softsplat.splat_fused_plain(img, flow, z, z_nonpositive,
                                        scatter_dtype=torch.float16)
-    ulps = 16 if case == "converging" else 4
+    ulps = 16 if case.endswith("converging") else 4
     for a, b in zip(got[:2], want[:2]):
         assert a.dtype == torch.float32 and a.shape == b.shape
         tol = ulps * ulp_at(max(float(b.abs().max()), 1e-3), 10)
@@ -178,6 +182,50 @@ def test_splat_fused_float16_replays_from_a_cuda_graph(dev):
         for a, b in zip(outs[:2], want[:2]):
             tol = 4 * ulp_at(float(b.abs().max()), 10)
             torch.testing.assert_close(a, b, rtol=0, atol=tol)
+        for a, b in zip(outs[2:], want[2:]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sdt", [None, torch.float16])
+@pytest.mark.parametrize("z_nonpositive", [True, False])
+def test_splat_fused_c64_integer_flow_is_bit_equal(dev, sdt, z_nonpositive):
+    """A flow that permutes each image's pixels (integer offsets, some
+    long): every target is corner (0, 0) of exactly one source, weight 1,
+    and gets weight-0 corners of others, so each sum has one nonzero term
+    and no order can change it. The C = 64 entries are then bit-equal to
+    the plain version, with float32 and float16 sums, max or not."""
+    img, _, z = _splat_inputs(dev, "c64-ragged")
+    B, H, W, _ = img.shape
+    if z_nonpositive:
+        z = -z.abs()
+    g = torch.Generator(device=dev).manual_seed(3)
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    pos = torch.stack([xs, ys], -1).reshape(H * W, 2).float()
+    flow = torch.stack([pos[torch.randperm(H * W, device=dev, generator=g)]
+                        - pos for _ in range(B)]).reshape(B, H, W, 2)
+    got, n = _launches("splat_fused", lambda: softsplat.splat_fused(
+        img, flow, z, z_nonpositive, scatter_dtype=sdt))
+    assert n == 1
+    want = softsplat.splat_fused_plain(img, flow, z, z_nonpositive,
+                                       scatter_dtype=sdt)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got[3] >= 1).all() and got[3].max() <= 4
+
+
+def test_splat_fused_c64_float32_replays_from_a_cuda_graph(dev):
+    """The float32-sum entry at C = 64 replayed from a CUDA graph on new
+    inputs: count and z_max exact, out / norm to 1e-4 (summation order)."""
+    img, flow, z = _splat_inputs(dev, "c64-ragged")
+    static = [t.clone() for t in (img, flow, z)]
+    runs = _replayed(lambda: softsplat.splat_fused(
+        *static, z_nonpositive=False), static,
+        [(img, flow * sc, z) for sc in (1.0, 2.5)])
+    for sc, outs in zip((1.0, 2.5), runs):
+        want = softsplat.splat_fused(img, flow * sc, z, z_nonpositive=False)
+        for a, b in zip(outs[:2], want[:2]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
         for a, b in zip(outs[2:], want[2:]):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 

@@ -240,13 +240,14 @@ def test_conv2d_bfloat16_input_gives_bfloat16():
     torch.testing.assert_close(y.float(), conv(x), rtol=0, atol=3e-2)
 
 
-@pytest.mark.parametrize("C,elem,tile", [(64, 2, (8, 8)), (64, 4, (8, 8)),
+@pytest.mark.parametrize("C,elem,tile", [(64, 2, (8, 8)), (64, 4, (8, 4)),
                                          (130, 2, (8, 8)), (1000, 2, (8, 8)),
                                          (2000, 2, (4, 8))])
 def test_splat_plan_takes_the_element_size(C, elem, tile):
-    """The serving payload (C = 64) takes the 8x8 tile in both sum types
-    (8,704 B of halves and floats of the max; 17,152 B in float32), and
-    float16 sums keep 8x8 up to twice the channels float32 sums do."""
+    """The serving payload (C = 64) takes its measured tile per sum type
+    (8x8 of halves: 8,704 B with the floats of the max; 8x4 of floats:
+    8,576 B), and float16 sums keep 8x8 up to twice the channels float32
+    sums do."""
     assert tsplat.plan(C, elem) == tile
     th, tw = tile
     assert (th * tw * ((C + 2) * elem + 4) + tsplat.STAGE_BYTES

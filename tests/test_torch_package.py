@@ -85,6 +85,22 @@ def test_entry_points_raise_without_cuda_with_the_knobs_too(no_cuda):
     assert not plain.synth_net.skip_first_linear
 
 
+def test_evaluator_changes_only_the_knobs_it_is_given():
+    """Evaluator(model, **knobs) sets the named knobs and keeps the model's
+    others: a model built for serving keeps its fused decode and float16
+    splat when a caller asks for decode chunks."""
+    m = build_motif(16, 1, 2, device="cpu", fused_decode=True,
+                    splat_dtype="float16")
+    ev = Evaluator(m, device="cpu", decode_chunks=3)
+    assert ev.model is m and m.decode_chunks == 3
+    assert m.fused_decode and m.synth_net.skip_first_linear
+    assert m.splat_dtype == torch.float16
+    assert m.compute_dtype is None and m.raft_resolution == 1.0
+    assert m.knobs() == dict(fused_decode=True, compute_dtype=None,
+                             splat_dtype="float16", raft_resolution=1.0,
+                             decode_chunks=3)
+
+
 def test_evaluator_raises_without_cuda(no_cuda):
     m = build_motif(16, 1, 2, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -157,6 +173,28 @@ def test_splat_plan(C, tile):
     assert softsplat.plan(C) == tile
     th, tw = tile
     assert th * tw * (C + 3) * 4 + softsplat.STAGE_BYTES <= softsplat.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("key", sorted(softsplat.TILE),
+                         ids=lambda k: f"C{k[0]}-{k[1]}B")
+def test_splat_plan_takes_each_compiled_widths_tile(key):
+    """Each compiled (C, bytes per sum) gets the tile the card's sweep
+    chose for it, and that tile with its staged records fits in a block's
+    shared memory; C = 130 and any other width still start from 8x8."""
+    C, elem = key
+    th, tw = softsplat.plan(C, elem)
+    assert (th, tw) == softsplat.TILE[key]
+    assert (th * tw * ((C + 2) * elem + 4) + softsplat.STAGE_BYTES
+            <= softsplat.SMEM_LIMIT)
+    assert softsplat.plan(130, elem) == (8, 8)
+
+
+def test_splat_plan_halves_a_compiled_tile_that_does_not_fit(monkeypatch):
+    """A compiled width's tile is halved, rows first, as any other tile:
+    64x64 float32 sums at C = 64 take 1.1 MB, 8x64 fit."""
+    monkeypatch.setattr(softsplat, "TILE", {(64, 4): (64, 64)})
+    assert softsplat.plan(64, 4) == (8, 64)
+    assert softsplat.plan(64, 2) == (8, 8)
 
 
 def test_splat_plan_raises_when_one_pixel_does_not_fit():
