@@ -39,7 +39,19 @@ Phases, each fatal on failure:
      and (e) are held against the same forward with the plain versions,
      (e), (f) and (g) against (a)'s frames; the times of (a) and (e) and
      their HR frames/s, in turns;
-  5. a {"kernels": [...]} line, the card line, and the result line.
+  5. the eval harness: the PNG decoder and yml reader it ran with; the
+     CLI (motif_tpu_torch.test.main) over test.yml on data/Vid4 (4 clips,
+     LR 16x24 -> HR 64x96) at full width from a reference-format .pth with
+     the slice's weights, once in the float32 configuration and once with
+     the serving knobs in the yml, each with the launch counters set to 0
+     before and read after (the configuration's entries, 4 forwards) and
+     held against the same run with the plain versions (frames, per-frame
+     Y-PSNR and SSIM); Evaluator.run at the bench shape (LQ 64x112 -> GT
+     256x448) over 2 seeded clips in both configurations, with per-clip
+     seconds in infer and in the metrics; the serving CLI again with each
+     of four wrong kernel outputs planted, printing which the serving gate
+     refuses: it must refuse the splat's targets half a pixel off;
+  6. a {"kernels": [...]} line, the card line, and the result line.
 Exits non-zero without CUDA or without the package beside it.
 """
 
@@ -988,6 +1000,326 @@ def run_slice(dev, args, card):
     return launches, entry_launches, per_request, entries
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the eval harness
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+VID4 = os.path.join(ROOT, "data", "Vid4")
+BENCH_LQ = (64, 112)          # bench.py's LQ; the GT is 4x that
+# what one forward of each configuration launches of the three kernels
+EVAL_ENTRIES = {"fp32": {"dcn_im2col/float32": 42,
+                         "siren_mlp/float32/whole": 3,
+                         "splat_fused/float32/C=130": 1},
+                "serving": serving_entries(1)}
+# The CLI against the same run with the plain versions. Frames: request
+# (a)'s 1e-5 (fp32) and request (e)'s 6e-2 / 35 dB (serving). Per-frame
+# Y-PSNR and SSIM: the largest distance of three H100 runs times 4 to 70
+# (fp32 1.5e-9 dB and 2.1e-10; serving 8.2e-6 dB and 2.7e-6). The serving
+# pair must refuse the planted faults of PLANTED_FAULTS marked so.
+EVAL_GATES = {"fp32": dict(frames=1e-5, min_psnr=None, psnr_db=1e-7,
+                           ssim=1e-8),
+              "serving": dict(frames=6e-2, min_psnr=35.0, psnr_db=4e-5,
+                              ssim=1e-5)}
+
+
+def _float32_sums(splat, img, flow, z, scatter_dtype=None, **kw):
+    return splat(img, flow, z, **kw)
+
+
+def _four_half_ulps_high(splat, img, flow, z, **kw):
+    out, *rest = splat(img, flow, z, **kw)
+    return (out * (1 + 4 * 2.0 ** -10), *rest)
+
+
+def _splat_half_pixel(splat, img, flow, z, **kw):
+    return splat(img, flow + 0.5, z, **kw)
+
+
+def _dcn_half_pixel(im2col, x, offset, *args):
+    return im2col(x, offset + 0.5, *args)
+
+
+# Wrong kernel outputs planted into the serving CLI: (module, wrapper,
+# fault, whether the serving gate must refuse it). Faults of the float16
+# splat's precision (its sums left in float32, the knob not passed on; its
+# output four float16 ulps high) and the bfloat16 DCN's samples half a
+# pixel off move the random-weight metrics no more than the kernels' own
+# order does (PERF.md §6, PR 7): the per-entry checks of phase 3 hold
+# those. The splat's targets half a pixel off must be refused.
+PLANTED_FAULTS = {
+    "splat_float32_sums": ("softsplat", "splat_fused", _float32_sums, False),
+    "splat_four_half_ulps_high": ("softsplat", "splat_fused",
+                                  _four_half_ulps_high, False),
+    "splat_half_pixel": ("softsplat", "splat_fused", _splat_half_pixel, True),
+    "dcn_half_pixel": ("dcn", "dcn_im2col", _dcn_half_pixel, False)}
+
+
+class ClipClock:
+    """Wraps an Evaluator's `infer` to keep each call's frames and its host
+    clock: per clip, the seconds in `infer` (the forward, ending in the
+    frames' copy to the host) and the seconds from its return to the next
+    call or to `stop()` (the metrics, and whatever the loader adds)."""
+
+    def __init__(self, infer):
+        self.infer, self.frames, self.spans, self.end = infer, [], [], None
+
+    def __call__(self, ev, lq, times, out_hw):
+        t = time.perf_counter()
+        out = self.infer(ev, lq, times, out_hw)
+        self.spans.append((t, time.perf_counter()))
+        self.frames.append(out[0])
+        return out
+
+    def stop(self):
+        self.end = time.perf_counter()
+
+    def seconds(self):
+        starts = [a for a, _ in self.spans[1:]] + [self.end]
+        return ([b - a for a, b in self.spans],
+                [n - b for (_, b), n in zip(self.spans, starts)])
+
+
+def clocked(ev_cls, fn):
+    """fn() with `ev_cls.infer` clocked; returns (fn's result, clock)."""
+    clock = ClipClock(ev_cls.infer)
+
+    def infer(self, lq, times, out_hw):
+        return clock(self, lq, times, out_hw)
+    with mock.patch.object(ev_cls, "infer", infer):
+        out = fn()
+    clock.stop()
+    return out, clock
+
+
+def eval_ymls(tmp):
+    """test.yml as it is (the fp32 configuration) and test.yml with the
+    serving knobs in its network_G, written into `tmp`."""
+    with open(os.path.join(ROOT, "test.yml")) as f:
+        text = f.read()
+    knobs = "".join(f"  {k}: {str(v).lower() if isinstance(v, bool) else v}\n"
+                    for k, v in {**SERVING, "decode_chunks": 1}.items())
+    serving = text.replace("name: tmp\n", "name: serving\n").replace(
+        "network_G:\n", "network_G:\n" + knobs)
+    if serving.count("serving") != 1 or knobs not in serving:
+        raise AssertionError("test.yml has no `name: tmp` or `network_G:` "
+                             "line to put the serving knobs under")
+    paths = {"fp32": os.path.join(tmp, "test.yml"),
+             "serving": os.path.join(tmp, "serving.yml")}
+    for name, body in (("fp32", text), ("serving", serving)):
+        with open(paths[name], "w") as f:
+            f.write(body)
+    return paths, {"fp32": "tmp", "serving": "serving"}
+
+
+def reference_pth(dev, path):
+    """MoTIF at full width with build_request's weights (seed 0, DCN
+    offsets perturbed from seed 1), saved as the reference saves a
+    checkpoint: DataParallel's `module.` prefix, the fixed blur's
+    `g_filter` and a {"state_dict": ...} wrapper."""
+    from motif_tpu_torch.models.motif import build_motif
+
+    model = build_motif(channel=64, front_rbs=5, back_rbs=40, device=dev,
+                        seed=0)
+    perturb_offsets(model, seed=1)
+    sd = {f"module.{k}": v.detach().cpu()
+          for k, v in model.state_dict().items()}
+    sd["module.g_filter.weight"] = torch.ones(3, 1, 5, 5)
+    torch.save({"state_dict": sd}, path)
+
+
+def cli_run(tmp, yml, pth):
+    """`python -m motif_tpu_torch.test -opt yml --checkpoint pth` run in
+    `tmp` with the Vid4 dataroots as overrides: its summary and the clock
+    of its `infer` calls (with their frames)."""
+    from motif_tpu_torch import test as cli
+    from motif_tpu_torch.eval import Evaluator
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        summary, clock = clocked(Evaluator, lambda: cli.main(
+            ["-opt", yml, "--checkpoint", pth],
+            overrides={"dataroot_GT": os.path.join(VID4, "HR"),
+                       "dataroot_LQ": os.path.join(VID4, "LR")}))
+    finally:
+        os.chdir(cwd)
+    return summary, clock
+
+
+def read_npys(tmp, stem):
+    """The per-frame PSNRs and SSIMs (clips x frames) a CLI run wrote."""
+    return tuple(np.load(os.path.join(tmp, "psnrs", f"{stem}{suffix}.npy"),
+                         allow_pickle=True).astype(np.float64)
+                 for suffix in ("", "_ssim"))
+
+
+def eval_cli(tmp, config, yml, stem, pth, mods):
+    """The CLI over test.yml in one configuration, with the kernels (the
+    launch counters set to 0 just before and read just after) and with the
+    plain versions, held against each other."""
+    softsplat, dcn, siren_kernel, kernels = mods
+    gate = EVAL_GATES[config]
+    kernels.reset_launches()
+    summary, clock = cli_run(tmp, yml, pth)
+    launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+    psnrs, ssims = read_npys(tmp, stem)
+    with plain_versions(softsplat, dcn, siren_kernel):
+        kernels.reset_launches()
+        summary_p, clock_p = cli_run(tmp, yml, pth)
+        if any(kernels.LAUNCHES.values()):
+            raise AssertionError("the plain CLI run launched a kernel")
+    psnrs_p, ssims_p = read_npys(tmp, stem)
+    n = summary["n_clips"]
+    want = {k: v * n for k, v in EVAL_ENTRIES[config].items()}
+    frames_err = max(float(np.abs(a - b).max())
+                     for a, b in zip(clock.frames, clock_p.frames))
+    frames_db = min(psnr(a, b) for a, b in zip(clock.frames, clock_p.frames))
+    psnr_err = float(np.abs(psnrs - psnrs_p).max())
+    ssim_err = float(np.abs(ssims - ssims_p).max())
+    infer_s, metrics_s = clock.seconds()
+    emit({"phase": "eval_cli", "config": config, "yml": os.path.basename(yml),
+          "summary": summary, "summary_plain": summary_p,
+          "clip_psnr": psnrs.mean(1).tolist(), "clip_ssim": ssims.mean(1).tolist(),
+          "frames_max_abs_err": frames_err, "frames_min_psnr_db": frames_db,
+          "frame_psnr_max_abs_err_db": psnr_err,
+          "frame_ssim_max_abs_err": ssim_err, "gates": gate,
+          "entry_launches": entries, "launches": launches,
+          "clip_infer_s": infer_s, "clip_metrics_s": metrics_s,
+          "clip_infer_s_plain": clock_p.seconds()[0]})
+    finite = all(np.isfinite(v) for s in (summary, summary_p)
+                 for v in s.values())
+    if not (n == summary_p["n_clips"] == 4 and len(clock.frames) == 4
+            and finite and np.isfinite(psnrs).all()
+            and np.isfinite(ssims).all()):
+        raise AssertionError(f"eval CLI ({config}): {n} clips, summaries "
+                             f"{summary} / {summary_p}")
+    if entries != want or not all(launches.values()):
+        raise AssertionError(f"eval CLI ({config}) launched {entries} "
+                             f"(wanted {want})")
+    for frames in clock.frames:
+        check_frames(f"eval {config}", frames, (3, 1, 64, 96, 3))
+    hold_eval(f"eval CLI ({config}) kernels vs plain", gate, frames_err,
+              frames_db, psnr_err, ssim_err)
+    return entries, (clock_p.frames, psnrs_p, ssims_p)
+
+
+def within(gate, frames_err, frames_db, psnr_err, ssim_err) -> bool:
+    return (frames_err <= gate["frames"] and psnr_err <= gate["psnr_db"]
+            and ssim_err <= gate["ssim"]
+            and (gate["min_psnr"] is None or frames_db >= gate["min_psnr"]))
+
+
+def hold_eval(what, gate, frames_err, frames_db, psnr_err, ssim_err):
+    if not within(gate, frames_err, frames_db, psnr_err, ssim_err):
+        raise AssertionError(
+            f"{what}: frames {frames_err} ({frames_db} dB), frame PSNR "
+            f"{psnr_err} dB, SSIM {ssim_err} (gates {gate})")
+
+
+def eval_planted_faults(tmp, yml, stem, pth, plain, mods):
+    """The serving CLI with each of PLANTED_FAULTS in place of its kernel
+    wrapper, held against the plain run (`plain`: its frames, per-frame
+    PSNRs and SSIMs): the serving gate must refuse every fault marked so."""
+    import functools
+
+    frames, psnrs0, ssims0 = plain
+    gate = EVAL_GATES["serving"]
+    modules = {"softsplat": mods[0], "dcn": mods[1]}
+    passed = []
+    for name, (module, wrapper, fault, must_refuse) in PLANTED_FAULTS.items():
+        mod = modules[module]
+        wrong = functools.partial(fault, getattr(mod, wrapper))
+        with mock.patch.object(mod, wrapper, wrong):
+            _, clock = cli_run(tmp, yml, pth)
+        psnrs, ssims = read_npys(tmp, stem)
+        d = (max(float(np.abs(a - b).max())
+                 for a, b in zip(clock.frames, frames)),
+             min(psnr(a, b) for a, b in zip(clock.frames, frames)),
+             float(np.abs(psnrs - psnrs0).max()),
+             float(np.abs(ssims - ssims0).max()))
+        emit({"phase": "eval_planted_fault", "fault": name,
+              "must_refuse": must_refuse, "frames_max_abs_err": d[0],
+              "frames_min_psnr_db": d[1], "frame_psnr_max_abs_err_db": d[2],
+              "frame_ssim_max_abs_err": d[3],
+              "refused_by": {"psnr_db": d[2] > gate["psnr_db"],
+                             "ssim": d[3] > gate["ssim"]},
+              "gates": gate})
+        if must_refuse and within(gate, *d):
+            passed.append(name)
+    if passed:
+        raise AssertionError(f"the serving gate passed the planted faults "
+                             f"{passed}")
+
+
+def eval_bench_shape(dev, card, pth, mods):
+    """Evaluator.run at the bench shape (LQ 64x112 → GT 256x448, 3 times)
+    over a seeded in-memory loader of 2 clips, in both configurations, with
+    per-clip seconds in `infer` and in the metrics."""
+    from motif_tpu_torch.checkpoint import load_reference_checkpoint
+    from motif_tpu_torch.eval import Evaluator
+    from motif_tpu_torch.models.motif import build_motif
+
+    kernels = mods[3]
+    h, w = BENCH_LQ
+    rng = np.random.default_rng(2)
+    clips = [{"lq": rng.random((1, 4, h, w, 3), dtype=np.float32),
+              "gt": rng.random((1, 5, 4 * h, 4 * w, 3), dtype=np.float32),
+              "times": np.asarray([[0.0, 0.5, 1.0]], np.float32)}
+             for _ in range(2)]
+    model = build_motif(channel=64, front_rbs=5, back_rbs=40, device=dev,
+                        seed=5)
+    load_reference_checkpoint(model, pth)
+    for config, knobs in (("fp32", {}), ("serving", SERVING)):
+        ev = Evaluator(model, scale=4, iters=4, chunk=3, family="Ours",
+                       device=dev, **knobs)
+        ev.infer(clips[0]["lq"], clips[0]["times"], (4 * h, 4 * w))  # warm-up
+        kernels.reset_launches()
+        res, clock = clocked(Evaluator, lambda: ev.run(iter(clips)))
+        launches = dict(kernels.LAUNCHES)
+        infer_s, metrics_s = clock.seconds()
+        s = res.summary()
+        emit({"phase": "eval_bench_shape", "config": config, "card": card,
+              "clips": len(clips), "summary": s,
+              "clip_infer_s": infer_s, "clip_metrics_s": metrics_s,
+              "launches": launches,
+              "note": f"Evaluator.run, LQ 1x4x{h}x{w} -> GT 1x5x{4 * h}x"
+                      f"{4 * w}, 3 times, iters 4; host clock; metrics = from "
+                      "infer's return to the next clip (L1, Y-PSNR, 3 SSIMs)"})
+        if s["n_clips"] != 2 or not all(np.isfinite(v) for v in s.values()) \
+                or not all(launches.values()):
+            raise AssertionError(f"eval at the bench shape ({config}): {s}, "
+                                 f"launches {launches}")
+
+
+def run_eval(dev, card, mods):
+    """The eval harness on the card: the CLI over test.yml in both
+    configurations against its plain versions, Evaluator.run at the bench
+    shape, then the serving gate against planted faults."""
+    import tempfile
+
+    import cv2
+    import yaml
+
+    emit({"phase": "eval_readers", "png_decoder": f"cv2 {cv2.__version__}",
+          "yml_reader": f"yaml.safe_load {yaml.__version__}"})
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        pth = os.path.join(tmp, "best.pth")
+        reference_pth(dev, pth)
+        ymls, stems = eval_ymls(tmp)
+        entries, runs = {}, {}
+        for name in ("fp32", "serving"):
+            entries[name], runs[name] = eval_cli(tmp, name, ymls[name],
+                                                 stems[name], pth, mods)
+        eval_bench_shape(dev, card, pth, mods)
+        eval_planted_faults(tmp, ymls["serving"], stems["serving"], pth,
+                            runs["serving"], mods)
+    emit({"phase": "eval", "seconds": time.perf_counter() - t0})
+    return entries
+
+
 def profile_request(ev, lq, times, out_dir, name):
     """One request under torch.profiler: the table goes to `out_dir`; the
     device busy time (kernels and copies only, not the host-side ops that
@@ -1221,6 +1553,7 @@ def main() -> int:
     if set(results) != set(ENTRIES):
         raise AssertionError("an entry was not held against its plain version")
     launches, entry_launches, per_request, entries = run_slice(dev, args, card)
+    eval_entries = run_eval(dev, card, (softsplat, dcn, siren_kernel, kernels))
 
     meta = {
         "splat_fused": ("motif_tpu_torch/csrc/splat_fused.cu",
@@ -1246,7 +1579,9 @@ def main() -> int:
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "eager_ms": r["eager_ms"],
                "launches_request_a": entries["a"].get(entry, 0),
-               "launches_request_e": entries["e"].get(entry, 0)}
+               "launches_request_e": entries["e"].get(entry, 0),
+               "launches_eval": {c: e.get(entry, 0)
+                                 for c, e in eval_entries.items()}}
         if "device_kernels_per_call" in r:
             row["device_kernels_per_call"] = r["device_kernels_per_call"]
         if name in also:

@@ -13,10 +13,14 @@ walks the port's own keys and maps each to its flax path:
   * `pcd_h` / `pcd_c` stay separate subtrees, as in the reference;
   * `g_filter`, the reference's fixed blur (not a parameter of either
     package), is not produced.
+
+`load_reference_checkpoint` loads a reference-format `.pth` into a port
+model, strictly.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Iterable, Mapping
 
@@ -79,3 +83,38 @@ def load_flax_params(model: torch.nn.Module, params: Mapping) -> None:
     """Load a flax params tree into `model` with strict=True."""
     sd = state_dict_from_flax(params, model.state_dict().keys())
     model.load_state_dict(sd, strict=True)
+
+
+# keys of a reference state dict that are not parameters of the port: the
+# fixed blur, batch-norm counters, and RAFT's norm3, which the reference
+# registers twice (the same tensors arrive as downsample.1)
+REFERENCE_ONLY_KEYS = ("g_filter", "num_batches_tracked", ".norm3.")
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Load a reference-format `.pth` / `.pt` state dict into `model`.
+
+    The file is read on the CPU; a `state_dict` or `params` wrapper is
+    unwrapped, DataParallel's `module.` prefix stripped and every key
+    holding one of `REFERENCE_ONLY_KEYS` dropped, then the rest loads with
+    strict=True: a missing or unexpected key raises and names itself. (The
+    JAX package merges a checkpoint over its init and keeps what the file
+    lacks.) An orbax directory, the JAX package's own format, raises
+    NotImplementedError (ROADMAP.md §A.5)."""
+    if not path.endswith((".pth", ".pt")):
+        kind = "an orbax checkpoint directory" if os.path.isdir(path) \
+            else "not a .pth / .pt file"
+        raise NotImplementedError(
+            f"{path}: {kind}; the port loads reference .pth state dicts only "
+            "(ROADMAP.md §A.5)")
+    sd = torch.load(path, map_location="cpu")
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if "params" in sd and not hasattr(sd["params"], "shape"):
+        sd = sd["params"]
+    out = {}
+    for key, value in sd.items():
+        key = key.removeprefix("module.")
+        if not any(s in key for s in REFERENCE_ONLY_KEYS):
+            out[key] = value
+    model.load_state_dict(out, strict=True)

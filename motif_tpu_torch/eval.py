@@ -1,24 +1,74 @@
-"""Inference harness — the counterpart of motif_tpu/eval.py::Evaluator.infer
-for the `Ours` family: zero-pad the LQ to multiples of 4, forward the
-target times in chunks of 3 (the last chunk padded by repeating its last
-time, then cropped), crop to `out_hw`, and report the flow statistics the
-reference logs (mean |flow - flow_GT| and mean |flow|).
+"""Evaluation harness, the counterpart of motif_tpu/eval.py for the `Ours`
+family: the reference test.py protocol. `infer` zero-pads the LQ to
+multiples of 4, forwards the target times in chunks of 3 (the last chunk
+padded by repeating its last time, then cropped), crops to `out_hw` and
+reports the flow statistics the reference logs (mean |flow - flow_GT| and
+mean |flow|). `run` scores every clip of a loader: L1, Y-channel PSNR split
+into anchor / inter / center, MATLAB SSIM, and the per-clip `.npy` files.
 
-The PSNR `run` loop and the other model families are not ported yet.
+The other families (the 4-anchor Ours_44 / Ours_4 and the baselines) are
+not ported yet and raise.
 """
 
 from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from motif_tpu_torch import resolve_device
+from motif_tpu_torch.models.factory import unported
+from motif_tpu_torch.utils import metrics
+
+
+@dataclass
+class EvalResults:
+    psnr: list = field(default_factory=list)
+    psnr_anchor: list = field(default_factory=list)
+    psnr_inter: list = field(default_factory=list)
+    psnr_center: list = field(default_factory=list)
+    ssim: list = field(default_factory=list)
+    psnrs_all: list = field(default_factory=list)
+    ssim_all: list = field(default_factory=list)
+    l1: list = field(default_factory=list)
+    flows: list = field(default_factory=list)    # mean |flow - flow_GT| (test.py:240)
+    flows_0: list = field(default_factory=list)  # mean |flow| (test.py:241)
+
+    def summary(self) -> dict:
+        out = {
+            "psnr": float(np.mean(self.psnr)),
+            "psnr_anchor": float(np.mean(self.psnr_anchor)),
+            "psnr_inter": float(np.mean(self.psnr_inter)),
+            "psnr_center": float(np.mean(self.psnr_center)),
+            "ssim": float(np.mean(self.ssim)),
+            "l1": float(np.mean(self.l1)),
+            "n_clips": len(self.psnr),
+        }
+        if self.flows:  # only families that return flows (reference try/except)
+            out["flow_err"] = float(np.mean(self.flows))
+            out["flow_abs"] = float(np.mean(self.flows_0))
+        return out
+
+
+def resolve_family(family: str, chunk: int) -> tuple[str, int]:
+    """The evaluated family and its chunk of times, as the JAX package's
+    Evaluator dispatches them (VideoSR_base_model.py:169-200): Ours_44 /
+    Ours_4 forward one time at a time, every other Ours_* is Ours."""
+    if family in ("Ours_44", "Ours_4"):
+        return family, 1
+    if family.startswith("Ours"):
+        return "Ours", chunk
+    return family, chunk
 
 
 class Evaluator:
-    """Runs a MoTIF over requests. `device` is CUDA unless the caller names
-    another device (raises without CUDA); the model is moved there. The
-    padded LQ and the times take the model's parameter dtype. `knobs`, if
+    """Runs a MoTIF over requests and eval clips. `device` is CUDA unless
+    the caller names another device (raises without CUDA); the model is
+    moved there. The padded LQ and the times take the model's parameter
+    dtype. `family` is the yml's `which_model_G` (`resolve_family`); a
+    family the port has not taken raises NotImplementedError. `knobs`, if
     any, are MoTIF's serving knobs by name (`fused_decode`,
     `compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`):
     those named are set on the model in place and the others keep the
@@ -26,7 +76,11 @@ class Evaluator:
     model serves as it was built."""
 
     def __init__(self, model: torch.nn.Module, scale: int = 4, iters: int = 4,
-                 chunk: int = 3, device=None, **knobs):
+                 chunk: int = 3, family: str = "Ours", device=None, **knobs):
+        self.family, chunk = resolve_family(family, chunk)
+        if self.family != "Ours":
+            reason = unported(self.family) or f"[{self.family}] is not known"
+            raise NotImplementedError(f"eval family {reason}")
         self.device = resolve_device(device)
         if knobs:
             model.configure(**{**model.knobs(), **knobs})
@@ -69,3 +123,53 @@ class Evaluator:
             outs.append(frames)
         out = np.concatenate(outs, 0)
         return out[:, :, :out_hw[0], :out_hw[1]], tuple(np.mean(fstats, 0))
+
+    def run(self, loader, save_psnr_dir: str | None = None,
+            log_every: int = 1, logger=None, name: str = "") -> EvalResults:
+        """Score every batch of `loader` (dicts of `lq` (B, N_in, H, W, 3),
+        `gt` (B, N+2, HH, WW, 3) with the two anchors at its ends, `times`
+        (B, N)) as the reference test.py does; with `save_psnr_dir`, write
+        the per-frame PSNRs and SSIMs of each clip to `<name>.npy` and
+        `<name>_ssim.npy` there (object arrays, allow_pickle)."""
+        res = EvalResults()
+        for it, batch in enumerate(loader):
+            lq, gt, times = batch["lq"], batch["gt"], batch["times"]
+            B = lq.shape[0]
+            H, W = gt.shape[2], gt.shape[3]
+            fake, flow_stats = self.infer(lq, times, (H, W))  # (N, B, H, W, 3)
+            res.flows.append(flow_stats[0])
+            res.flows_0.append(flow_stats[1])
+            real = gt[:, 1:-1]                            # (B, N, H, W, 3)
+            n = real.shape[1]
+            fake_bn = fake.transpose(1, 0, 2, 3, 4).reshape(B * n, H, W, 3)
+            real_bn = real.reshape(B * n, H, W, 3)
+
+            res.l1.append(float(np.abs(real_bn - fake_bn).mean()))
+            ry = metrics.rgb_to_y(real_bn)
+            fy = metrics.rgb_to_y(fake_bn)
+            p_a, p_i, p_c, p, per = metrics.eval_psnr_split(ry, fy)
+            res.psnr_anchor.append(p_a)
+            res.psnr_inter.append(p_i)
+            res.psnr_center.append(p_c)
+            res.psnr.append(p)
+            res.psnrs_all.append(per)
+            ssims = [metrics.calculate_ssim(ry[i] * 255.0, fy[i] * 255.0)
+                     for i in range(B * n)]
+            res.ssim.append(float(np.mean(ssims[:-1])))
+            res.ssim_all.append(ssims)
+            if logger and (it % log_every == 0):
+                s = res.summary()
+                logger.info(
+                    f"[{it}] psnr {p:.3f} (avg {s['psnr']:.3f}) "
+                    f"center {p_c:.3f} (avg {s['psnr_center']:.3f}) "
+                    f"ssim avg {s['ssim']:.4f}")
+        if save_psnr_dir:
+            # named by experiment like the reference ('./psnrs/' +
+            # opt['name'] + '.npy', test.py:290-291)
+            os.makedirs(save_psnr_dir, exist_ok=True)
+            stem = name or "psnrs"
+            np.save(os.path.join(save_psnr_dir, f"{stem}.npy"),
+                    np.asarray(res.psnrs_all, dtype=object), allow_pickle=True)
+            np.save(os.path.join(save_psnr_dir, f"{stem}_ssim.npy"),
+                    np.asarray(res.ssim_all, dtype=object), allow_pickle=True)
+        return res

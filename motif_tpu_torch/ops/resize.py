@@ -1,5 +1,7 @@
 """Bilinear resize as two separable matrix products — the counterpart of
-motif_tpu/ops/resize.py (interpolate_bilinear, avg_pool2d).
+motif_tpu/ops/resize.py (interpolate_bilinear, avg_pool2d) — and the
+MATLAB antialiased bicubic resize of the data pipeline, on the host
+(imresize_matlab_np).
 
 The (out, in) interpolation matrices are built on the host in float64 and
 cast to the image dtype, exactly as the JAX package does, so both packages
@@ -69,3 +71,72 @@ def avg_pool2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     OH, OW = H // window, W // window
     x = x[:, :OH * window, :OW * window]
     return x.reshape(B, OH, window, OW, window, C).mean(dim=(2, 4))
+
+
+# ---------------------------------------------------------------------------
+# MATLAB antialiased bicubic (imresize), reference data/util.py:261-392
+# ---------------------------------------------------------------------------
+
+def _cubic(x: np.ndarray) -> np.ndarray:
+    ax = np.abs(x)
+    ax2 = ax * ax
+    ax3 = ax2 * ax
+    return ((1.5 * ax3 - 2.5 * ax2 + 1.0) * (ax <= 1)
+            + (-0.5 * ax3 + 2.5 * ax2 - 4.0 * ax + 2.0) * ((ax > 1) & (ax <= 2)))
+
+
+@functools.lru_cache(maxsize=None)
+def matlab_resize_matrix(in_size: int, out_size: int, scale: float,
+                         antialiasing: bool = True) -> np.ndarray:
+    """(out_size, in_size) float64 MATLAB bicubic matrix: the reference's
+    calculate_weights_indices with its symmetric edge padding folded into
+    the source index. Read only (cached)."""
+    kernel_width = 4.0
+    if scale < 1 and antialiasing:
+        kernel_width = kernel_width / scale
+    x = np.arange(1, out_size + 1, dtype=np.float64)
+    u = x / scale + 0.5 * (1 - 1 / scale)
+    left = np.floor(u - kernel_width / 2)
+    P = int(math.ceil(kernel_width)) + 2
+    indices = left[:, None] + np.arange(P)[None, :]  # 1-based positions
+    dist = u[:, None] - indices
+    if scale < 1 and antialiasing:
+        weights = scale * _cubic(dist * scale)
+    else:
+        weights = _cubic(dist)
+    weights = weights / np.sum(weights, axis=1, keepdims=True)
+    # trim all-zero first/last columns (same rule as the reference)
+    zero_cols = np.sum(weights == 0, axis=0)
+    if not math.isclose(zero_cols[0], 0, rel_tol=1e-6):
+        indices = indices[:, 1:P - 1]
+        weights = weights[:, 1:P - 1]
+    elif not math.isclose(zero_cols[-1], 0, rel_tol=1e-6):
+        indices = indices[:, 0:P - 2]
+        weights = weights[:, 0:P - 2]
+
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    # out-of-range positions mirror about the edge pixel (symmetric padding)
+    idx0 = indices.astype(np.int64) - 1
+    for i in range(out_size):
+        for k in range(indices.shape[1]):
+            j = idx0[i, k]
+            if j < 0:
+                j = -1 - j
+            if j >= in_size:
+                j = in_size - 1 - (j - in_size)
+            j = min(max(j, 0), in_size - 1)
+            m[i, j] += weights[i, k]
+    return m
+
+
+def imresize_matlab_np(img: np.ndarray, scale: float,
+                       antialiasing: bool = True) -> np.ndarray:
+    """MATLAB imresize of an (H, W, C) image on the host: out =
+    ceil(in * scale) a side, the image taken as float32, rows then
+    columns."""
+    H, W = img.shape[:2]
+    OH, OW = int(math.ceil(H * scale)), int(math.ceil(W * scale))
+    mh = matlab_resize_matrix(H, OH, scale, antialiasing)
+    mw = matlab_resize_matrix(W, OW, scale, antialiasing)
+    out = np.tensordot(mh, img.astype(np.float32), axes=(1, 0))       # (OH, W, C)
+    return np.moveaxis(np.tensordot(mw, out, axes=(1, 1)), 0, 1)      # (OH, OW, C)

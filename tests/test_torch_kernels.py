@@ -11,8 +11,15 @@ TF32 is off for the plain versions' matrix products and convolutions.
 Every entry of a kernel is covered: float32 and bfloat16 for the DCN im2col
 and the SIREN, the SIREN whole and from its first layer's pre-activation,
 the splat with float32 and float16 sums at its compiled widths (130, 64)
-and a generic one; each also replayed from a CUDA graph.
+and a generic one; each also replayed from a CUDA graph. The eval harness
+(Evaluator.run on a data/Vid4 clip) is held against its plain versions on
+the card and against the CPU.
 """
+
+import contextlib
+import copy
+import pathlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -737,3 +744,67 @@ def test_kernels_build_from_the_sources(dev):
     for name in kernels.SOURCES:
         assert kernels._library_path(name).exists()
     assert np.isfinite(kernels.build())  # all built: nothing to do
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """Route the model's kernel calls to the plain versions."""
+    def siren_plain(*a, packed=None, **kw):
+        return siren_kernel.siren_mlp_plain(*a, **kw)
+    with mock.patch.object(softsplat, "splat_fused",
+                           softsplat.splat_fused_plain), \
+            mock.patch.object(dcn, "dcn_im2col", dcn.dcn_im2col_plain), \
+            mock.patch.object(siren_kernel, "siren_mlp", siren_plain):
+        yield
+
+
+# Evaluator.run's summary on the card against its plain versions (the
+# frames agree to ~1e-7, which moves a PSNR by ~1e-5 dB) and against the
+# CPU (other convolution algorithms; a splatted pixel can cross a floor())
+RUN_GATES = {"plain": dict(psnr=1e-3, ssim=1e-4, l1=1e-5, flow_rel=1e-5),
+             "cpu": dict(psnr=1e-2, ssim=1e-3, l1=1e-4, flow_rel=1e-4)}
+
+
+def _hold_summary(got, want, gate):
+    for k in ("psnr", "psnr_anchor", "psnr_inter", "psnr_center"):
+        assert abs(got[k] - want[k]) <= gate["psnr"], (k, got[k], want[k])
+    assert abs(got["ssim"] - want["ssim"]) <= gate["ssim"]
+    assert abs(got["l1"] - want["l1"]) <= gate["l1"]
+    for k in ("flow_err", "flow_abs"):
+        assert abs(got[k] - want[k]) <= gate["flow_rel"] * abs(want[k]), k
+
+
+def test_evaluator_run_on_a_vid4_clip(dev):
+    """Evaluator.run over the first data/Vid4 clip (16x24 → 64x96, 3
+    times) at channel 16, front 1 / back 2 blocks, DCN offsets perturbed:
+    every kernel launches, and the summary holds against the plain
+    versions on the card and against the same model on the CPU."""
+    from motif_tpu_torch.data import BatchLoader, create_dataset
+    from motif_tpu_torch.eval import Evaluator
+    from motif_tpu_torch.models.motif import build_motif
+    from motif_tpu_torch.models.pcd import DCNSep
+
+    vid4 = pathlib.Path(__file__).resolve().parents[1] / "data" / "Vid4"
+    clip = [next(BatchLoader(create_dataset(
+        {"mode": "Adobe_test_3", "dataroot_GT": str(vid4 / "HR"),
+         "dataroot_LQ": str(vid4 / "LR")})).epoch(0))]
+    model = build_motif(16, 1, 2, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, DCNSep):
+                w, b = mod.conv_offset_mask.weight, mod.conv_offset_mask.bias
+                w.copy_(torch.randn(w.shape, generator=g) * 0.01)
+                b.copy_(torch.randn(b.shape, generator=g))
+    cpu = Evaluator(copy.deepcopy(model), device="cpu").run(clip).summary()
+    ev = Evaluator(model, device=dev)
+    before = dict(kernels.LAUNCHES)
+    card = ev.run(clip).summary()
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+    assert launched == {"splat_fused": 1, "dcn_im2col": 42, "siren_mlp": 3}
+    with _plain_versions():
+        plain = ev.run(clip).summary()
+    assert kernels.LAUNCHES == {k: before[k] + v for k, v in launched.items()}
+    assert card["n_clips"] == 1 and all(np.isfinite(v) for v in card.values())
+    _hold_summary(card, plain, RUN_GATES["plain"])
+    _hold_summary(card, cpu, RUN_GATES["cpu"])
