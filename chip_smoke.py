@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive motif_tpu_torch's serving forward on one NVIDIA GPU.
+"""Drive motif_tpu_torch's serving forward and its training on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the smoke run
     python3 chip_smoke.py --profile DIR    # also write a torch.profiler
-                                           # table of one request to DIR,
-                                           # count its device kernels, and
+                                           # table of one request and of one
+                                           # training step to DIR, count
+                                           # their device kernels, and
                                            # dump the bfloat16 SIREN's SASS
 
 Phases, each fatal on failure:
@@ -51,7 +52,23 @@ Phases, each fatal on failure:
      seconds in infer and in the metrics; the serving CLI again with each
      of four wrong kernel outputs planted, printing which the serving gate
      refuses: it must refuse the splat's targets half a pixel off;
-  6. a {"kernels": [...]} line, the card line, and the result line.
+  6. a {"kernels": [...]} line, the card line, and the result line, printed
+     last, after phase 7; each kernel row also carries its launches per
+     training step and its plain backward's device ms in one step;
+  7. training (run before phase 6's lines): the CLI (motif_tpu_torch.train
+     .main) on configs/train_smoke.yml with train_Ours_vimeo.yml's shapes
+     (Ours, nf 64, 5 + 40 blocks, iters 12, batch 8, GT 128 from LQ 32, 7
+     target times) on data/vimeo for 6 steps, the launch counters set to 0
+     before and read after (1 splat, 42 DCN im2cols, 3 SIRENs a step, all
+     float32 entries), teacher forcing decaying over 4 steps so that both
+     branches run, then a resume to step 8 from the saved state; a
+     Trainer's step split into forward, backward and optimiser, its peak
+     memory and HR frames/s; one profiled step with each plain backward's
+     device ms; a step held against the same step with the plain versions
+     (loss and every gradient, TRAIN_GATES) for use_gt True and False,
+     with the parameters upstream of each kernel checked for a non-zero
+     gradient, and a splat backward that drops the flow gradient planted,
+     which the gate must refuse.
 Exits non-zero without CUDA or without the package beside it.
 """
 
@@ -1320,6 +1337,290 @@ def run_eval(dev, card, mods):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+# the float32 entries a training step runs: 1 splat, 42 DCNs, 3 SIRENs
+TRAIN_ENTRIES = {"splat_fused/float32/C=130": 1, "dcn_im2col/float32": 42,
+                 "siren_mlp/float32/whole": 3}
+TRAIN_STEPS, RESUME_STEPS = 6, 2
+# a step of the kernels against the same step with the plain versions, TF32
+# off: the loss relative, each parameter's gradient relative to its
+# tensor's largest |g|. Readings on an H100 (one run): loss equal, gradients
+# 3.8e-5 (use_gt True) and 1.2e-4 (False), at encoder convs; a splat
+# backward that drops the flow gradient 4.8e-3 (flow_imnet's first layer)
+TRAIN_GATES = dict(loss_rel=1e-5, grad_rel=1e-3)
+BACKWARDS = {"splat_fused": "splat_fused.backward",
+             "dcn_im2col": "dcn_im2col.backward",
+             "siren_mlp": "siren_mlp.backward"}
+
+
+def train_yml(tmp: str) -> str:
+    """configs/train_smoke.yml with train_Ours_vimeo.yml's shapes (Ours,
+    nf 64, setting 5, iters 12, batch 8, GT 128, 7 frames, 200 passes an
+    epoch) on the repository's data/vimeo, teacher forcing decaying over 4
+    steps so that both branches run, a log line a step and a save every 3
+    steps, under `tmp`."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", "train_smoke.yml")) as f:
+        opt = yaml.safe_load(f)
+    vimeo = os.path.join(ROOT, "data", "vimeo")
+    opt["dataset_ratio"] = 200
+    opt["datasets"]["train"].update(
+        dataroot_GT=os.path.join(vimeo, "GT"),
+        dataroot_LQ=os.path.join(vimeo, "LR"),
+        cache_keys=os.path.join(vimeo, "keys.txt"), N_frames=7,
+        batch_size=8, GT_size=128)
+    opt["network_G"].update(which_model_G="Ours", nf=64, setting=5, iters=12)
+    opt["path"] = {"root": tmp}
+    opt["train"].update(niter=TRAIN_STEPS, teacher_forcing_steps=4)
+    opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 3}
+    path = os.path.join(tmp, "train.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path
+
+
+def grad_gate(model, kernel_grads, plain_grads, loss, plain_loss):
+    """The largest distances of a step from its plain twin: the loss
+    relative, and each parameter's gradient relative to the plain one's
+    largest |g| (a gradient zero in the plain step must be zero)."""
+    worst, where = 0.0, None
+    for (name, _), a, b in zip(model.named_parameters(), kernel_grads,
+                               plain_grads):
+        scale = float(b.abs().max())
+        err = float((a.double() - b.double()).abs().max())
+        rel = err / scale if scale > 0 else (0.0 if err == 0 else np.inf)
+        if rel > worst:
+            worst, where = rel, name
+    loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+    return {"loss_rel": loss_rel, "grad_rel": worst, "grad_rel_at": where,
+            "ok": (loss_rel <= TRAIN_GATES["loss_rel"]
+                   and worst <= TRAIN_GATES["grad_rel"])}
+
+
+def upstream_nonzero(model) -> dict:
+    """Whether the parameters upstream of each kernel took a gradient: the
+    splat's payload (imnet) and flow (flow_imnet), every DCN's offset and
+    mask conv, every SIREN's layers and the flow-context convs before the
+    first. A gradient cut at a kernel leaves its group at zero."""
+    from motif_tpu_torch.models.pcd import DCNSep
+
+    def nz(params):
+        return all(float(p.grad.abs().max()) > 0 for p in params)
+    dcns = [m for m in model.modules() if isinstance(m, DCNSep)]
+    return {
+        "splat_fused": nz(model.imnet.parameters())
+        and nz(model.flow_imnet.parameters()),
+        "dcn_im2col": len(dcns) > 0 and all(
+            nz(m.conv_offset_mask.parameters()) for m in dcns),
+        "siren_mlp": all(nz(net.parameters()) for net in (
+            model.flow_imnet, model.imnet, model.synth_net))
+        and nz(model.flow_process.parameters()),
+    }
+
+
+def _drop_flow_grad(softsplat):
+    real = softsplat.splat_fused_backward_plain
+
+    def faulty(*a, **kw):
+        d_img, d_flow, d_z = real(*a, **kw)
+        return d_img, torch.zeros_like(d_flow), d_z
+    return mock.patch.object(softsplat, "splat_fused_backward_plain", faulty)
+
+
+def profile_train_step(trainer, batch, out_dir, mods):
+    """One training step under torch.profiler: the device ms of each plain
+    backward (its record_function range: every kernel it launched), the
+    step's device kernels and busy time against its wall time; the table
+    goes to `out_dir` when given. Each plain backward's calls in that step
+    are also kept and replayed, timed by CUDA events (`event_ms`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    softsplat, dcn, siren_kernel, _ = mods
+    fns = {"splat_fused": (softsplat, "splat_fused_backward_plain"),
+           "dcn_im2col": (dcn, "dcn_im2col_backward_plain"),
+           "siren_mlp": (siren_kernel, "siren_mlp_backward_plain")}
+    calls = {k: [] for k in fns}
+
+    def keep(k, real):
+        def f(*a):
+            calls[k].append(a)
+            return real(*a)
+        return f
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        for k, (mod, name) in fns.items():
+            stack.enter_context(mock.patch.object(
+                mod, name, keep(k, getattr(mod, name))))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            trainer.step(batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    avg = prof.key_averages()
+    # a range's host-side event sums the device time of the kernels its ops
+    # launched; its device-side twin (a user annotation) spans the gaps too
+    back = {k: {"device_ms": 0.0, "calls": 0} for k in BACKWARDS}
+    for e in avg:
+        for k, rng in BACKWARDS.items():
+            if e.key == rng and e.device_type == DeviceType.CPU:
+                back[k] = {"device_ms": e.device_time_total / 1e3,
+                           "calls": e.count}
+    for k, (mod, name) in fns.items():
+        fn = getattr(mod, name)
+        back[k]["event_ms"] = cuda_ms(lambda: [fn(*a) for a in calls[k]],
+                                      reps=3, warmup=1)
+        back[k]["kept_calls"] = len(calls[k])
+    del calls
+    device = [e for e in avg if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    prof_stats = {"device_kernels": sum(e.count for e in device),
+                  "device_busy_ms": busy_ms, "wall_ms_profiled": wall_ms,
+                  "top_device": [[e.key[:70], e.self_device_time_total / 1e3,
+                                  e.count] for e in sorted(
+                                      device, key=lambda e:
+                                      -e.self_device_time_total)[:12]]}
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "train_step.txt"), "w") as f:
+            f.write(avg.table(sort_by="device_time_total", row_limit=60))
+    return back, prof_stats
+
+
+def run_train(dev, card, args, mods):
+    """Training at full width: the CLI for TRAIN_STEPS steps and a resume,
+    with the launch counters read around them; a Trainer's step split by
+    part, peak memory and HR frames/s; one profiled step; the gradient gate
+    against the plain versions for both teacher-forcing branches, refusing
+    a splat backward that drops the flow gradient."""
+    import tempfile
+
+    from motif_tpu_torch import checkpoint, train
+    from motif_tpu_torch.data import BatchLoader, create_dataset, \
+        device_prefetch
+    from motif_tpu_torch.models.factory import define_g
+    from motif_tpu_torch.trainer import Trainer
+    from motif_tpu_torch.utils import config as cfg
+
+    softsplat, dcn, siren_kernel, kernels = mods
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        yml = train_yml(tmp)
+        opt = cfg.parse(yml, is_train=True)
+        models = opt["path"]["models"]
+        # ---- the main path: the CLI, counters from 0, then a resume ----
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        train.main(["-opt", yml])
+        cli_s = time.perf_counter() - t1
+        launches = dict(kernels.ENTRY_LAUNCHES)
+        if checkpoint.latest_step(models) != TRAIN_STEPS:
+            raise AssertionError("train: no final train state")
+        log = [json.loads(ln) for ln in open(os.path.join(
+            opt["path"]["experiments_root"], "train_log.jsonl"))]
+        if [ln["step"] for ln in log] != list(range(1, TRAIN_STEPS + 1)) or \
+                {ln["use_gt"] for ln in log} != {True, False} or \
+                not all(np.isfinite(ln["loss"]) for ln in log):
+            raise AssertionError(f"train: log {log}")
+        per_step = {k: launches.get(k, 0) / TRAIN_STEPS for k in ENTRIES}
+        for entry, n in TRAIN_ENTRIES.items():
+            if per_step[entry] != n:
+                raise AssertionError(f"train: {entry} launched "
+                                     f"{per_step[entry]} times a step, not {n}")
+        if sum(launches.values()) != TRAIN_STEPS * sum(TRAIN_ENTRIES.values()):
+            raise AssertionError(f"train: other entries ran {launches}")
+        t1 = time.perf_counter()
+        train.main(["-opt", yml, "--max_steps",
+                    str(TRAIN_STEPS + RESUME_STEPS)])
+        resume_s = time.perf_counter() - t1
+        log2 = [json.loads(ln) for ln in open(os.path.join(
+            opt["path"]["experiments_root"], "train_log.jsonl"))]
+        if [ln["step"] for ln in log2[TRAIN_STEPS:]] != list(
+                range(TRAIN_STEPS + 1, TRAIN_STEPS + RESUME_STEPS + 1)) or \
+                checkpoint.latest_step(models) != TRAIN_STEPS + RESUME_STEPS:
+            raise AssertionError(f"train: resume log {log2}")
+        emit({"phase": "train_cli", "card": card, "steps": TRAIN_STEPS,
+              "seconds": cli_s, "resume_steps": RESUME_STEPS,
+              "resume_seconds": resume_s,
+              "losses": [ln["loss"] for ln in log2],
+              "use_gt": [ln["use_gt"] for ln in log2],
+              "lr": [ln["lr"] for ln in log2],
+              "launches": launches, "launches_per_step": per_step})
+
+        # ---- a Trainer's step by part ----
+        model = define_g(opt["network_G"], device=dev)
+        ds_opt = dict(opt["datasets"]["train"])
+        B, N, gt = ds_opt["batch_size"], ds_opt["N_frames"], ds_opt["GT_size"]
+        loader = BatchLoader(create_dataset(ds_opt), batch_size=B,
+                             shuffle=True, seed=0,
+                             epoch_ratio=opt["dataset_ratio"])
+        batches = device_prefetch(loader.epoch(0), dev)
+        tr = Trainer(model, cfg.trainer_config_from_opt(opt), (gt, gt),
+                     iters=opt["network_G"]["iters"], seed=0)
+        tr.step(next(batches))                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        parts = [tr.step(next(batches), sync_times=True)["ms"]
+                 for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated(dev)
+        ms = {k: float(np.median([p[k] for p in parts])) for k in parts[0]}
+        step_ms = sum(ms.values())
+        back, prof_stats = profile_train_step(tr, next(batches),
+                                              args.profile, mods)
+        emit({"phase": "train_step", "card": card, "batch": B, "times": N,
+              "gt": gt, "lq": gt // 4, "ms_median_of_3": ms, "step_ms": step_ms,
+              "ms_runs": parts, "peak_memory_gb": peak / 1e9,
+              "hr_frames_per_s": B * N / (step_ms / 1e3),
+              "plain_backward": back, "profiled_step": prof_stats})
+
+        # ---- the gradient gate: a step of the kernels against the same
+        # step with the plain versions, same weights and batch ----
+        batch = next(batches)
+        gates = {}
+        for use_gt in (True, False):
+            aux = tr.compute_grads(batch, use_gt)
+            got = [p.grad.clone() for p in tr.params]
+            nonzero = upstream_nonzero(model)
+            with plain_versions(softsplat, dcn, siren_kernel):
+                plain = tr.compute_grads(batch, use_gt)
+            want = [p.grad.clone() for p in tr.params]
+            gates[use_gt] = grad_gate(model, got, want, float(aux["loss"]),
+                                      float(plain["loss"]))
+            emit({"phase": "train_gate", "use_gt": use_gt, "card": card,
+                  "loss": float(aux["loss"]), "plain_loss":
+                  float(plain["loss"]), "gates": TRAIN_GATES,
+                  "upstream_nonzero": nonzero, **gates[use_gt]})
+            if not gates[use_gt]["ok"]:
+                raise AssertionError(f"train: the step with use_gt={use_gt} "
+                                     f"fails its gate {gates[use_gt]}")
+            if not all(nonzero.values()):
+                raise AssertionError(f"train: a kernel cut the gradient "
+                                     f"{nonzero}")
+        # planted: a splat backward that drops the flow gradient
+        with _drop_flow_grad(softsplat):
+            aux = tr.compute_grads(batch, False)
+        fault = grad_gate(model, [p.grad.clone() for p in tr.params], want,
+                          float(aux["loss"]), float(plain["loss"]))
+        emit({"phase": "train_planted_fault", "fault": "splat drops d flow",
+              "refused": not fault["ok"], **fault})
+        if fault["ok"]:
+            raise AssertionError("train: the gate passed a splat backward "
+                                 "that drops the flow gradient")
+        batches.close()
+        del tr, model
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "train", "seconds": seconds})
+    return per_step, back
+
+
 def profile_request(ev, lq, times, out_dir, name):
     """One request under torch.profiler: the table goes to `out_dir`; the
     device busy time (kernels and copies only, not the host-side ops that
@@ -1491,7 +1792,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="write torch.profiler tables of requests (a) and "
-                         "(e) to DIR")
+                         "(e) and of one training step to DIR")
     ap.add_argument("--compare-only", metavar="DIR",
                     help="only time dcn_v2 (float32 at L1, bfloat16 at L1 - "
                          "L3), the bfloat16 siren_mlp entries, the splat and "
@@ -1554,6 +1855,8 @@ def main() -> int:
         raise AssertionError("an entry was not held against its plain version")
     launches, entry_launches, per_request, entries = run_slice(dev, args, card)
     eval_entries = run_eval(dev, card, (softsplat, dcn, siren_kernel, kernels))
+    train_per_step, train_back = run_train(
+        dev, card, args, (softsplat, dcn, siren_kernel, kernels))
 
     meta = {
         "splat_fused": ("motif_tpu_torch/csrc/splat_fused.cu",
@@ -1582,6 +1885,11 @@ def main() -> int:
                "launches_request_e": entries["e"].get(entry, 0),
                "launches_eval": {c: e.get(entry, 0)
                                  for c, e in eval_entries.items()}}
+        row["launches_train_step"] = train_per_step[entry]
+        row["plain_backward_ms_train_step"] = (
+            train_back[name]["device_ms"] if entry in TRAIN_ENTRIES else None)
+        row["plain_backward_event_ms_train_step"] = (
+            train_back[name]["event_ms"] if entry in TRAIN_ENTRIES else None)
         if "device_kernels_per_call" in r:
             row["device_kernels_per_call"] = r["device_kernels_per_call"]
         if name in also:

@@ -16,10 +16,18 @@ walks the port's own keys and maps each to its flax path:
 
 `load_reference_checkpoint` loads a reference-format `.pth` into a port
 model, strictly.
+
+The train state (`save_train_state`, `restore_train_state`, `restore_meta`,
+`latest_step`) is the counterpart of motif_tpu/checkpoint.py:236-276 in
+torch's own format: {model, optimizer, step} by `torch.save` in a file
+`<dir>/step_<n>`, with the same `.meta.json` sidecar and the same
+latest-step rule. The JAX package's orbax directories are not read
+(ROADMAP.md §A.5).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Iterable, Mapping
@@ -118,3 +126,53 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
         if not any(s in key for s in REFERENCE_ONLY_KEYS):
             out[key] = value
     model.load_state_dict(out, strict=True)
+
+
+def _step_path(ckpt_dir: str, step: int) -> str:
+    return os.path.abspath(os.path.join(ckpt_dir, f"step_{step}"))
+
+
+def save_train_state(ckpt_dir: str, step: int, trainer,
+                     meta: dict | None = None) -> None:
+    """`trainer.state_dict()` ({model, optimizer, step}) to
+    `<ckpt_dir>/step_<step>`, written whole or not at all, and `meta` (the
+    epoch and so on, as the reference's .state file keeps it beside the
+    iteration) to `step_<step>.meta.json`."""
+    path = _step_path(ckpt_dir, step)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(trainer.state_dict(), tmp)
+    os.replace(tmp, path)
+    if meta is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f)
+
+
+def restore_train_state(ckpt_dir: str, step: int, trainer):
+    """Load `<ckpt_dir>/step_<step>` into `trainer` (its model, optimizer and
+    step count) and return it. An orbax directory, the JAX package's
+    format, raises NotImplementedError (ROADMAP.md §A.5)."""
+    path = _step_path(ckpt_dir, step)
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path}: an orbax train-state directory of the JAX package; the "
+            "port restores its own torch train states only (ROADMAP.md §A.5)")
+    trainer.load_state_dict(torch.load(path, map_location="cpu"))
+    return trainer
+
+
+def restore_meta(ckpt_dir: str, step: int) -> dict:
+    path = _step_path(ckpt_dir, step) + ".meta.json"
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """The largest n of the `step_<n>` entries in `ckpt_dir`, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for d in os.listdir(ckpt_dir)
+             if (m := re.fullmatch(r"step_(\d+)", d))]
+    return max(steps) if steps else None

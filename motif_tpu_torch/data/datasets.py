@@ -14,14 +14,20 @@ Windows follow Adobe_test* / Gopro_test (Adobe_test_3.py:88-109):
   gts    = frames[i + (1+interval)*k : i + (1+interval)*(k+1) + 1],
   k = (ref_num-1)//2, window stride 1+interval.
 
-The training modes (vimeo, Adobe, Adobe_4, Adobe_flow, Adobe_a, vimeo_a)
-are not ported (ROADMAP.md §A.7) and raise.
+The Vimeo septuplet training set (`vimeo`) follows Vimeo7_dataset.py:112-205
+as the JAX package does, with the same draws from `random.Random(seed)` in
+the same order: reverse, crop, hflip, vflip, rot90. Its precomputed flows
+(Ours_44, ROADMAP.md §A.8) and LMDB packs (§A.7) are not ported; the other
+training modes (Adobe, Adobe_4, Adobe_flow, Adobe_a, vimeo_a) raise
+(§A.7).
 """
 
 from __future__ import annotations
 
 import os
 import os.path as osp
+import pickle
+import random
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -35,7 +41,7 @@ GOPRO_VIDEOS = [  # Gopro_test.py:89-93
     "GOPR0410_11_00", "GOPR0854_11_00", "GOPR0862_11_00", "GOPR0868_11_00",
     "GOPR0869_11_00", "GOPR0871_11_00", "GOPR0881_11_01",
 ]
-TRAINING_MODES = ("vimeo", "Adobe", "Adobe_4", "Adobe_flow", "Adobe_a",
+TRAINING_MODES = ("Adobe", "Adobe_4", "Adobe_flow", "Adobe_a",
                   "vimeo_a")
 # the JAX package's native core converts uint8 with `s * (1.0f / 255.0f)`
 # (a float32 multiply), which differs from `s / 255` by one float32 ulp for
@@ -139,6 +145,99 @@ class ArbitraryScaleTestDataset:
         return {"lq": lq, "gt": gt, "times": item["times"], "key": item["key"]}
 
 
+@dataclass
+class Vimeo7Dataset:
+    """The Vimeo-90K septuplet training set (Vimeo7_dataset.py): GT frames
+    im1, im1..im7, im7 (the anchors duplicated at the ends) and LQ frames
+    im1, im3, im5, im7; in the train phase a random reverse, a random crop
+    and flip / transpose augmentation. Items:
+    {'lq': (4, s, s, 3), 'gt': (9, GT_size, GT_size, 3), 'times': (7,),
+    'key': 'a_b'} with s = GT_size / scale."""
+    gt_root: str
+    lq_root: str
+    keys: Sequence[str] | str = "sep_trainlist.txt"
+    gt_size: int = 128
+    scale: int = 4
+    n_frames: int = 7
+    random_reverse: bool = True
+    use_flip: bool = True
+    use_rot: bool = True
+    load_flows: bool = False
+    data_type: str = "img"
+    phase: str = "train"
+    seed: int | None = None
+
+    def __post_init__(self):
+        if self.load_flows:
+            raise NotImplementedError(
+                "Vimeo7Dataset: precomputed flows (Ours_44 training) are not "
+                "ported (ROADMAP.md §A.8)")
+        if self.data_type == "lmdb":
+            raise NotImplementedError(
+                "Vimeo7Dataset: LMDB packs are not ported (ROADMAP.md §A.7)")
+        if isinstance(self.keys, str):
+            if osp.exists(self.keys) or osp.isabs(self.keys):
+                path = self.keys
+            else:  # a bare file name: next to the GT root
+                path = osp.join(osp.dirname(self.gt_root.rstrip("/")),
+                                self.keys)
+            if path.endswith(".pkl"):
+                with open(path, "rb") as f:
+                    self.keys = pickle.load(f)
+            else:
+                with open(path) as f:
+                    self.keys = [ln.strip().replace("/", "_")
+                                 for ln in f if ln.strip()]
+        half = self.n_frames // 2
+        self.lr_index_list = [i * 2 for i in range(1 + half)]  # 0, 2, 4, 6
+        self._rng = random.Random(self.seed)
+
+    def __len__(self):
+        return len(self.keys)
+
+    def __getitem__(self, index: int) -> dict:
+        key = self.keys[index]
+        name_a, name_b = key.split("_")
+        neighbor = list(range(1, 8))
+        if self.random_reverse and self._rng.random() < 0.5:
+            neighbor.reverse()
+        gt_dir = osp.join(self.gt_root, name_a, name_b)
+        lq_dir = osp.join(self.lq_root, name_a, name_b)
+        gts = [read_img(osp.join(gt_dir, f"im{v}.png"))
+               for v in [1] + neighbor + [7]]
+        lqs = [read_img(osp.join(lq_dir, f"im{neighbor[i]}.png"))
+               for i in self.lr_index_list]
+        times = np.asarray([(v - 1) / 6.0 for v in neighbor], np.float32)
+
+        if self.phase == "train":
+            H, W = lqs[0].shape[:2]
+            lq_size = self.gt_size // self.scale
+            rh = self._rng.randint(0, max(0, H - lq_size))
+            rw = self._rng.randint(0, max(0, W - lq_size))
+            lqs = [v[rh:rh + lq_size, rw:rw + lq_size] for v in lqs]
+            rh4, rw4 = rh * self.scale, rw * self.scale
+            gts = [v[rh4:rh4 + self.gt_size, rw4:rw4 + self.gt_size]
+                   for v in gts]
+            # flip / transpose augmentation (data/util.py:92-128)
+            hflip = self.use_flip and self._rng.random() < 0.5
+            vflip = self.use_rot and self._rng.random() < 0.5
+            rot90 = self.use_rot and self._rng.random() < 0.5
+
+            def aug(img):
+                if hflip:
+                    img = img[:, ::-1]
+                if vflip:
+                    img = img[::-1]
+                if rot90:
+                    img = img.transpose(1, 0, 2)
+                return np.ascontiguousarray(img)
+
+            lqs = [aug(v) for v in lqs]
+            gts = [aug(v) for v in gts]
+        return {"lq": np.stack(lqs, 0), "gt": np.stack(gts, 0),
+                "times": times, "key": key}
+
+
 # window presets of the eval modes
 WINDOW_MODES = {
     # Adobe_test.py:168-176 / Gopro_test.py:174-182: [0,0,1..8,8], i/8
@@ -156,7 +255,7 @@ WINDOW_MODES = {
 
 def create_dataset(opt: dict):
     """Factory keyed by the reference mode strings (data/__init__.py:57-88),
-    for the eval modes."""
+    for the eval modes and `vimeo`."""
     mode = opt["mode"]
     if mode in WINDOW_MODES:
         videos = opt.get("videos")
@@ -172,8 +271,22 @@ def create_dataset(opt: dict):
                                          videos=opt.get("videos", GOPRO_VIDEOS),
                                          time=opt.get("time", 9),
                                          d_scale=opt.get("d_scale", 4.0))
+    if mode == "vimeo":
+        # the JAX package's default: no precomputed flows (a 2-anchor model
+        # computes its teacher flow live)
+        return Vimeo7Dataset(opt["dataroot_GT"], opt["dataroot_LQ"],
+                             keys=opt.get("cache_keys") or "sep_trainlist.txt",
+                             gt_size=opt.get("GT_size", 128),
+                             scale=opt.get("scale", 4),
+                             n_frames=opt.get("N_frames", 7),
+                             random_reverse=opt.get("random_reverse", True),
+                             use_flip=opt.get("use_flip", True),
+                             use_rot=opt.get("use_rot", True),
+                             load_flows=bool(opt.get("load_flows", False)),
+                             data_type=opt.get("data_type", "img"),
+                             phase=opt.get("phase", "train"))
     if mode in TRAINING_MODES:
         raise NotImplementedError(
-            f"dataset mode [{mode}] is a training mode; the port has the "
-            "eval modes only (ROADMAP.md §A.7)")
+            f"dataset mode [{mode}] is a training mode the port does not "
+            "have; it has the eval modes and vimeo (ROADMAP.md §A.7)")
     raise NotImplementedError(f"Dataset mode [{mode}] is not recognized.")

@@ -1,19 +1,22 @@
 """Host-side batching, the counterpart of motif_tpu/data/pipeline.py's
-`collate_stack` and `BatchLoader`: batches are collated on a background
-thread, a few ahead of the consumer, and an error raised while loading is
-raised again in the consumer.
+`collate_stack`, `BatchLoader` and `device_prefetch`: batches are collated
+on a background thread, a few ahead of the consumer, and an error raised
+while loading is raised again in the consumer; `device_prefetch` copies
+them to the card ahead of use.
 
-The training collate (`collate_adobe_arbitrary`), `Subset` and the copy to
-the device ahead of use are not ported (ROADMAP.md §A.6, §A.7).
+The training collate (`collate_adobe_arbitrary`) and `Subset` are not
+ported (ROADMAP.md §A.6, §A.7).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Iterator
+from collections import deque
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
+import torch
 
 
 def collate_stack(items: list[dict]) -> dict:
@@ -93,3 +96,30 @@ class BatchLoader:
         finally:
             stop.set()
             t.join()
+
+
+def device_prefetch(it: Iterable[dict], device=None,
+                    size: int = 2) -> Iterator[dict]:
+    """The batches of `it` with their numpy arrays on `device`, `size`
+    batches ahead of the consumer: each array goes through pinned host
+    memory and is copied with `non_blocking`, on the current stream (the
+    consumer's kernels wait for it there). On the CPU (`device` None or a
+    CPU device) the batches pass through as they are."""
+    dev = torch.device(device) if device is not None else None
+    if dev is None or dev.type != "cuda":
+        yield from it
+        return
+
+    def put(batch):
+        return {k: (torch.from_numpy(v).pin_memory().to(dev, non_blocking=True)
+                    if isinstance(v, np.ndarray) else v)
+                for k, v in batch.items()}
+
+    it = iter(it)
+    buf: deque = deque()
+    for batch in it:
+        buf.append(put(batch))
+        if len(buf) > size:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()

@@ -39,10 +39,16 @@ def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
     parameter's version counter, address and device, and is made anew when
     any of them changed: `load_state_dict` copies into the parameter in
     place, which raises its version, and a move to another device replaces
-    its storage."""
+    its storage. The copy carries no gradient, so under autograd a cast
+    of a parameter that requires grad raises instead of cutting it."""
     p = getattr(module, name)
     if p is None or p.dtype == dtype:
         return p
+    if torch.is_grad_enabled() and p.requires_grad:
+        raise NotImplementedError(
+            f"{name}: a {p.dtype} parameter cast to {dtype} under autograd "
+            "would be cut from its gradient; training runs in the "
+            "parameters' dtype (mixed-precision training: ROADMAP.md §A.4)")
     cache = module.__dict__.setdefault("_cast_cache", {})
     stamp = (p._version, p.data_ptr(), p.device)
     hit = cache.get((name, dtype))
@@ -61,7 +67,8 @@ def cached(module: nn.Module, key, params, make):
     cache = module.__dict__.setdefault("_derived_cache", {})
     hit = cache.get(key)
     if hit is None or hit[0] != stamp:
-        hit = (stamp, make())
+        with torch.inference_mode(False):   # an eval's copy serves training
+            hit = (stamp, make())
         cache[key] = hit
     return hit[1]
 

@@ -168,12 +168,14 @@ class MoTIF(nn.Module):
             self._alpha_sign = (stamp, bool(a.detach()[0].item() <= 0.0))
         return self._alpha_sign[1]
 
+    @torch.inference_mode(False)
     def _shape_tables(self, H, W, HH, WW, RH, RW, dtype, cdt, device):
         """What depends only on the shapes, built once per (shapes, dtypes,
         device) and kept on the device: the LIIF nearest indices and the
         relative coordinates (in the compute dtype), the anchor-position
         rows of the flow-context input and the flow rescale of a reduced
-        RAFT grid."""
+        RAFT grid. Made outside inference mode: tables first made by an eval
+        serve a training step too (autograd saves them)."""
         key = (H, W, HH, WW, RH, RW, dtype, cdt, device)
         hit = self._tables.get(key)
         if hit is None:
@@ -199,34 +201,15 @@ class MoTIF(nn.Module):
             self._tables[key] = hit
         return hit
 
-    def forward(self, x: torch.Tensor, target_t: torch.Tensor, out_hw,
-                iters: int = 12):
-        """x (B, N_in, H, W, 3) LR frames in [0, 1]; target_t (B, N) times in
-        [0, 1]; out_hw (HH, WW). Returns (frames (N, B, HH, WW, 3), flow
-        (2BN, HH, WW, 2) / 20 / (HH/H), the all-zero teacher flow likewise),
-        all in x's dtype."""
-        B, N_in, H, W, _ = x.shape
-        HH, WW = out_hw
-        N = target_t.shape[1]
-        ch = self.channel
+    def _motion(self, frames, tab, lr_hw, raft_hw, out_hw, iters, cd, cf):
+        """RAFT on the cross pairs only (the self-pair flows are exact
+        zeros) at `raft_hw`, the flows brought to LR, and the reliability
+        metrics psi_photo / psi_flow / psi_var: (flow (n²B, H, W, 2),
+        psies (n²B, H, W, 3))."""
         n = self.n_anchors
         n2 = n * n
-        c = N_in // 2
-        frames = [x[:, c - 1], x[:, c]]
-        # cd casts into the compute dtype, cf back to the input's; both
-        # are the identity without a compute dtype
-        cdt = self.compute_dtype
-        cd = (lambda a: a.to(cdt)) if cdt is not None else (lambda a: a)
-        cf = (lambda a: a.to(x.dtype)) if cdt is not None else (lambda a: a)
-
-        # ---- motion + reliability: RAFT on the cross pairs only; the
-        # self-pair flows are exact zeros ----
-        if self.raft_resolution != 1.0:
-            RH = max(64, int(round(HH * self.raft_resolution / 8.0)) * 8)
-            RW = max(64, int(round(WW * self.raft_resolution / 8.0)) * 8)
-        else:
-            RH, RW = HH, WW
-        tab = self._shape_tables(H, W, HH, WW, RH, RW, x.dtype, cdt, x.device)
+        B = frames[0].shape[0]
+        (H, W), (RH, RW), (HH, WW) = lr_hw, raft_hw, out_hw
         hr_frames = [interpolate_bilinear(f, (RH, RW)) for f in frames]
         pairs = [(i, j) for i in range(n) for j in range(n) if i != j]
         src = torch.cat([hr_frames[i] for i, _ in pairs], 0)
@@ -238,7 +221,7 @@ class MoTIF(nn.Module):
         else:
             fl = interpolate_bilinear(fl, (H, W)) * tab["flow_scale"]
         fl = fl.reshape(len(pairs), B, H, W, 2)
-        flow = x.new_zeros((n2, B, H, W, 2))
+        flow = fl.new_zeros((n2, B, H, W, 2))
         for k, (i, j) in enumerate(pairs):
             flow[i * n + j] = fl[k]
         flow = flow.reshape(n2 * B, H, W, 2)
@@ -255,8 +238,84 @@ class MoTIF(nn.Module):
         mean_sq = _gauss_blur_reflect(flow)
         psi_var = torch.sqrt(torch.clamp(sq_mean - mean_sq ** 2, min=1e-9)
                              ).mean(-1)
-        psies = torch.stack([psi_photo, psi_flow / 10.0, psi_var], dim=-1)
-        flow_gt = x.new_zeros((n * B * N, HH, WW, 2))
+        return flow, torch.stack([psi_photo, psi_flow / 10.0, psi_var],
+                                 dim=-1)
+
+    def _teacher(self, target_frames, N, out_hw, iters, cd, cf):
+        """The live RAFT teacher of training: the GT frames resized to 128²,
+        RAFT from the GT frame at each anchor position to each target GT
+        frame, resized to (HH, WW) and scaled by HH / 128. Returns
+        (nBN, HH, WW, 2), anchor-major."""
+        if target_frames is None:
+            raise ValueError("MoTIF: train=True needs target_frames")
+        n = self.n_anchors
+        HH, WW = out_hw
+        B, T = target_frames.shape[:2]
+        small = interpolate_bilinear(
+            target_frames.reshape(B * T, HH, WW, 3), (128, 128)
+        ).reshape(B, T, 128, 128, 3)
+        aidx = [int(round(p / self.positions[-1] * (T - 1)))
+                for p in self.positions]
+        anchors = torch.cat([
+            small[:, k][:, None].expand(B, N, 128, 128, 3).reshape(
+                B * N, 128, 128, 3) for k in aidx], 0)
+        targets = small[:, 1:-1].reshape(B * N, 128, 128, 3).repeat(
+            n, 1, 1, 1)
+        flow_gt = cf(self.flow_predictor(cd(anchors * 255.0),
+                                         cd(targets * 255.0), iters=iters))
+        return interpolate_bilinear(flow_gt, (HH, WW)) * (HH / 128.0)
+
+    def forward(self, x: torch.Tensor, target_t: torch.Tensor, out_hw,
+                use_gt: bool = False, iters: int = 12,
+                target_frames: torch.Tensor | None = None,
+                train: bool = False, flows=None):
+        """x (B, N_in, H, W, 3) LR frames in [0, 1]; target_t (B, N) times in
+        [0, 1]; out_hw (HH, WW). Returns (frames (N, B, HH, WW, 3), flow
+        (2BN, HH, WW, 2) / 20 / (HH/H), the teacher flow likewise), all in
+        x's dtype. With `train` the teacher flow is RAFT's from each anchor
+        GT frame to each target GT frame of `target_frames` (B, N+2, HH, WW,
+        3) at 128², else zeros; `use_gt` splats with the teacher flow in
+        place of the predicted one (teacher forcing)."""
+        if flows is not None:
+            raise NotImplementedError(
+                "MoTIF: precomputed flows (Ours_44 training) are not ported "
+                "(ROADMAP.md §A.8)")
+        if (self.compute_dtype is not None or self.splat_dtype is not None) \
+                and torch.is_grad_enabled() \
+                and any(p.requires_grad for p in self.parameters()):
+            raise NotImplementedError(
+                "MoTIF: compute_dtype / splat_dtype under autograd: the "
+                "bfloat16 and float16 entries have no backward; training "
+                "runs in the parameters' dtype (ROADMAP.md §A.4)")
+        B, N_in, H, W, _ = x.shape
+        HH, WW = out_hw
+        N = target_t.shape[1]
+        ch = self.channel
+        n = self.n_anchors
+        c = N_in // 2
+        frames = [x[:, c - 1], x[:, c]]
+        # cd casts into the compute dtype, cf back to the input's; both
+        # are the identity without a compute dtype
+        cdt = self.compute_dtype
+        cd = (lambda a: a.to(cdt)) if cdt is not None else (lambda a: a)
+        cf = (lambda a: a.to(x.dtype)) if cdt is not None else (lambda a: a)
+
+        if self.raft_resolution != 1.0:
+            RH = max(64, int(round(HH * self.raft_resolution / 8.0)) * 8)
+            RW = max(64, int(round(WW * self.raft_resolution / 8.0)) * 8)
+        else:
+            RH, RW = HH, WW
+        tab = self._shape_tables(H, W, HH, WW, RH, RW, x.dtype, cdt, x.device)
+        # motion, reliability and teacher take no gradient (the JAX
+        # package's stop_gradients)
+        with torch.no_grad():
+            flow, psies = self._motion(frames, tab, (H, W), (RH, RW), (HH, WW),
+                                       iters, cd, cf)
+            if train:
+                flow_gt = self._teacher(target_frames, N, (HH, WW), iters,
+                                        cd, cf)
+            else:
+                flow_gt = x.new_zeros((n * B * N, HH, WW, 2))
 
         # ---- encoder ----
         feat_t = self.encoder(cd(torch.stack(frames, 1)))    # (B, 3, H, W, ch)
@@ -321,7 +380,9 @@ class MoTIF(nn.Module):
             # the single-shift LIIF area weight is area / area == 1 exactly,
             # so the weighted sum of the JAX package is the identity here
 
-        # ---- HR flow / z / features and the splat, in the input's dtype --
+        # ---- HR flow / z / features and the splat, in the input's dtype;
+        # the payload's flow channels take no gradient (as in the JAX
+        # package) ----
         flow_raw = cf(q_flow_o)
         if self.fused_decode:
             # The synthesis net's first layer folded through the splat,
@@ -340,17 +401,20 @@ class MoTIF(nn.Module):
             w_t = ws[off + 3 + ch]
             pay = rep_n(torch.matmul(q_feat_o, w_a)
                         + up(torch.matmul(feat, w_b)))
-            feat_hr = cf(pay) + torch.matmul(flow_raw[..., :2],
+            feat_hr = cf(pay) + torch.matmul(flow_raw[..., :2].detach(),
                                              ws_raw[64:66])  # (nBN,HH,WW,64)
         else:
-            feat_hr = torch.cat([rep_n(cf(q_feat_o)), flow_raw[..., :2],
+            feat_hr = torch.cat([rep_n(cf(q_feat_o)),
+                                 flow_raw[..., :2].detach(),
                                  rep_n(cf(q_feat))], dim=-1)
         flow_hr = flow_raw[..., :2] * 20.0 * (HH / H)
         z = torch.relu(flow_raw[..., 2:3]) * self.alpha
+        # teacher forcing splats with the teacher flow
+        splat_flow = flow_gt if use_gt else flow_hr
         # z = relu(.) * alpha <= 0 whenever alpha <= 0: the max splat is then
         # identically 1 and is skipped
         output, warped_z, z_max, count = softsplat.splat_fused(
-            feat_hr, flow_hr, z, z_nonpositive=self._alpha_nonpositive(),
+            feat_hr, splat_flow, z, z_nonpositive=self._alpha_nonpositive(),
             scatter_dtype=self.splat_dtype)
 
         # ---- merge the two directions + extras ----

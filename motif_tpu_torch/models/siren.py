@@ -26,6 +26,12 @@ def hidden_bound(fan_in: int, omega0: float) -> float:
     return math.sqrt(6.0 / fan_in) / omega0
 
 
+def _pack_detached(lins, dtype):
+    with torch.no_grad():
+        return siren_kernel.pack([cast_param(m, "weight", dtype) for m in lins],
+                                 [cast_param(m, "bias", dtype) for m in lins])
+
+
 class SineLayer(nn.Module):
     """sin(omega0 * linear(x)): holds `linear` under the reference name;
     `Siren` evaluates it inside `siren_mlp`."""
@@ -88,14 +94,14 @@ class Siren(nn.Module):
         """The kernel's parameter buffer (`siren_kernel.pack`) in `dtype`,
         kept on the module as `cast_param` keeps its copies: stamped with
         every parameter's version counter, address and device, and made
-        anew when any of them changed (a `load_state_dict`, a move)."""
+        anew when any of them changed (a `load_state_dict`, a move, an
+        optimiser's in-place step). It carries no autograd history: the
+        kernel reads it, the gradients go to the parameters themselves."""
         lins = self._kernel_linears()
         return cached(
             self, ("packed", dtype),
             [p for m in lins for p in (m.weight, m.bias)],
-            lambda: siren_kernel.pack(
-                [cast_param(m, "weight", dtype) for m in lins],
-                [cast_param(m, "bias", dtype) for m in lins]))
+            lambda: _pack_detached(lins, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lins = self._kernel_linears()

@@ -28,6 +28,14 @@ Layouts: x (B, H, W, Cin) NHWC; offset (B, Ho, Wo, G*K*K*2) with layout
 (g, k, [y, x]) fastest-last; mask (B, Ho, Wo, G*K*K) layout (g, k);
 weight (Cout, Cin, K, K) as torch stores it; the im2col matrix
 (B*Ho*Wo, G*K*K*cg) with columns (g, k, c), c fastest.
+
+Gradients: `dcn_im2col` on tensors that require grad runs through an
+autograd Function whose forward is the kernel (the plain version on the
+CPU) and whose backward is `dcn_im2col_backward_plain`, plain PyTorch: the
+JAX package's `_sample_onehot_bwd` (motif_tpu/ops/dcn.py:147-177) in gather
+form, with its floor-corner convention for the position gradient. The
+weight and the bias take their gradients through `_contract`'s `addmm`.
+The bfloat16 entry has no backward: it raises under grad.
 """
 
 from __future__ import annotations
@@ -141,13 +149,105 @@ def _pixel_rows(t: torch.Tensor, align: int):
     return t, row
 
 
+def dcn_im2col_backward_plain(x: torch.Tensor, offset: torch.Tensor,
+                              mask: torch.Tensor, g_cols: torch.Tensor,
+                              K: int, stride: int, padding: int,
+                              dilation: int, G: int):
+    """The gradients (d x, d offset, d mask) of `dcn_im2col` given its
+    columns' gradient `g_cols` (B*Ho*Wo, G*K*K*cg), in at least float32 and
+    returned in the inputs' dtypes and shapes. With gv = g_cols * mask the
+    gradient of a sample and X_c its four corners (zero outside the image):
+      d mask = sample . g_cols,
+      d x    = the corners' bilinear weights times gv, added at the corners,
+      d py   = (1 - lx) gv.(X_SW - X_NW) + lx gv.(X_SE - X_NE),
+      d px   = (1 - ly) gv.(X_NE - X_NW) + ly gv.(X_SE - X_SW),
+    ly, lx the fractional parts of the position: the floor corner weighs
+    -1 and the ceil corner +1 in the position's gradient, at an integer
+    position too (the JAX package's `_hat_grad`)."""
+    B, H, W, Cin = x.shape
+    Ho, Wo = offset.shape[1], offset.shape[2]
+    KK, cg = K * K, Cin // G
+    Q = Ho * Wo * KK
+    acc = torch.promote_types(x.dtype, torch.float32)
+    py, px = sample_positions(offset.to(acc), K, stride, padding, dilation,
+                              G)                                # (B, G, Q)
+    gc = g_cols.to(acc).reshape(B, Ho, Wo, G, KK, cg)
+    m = mask.to(acc).reshape(B, Ho, Wo, G, KK, 1)
+    gv = (gc * m).permute(0, 3, 1, 2, 4, 5).reshape(B, G, Q, cg)
+    y0 = torch.floor(py)
+    x0 = torch.floor(px)
+    ly = py - y0
+    lx = px - x0
+    # the four corners NW, NE, SW, SE on a new axis 2: (B, G, 4, Q)
+    corner = torch.arange(4, device=x.device).view(1, 1, 4, 1)
+    dy, dx = corner // 2, corner % 2
+    iy = y0.long()[:, :, None] + dy
+    ix = x0.long()[:, :, None] + dx
+    sy = torch.where(dy == 1, ly[:, :, None], 1 - ly[:, :, None])
+    sx = torch.where(dx == 1, lx[:, :, None], 1 - lx[:, :, None])
+    valid = ((iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)).to(acc)
+    idx = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).reshape(
+        B, G, 4 * Q, 1).expand(-1, -1, -1, cg)
+    xg = x.to(acc).reshape(B, H * W, G, cg).permute(0, 2, 1, 3)  # (B,G,HW,cg)
+    xc = torch.gather(xg, 2, idx).view(B, G, 4, Q, cg) * valid[..., None]
+    t = (xc * gv[:, :, None]).sum(-1)                          # (B, G, 4, Q)
+    w = sy * sx * valid
+    val = (xc * w[..., None]).sum(2)                            # (B, G, Q, cg)
+    # d w / d ly is -sx on the floor row, +sx on the ceil row; likewise x
+    d_ly = (torch.where(dy == 1, sx, -sx) * t).sum(2)
+    d_lx = (torch.where(dx == 1, sy, -sy) * t).sum(2)
+    d_xg = torch.zeros_like(xg).scatter_add_(
+        2, idx, (gv[:, :, None] * w[..., None]).reshape(B, G, 4 * Q, cg))
+    d_mask = (val.reshape(B, G, Ho, Wo, KK, cg).permute(0, 2, 3, 1, 4, 5)
+              * gc).sum(-1).reshape(B, Ho, Wo, G * KK)
+    d_off = torch.stack([d_ly, d_lx], -1).reshape(B, G, Ho, Wo, KK, 2)
+    d_off = d_off.permute(0, 2, 3, 1, 4, 5).reshape(B, Ho, Wo, G * KK * 2)
+    d_x = d_xg.permute(0, 2, 1, 3).reshape(B, H, W, Cin)
+    return d_x.to(x.dtype), d_off.to(offset.dtype), d_mask.to(mask.dtype)
+
+
+class _DcnIm2col(torch.autograd.Function):
+    """dcn_im2col under autograd: the kernel forward,
+    `dcn_im2col_backward_plain` backward."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, K, stride, padding, dilation, G):
+        ctx.save_for_backward(x, offset, mask)
+        ctx.conv = (K, stride, padding, dilation, G)
+        return _im2col_forward(x, offset, mask, K, stride, padding,
+                               dilation, G)
+
+    @staticmethod
+    def backward(ctx, g_cols):
+        x, offset, mask = ctx.saved_tensors
+        with torch.profiler.record_function("dcn_im2col.backward"):
+            grads = dcn_im2col_backward_plain(x, offset, mask, g_cols,
+                                              *ctx.conv)
+        return (*grads, None, None, None, None, None)
+
+
 def dcn_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                K: int, stride: int, padding: int, dilation: int,
                G: int) -> torch.Tensor:
     """The deformable im2col matrix (B*Ho*Wo, G*K*K*cg), columns (g, k, c).
     On CPU tensors: the plain version; on CUDA tensors: the `dcn_im2col`
     kernel's float32 or bfloat16 entry, by the tensors' dtype. offset and
-    mask may be strided views."""
+    mask may be strided views. Under autograd (a tensor requires grad): the
+    same forward with `dcn_im2col_backward_plain` as its backward; bfloat16
+    raises."""
+    if kernels.needs_grad(x, offset, mask):
+        if torch.bfloat16 in (x.dtype, offset.dtype, mask.dtype):
+            raise NotImplementedError(
+                "dcn_im2col: the bfloat16 entry has no backward; training "
+                "runs in float32 (bfloat16 training: ROADMAP.md §A.4)")
+        return _DcnIm2col.apply(x, offset, mask, K, stride, padding,
+                                dilation, G)
+    return _im2col_forward(x, offset, mask, K, stride, padding, dilation, G)
+
+
+def _im2col_forward(x, offset, mask, K, stride, padding, dilation, G):
+    """The forward of `dcn_im2col`: the plain version on CPU tensors, the
+    kernel on CUDA tensors."""
     if x.device.type == "cpu":
         return dcn_im2col_plain(x, offset, mask, K, stride, padding,
                                 dilation, G)

@@ -147,6 +147,12 @@ def require_cuda(name: str, dtypes, *tensors: torch.Tensor) -> torch.dtype:
     return dtype
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these tensors: a wrapper then
+    runs its kernel inside an autograd Function with a plain backward."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def bfloat16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """How many bfloat16 values lie between a and b, elementwise (0 where
     they are bit-equal, 1 for neighbours): their bit patterns mapped to

@@ -45,10 +45,13 @@ def _matrix_on(in_size: int, out_size: int, align_corners: bool,
                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """`resize_matrix_linear` as a tensor of `dtype` on `device`, kept so
     that a forward (which resizes some hundred times, at a handful of
-    sizes) uploads each matrix once and not on every call. Read only."""
-    return torch.as_tensor(resize_matrix_linear(in_size, out_size,
-                                                align_corners),
-                           dtype=dtype, device=device)
+    sizes) uploads each matrix once and not on every call. Read only. Made
+    outside inference mode, so that a matrix first made by an eval serves
+    a training step too (autograd saves it)."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(resize_matrix_linear(in_size, out_size,
+                                                    align_corners),
+                               dtype=dtype, device=device)
 
 
 def interpolate_bilinear(img: torch.Tensor, out_hw,

@@ -17,6 +17,15 @@ to `F.linear` + `sin`. The bfloat16 entries contract on the tensor cores,
 which sum in another order than the plain version: they are held to it by
 accuracy against `siren_mlp_reference64` (`accuracy`, `layer_gate`,
 `mlp_gate`), not by equality.
+
+Gradients: `siren_mlp` on tensors that require grad runs through an
+autograd Function whose forward is the kernel (the plain version on the
+CPU) and whose backward is `siren_mlp_backward_plain`: autodiff of the
+composed plain form recomputed from the input, as the JAX package's
+`siren_fused` backward is (motif_tpu/ops/siren_kernel.py:117-125) and as its
+`nn.remat` decoders recompute. The weights and biases are inputs of the
+Function, so their gradients reach the parameters. The bfloat16 entries
+have no backward: they raise under grad.
 """
 
 from __future__ import annotations
@@ -196,6 +205,43 @@ def _check_chain(x, weights, biases, skip_first):
     return dims
 
 
+def siren_mlp_backward_plain(x: torch.Tensor, weights, biases,
+                             g: torch.Tensor, omega0: float = 30.0,
+                             sine_last: bool = False,
+                             skip_first: bool = False):
+    """The gradients (d x, d weights..., d biases...) of `siren_mlp` given
+    its output's gradient `g`: `siren_mlp_plain` recomputed from x under
+    autograd and differentiated."""
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_()
+        ws = [w.detach().requires_grad_() for w in weights]
+        bs = [b.detach().requires_grad_() for b in biases]
+        y = siren_mlp_plain(xs, ws, bs, omega0, sine_last, skip_first)
+        return torch.autograd.grad(y, [xs, *ws, *bs], g)
+
+
+class _SirenMlp(torch.autograd.Function):
+    """siren_mlp under autograd: the kernel forward,
+    `siren_mlp_backward_plain` backward."""
+
+    @staticmethod
+    def forward(ctx, x, packed, omega0, sine_last, skip_first, *params):
+        n = len(params) // 2
+        ctx.save_for_backward(x, *params)
+        ctx.conf = (omega0, sine_last, skip_first)
+        return _mlp_forward(x, params[:n], params[n:], omega0, sine_last,
+                            skip_first, packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        n = len(params) // 2
+        with torch.profiler.record_function("siren_mlp.backward"):
+            grads = siren_mlp_backward_plain(x, params[:n], params[n:], g,
+                                             *ctx.conf)
+        return (grads[0], None, None, None, None, *grads[1:])
+
+
 def siren_mlp(x: torch.Tensor, weights, biases, omega0: float = 30.0,
               sine_last: bool = False, skip_first: bool = False,
               packed: torch.Tensor | None = None) -> torch.Tensor:
@@ -204,7 +250,23 @@ def siren_mlp(x: torch.Tensor, weights, biases, omega0: float = 30.0,
     layers after the first). On CPU tensors: the plain version; on CUDA
     tensors: the `siren_mlp` kernel's float32 or bfloat16 entry, by the
     tensors' dtype. `packed` is `pack(weights, biases)` where the caller
-    keeps it; without it the parameters are packed on every call."""
+    keeps it; without it the parameters are packed on every call. Under
+    autograd (a tensor requires grad): the same forward with
+    `siren_mlp_backward_plain` as its backward; bfloat16 raises."""
+    if kernels.needs_grad(x, *weights, *biases):
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "siren_mlp: the bfloat16 entries have no backward; training "
+                "runs in float32 (bfloat16 training: ROADMAP.md §A.4)")
+        return _SirenMlp.apply(x, packed, float(omega0), bool(sine_last),
+                               bool(skip_first), *weights, *biases)
+    return _mlp_forward(x, weights, biases, omega0, sine_last, skip_first,
+                        packed)
+
+
+def _mlp_forward(x, weights, biases, omega0, sine_last, skip_first, packed):
+    """The forward of `siren_mlp`: the plain version on CPU tensors, the
+    kernel on CUDA tensors."""
     if x.device.type == "cpu":
         return siren_mlp_plain(x, weights, biases, omega0, sine_last,
                                skip_first)

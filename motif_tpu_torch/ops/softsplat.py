@@ -169,6 +169,77 @@ def plan(C: int, elem_size: int = 4) -> tuple[int, int]:
     return th, tw
 
 
+def splat_fused_backward_plain(img: torch.Tensor, flow: torch.Tensor,
+                               ez: torch.Tensor, g_out: torch.Tensor | None,
+                               g_norm: torch.Tensor | None):
+    """The gradients (d img, d flow, d z) of `splat_fused`'s out and norm
+    given theirs (`g_out` (B, H, W, C), `g_norm` (B, H, W, 1), either None
+    for zero), with ez = e^z. Gather form: each source pixel reads the
+    output gradient at its four corners (no scatter). With G_c the
+    gradient at corner c (zero where c is outside the image) and
+    a_c = e^z (img . G_c[:C] + g_norm_c):
+      d img = e^z sum_c w_c G_c,   d z = sum_c w_c a_c,
+      d fx = wy0 (a_NE - a_NW) + wy1 (a_SE - a_SW),
+      d fy = wx0 (a_SW - a_NW) + wx1 (a_SE - a_NE)."""
+    B, H, W, C = img.shape
+    n = B * H * W
+    gx, gy = pixel_grid(H, W, flow.device)
+    fx = gx + flow[..., 0]
+    fy = gy + flow[..., 1]
+    wx1 = (fx - torch.floor(fx)).reshape(n)
+    wy1 = (fy - torch.floor(fy)).reshape(n)
+    wx0 = 1.0 - wx1
+    wy0 = 1.0 - wy1
+    boff = (torch.arange(B, device=img.device) * H * W)[:, None, None]
+    img_f = img.reshape(n, C)
+    go = None if g_out is None else g_out.reshape(n, C)
+    gn = None if g_norm is None else g_norm.reshape(n)
+    d_pay = torch.zeros_like(img_f)            # sum_c w_c G_c
+    d_ez = torch.zeros(n, dtype=img.dtype, device=img.device)
+    a = []
+    for idx, w, valid in _corner_data(flow, H, W):
+        at = (idx + boff).reshape(n)
+        v = valid.reshape(n).to(img.dtype)
+        wv = w.reshape(n).to(img.dtype) * v
+        dot = torch.zeros_like(d_ez)
+        if go is not None:
+            g = go.index_select(0, at)
+            d_pay.addcmul_(g, wv[:, None])
+            dot = torch.einsum("pc,pc->p", img_f, g)
+        if gn is not None:
+            dot = dot + gn.index_select(0, at)
+        dot = dot * v
+        d_ez.addcmul_(dot, wv)
+        a.append(dot)
+    ezf = ez.reshape(n)
+    a = [ezf * t for t in a]
+    d_fx = wy0 * (a[1] - a[0]) + wy1 * (a[3] - a[2])
+    d_fy = wx0 * (a[2] - a[0]) + wx1 * (a[3] - a[1])
+    d_flow = torch.stack([d_fx, d_fy], -1).reshape(B, H, W, 2)
+    return ((d_pay * ezf[:, None]).reshape(B, H, W, C),
+            d_flow.to(flow.dtype), (d_ez * ezf).reshape(B, H, W, 1))
+
+
+class _SplatFused(torch.autograd.Function):
+    """splat_fused with float32 (or the inputs') sums under autograd: the
+    kernel forward, `splat_fused_backward_plain` backward."""
+
+    @staticmethod
+    def forward(ctx, img, flow, z, z_nonpositive):
+        outs = _splat_forward(img, flow, z, z_nonpositive, None)
+        ctx.save_for_backward(img, flow, z)
+        ctx.mark_non_differentiable(outs[2], outs[3])
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_out, g_norm, _g_max, _g_count):
+        img, flow, z = ctx.saved_tensors
+        with torch.profiler.record_function("splat_fused.backward"):
+            d_img, d_flow, d_z = splat_fused_backward_plain(
+                img, flow, torch.exp(z), g_out, g_norm)
+        return d_img, d_flow, d_z, None
+
+
 def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
                 z_nonpositive: bool, scatter_dtype=None):
     """Fused softmax splat + count splat, and the max splat unless
@@ -187,7 +258,22 @@ def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
     float32-sum or float16-sum entry (float32 tensors either way), which
     sums in an order that varies from run to run (the count and z_max are
     exact; float16 sums then differ by about 1e-3 relative).
+    Under autograd (a tensor requires grad): the same forward with
+    `splat_fused_backward_plain` as its backward; the float16 sums raise.
     """
+    if kernels.needs_grad(img, flow, z):
+        if _half(scatter_dtype, img):
+            raise NotImplementedError(
+                "splat_fused: the float16-sum entry has no backward; "
+                "training runs with float32 sums (bfloat16 / float16 "
+                "training: ROADMAP.md §A.4)")
+        return _SplatFused.apply(img, flow, z, z_nonpositive)
+    return _splat_forward(img, flow, z, z_nonpositive, scatter_dtype)
+
+
+def _splat_forward(img, flow, z, z_nonpositive, scatter_dtype):
+    """The forward of `splat_fused`: the plain version on CPU tensors, the
+    kernel on CUDA tensors."""
     if img.device.type == "cpu":
         return splat_fused_plain(img, flow, z, z_nonpositive, scatter_dtype)
     kernels.require_cuda("splat_fused", (torch.float32,), img, flow, z)

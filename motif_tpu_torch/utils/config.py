@@ -5,10 +5,10 @@ experiment-directory layout.
 
 The yml is read with `yaml.safe_load`; PyYAML is imported on first use.
 
-The trainer's settings (`trainer_config_from_opt` in the JAX package) are
-not ported: training is not. The JAX package reads an explicit
-`teacher_forcing_steps: 0` as 150000; the port decides that when it takes
-the trainer.
+`trainer_config_from_opt` reads the `train` section as the JAX package
+does, its quirk included: `teacher_forcing_steps: 0` (or absent) means
+150000, the reference's hard-coded decay, because the JAX package reads
+the value with `or`.
 """
 
 from __future__ import annotations
@@ -33,13 +33,26 @@ def _to_nonedict(obj: Any) -> Any:
     return obj
 
 
-def parse(opt_path: str, is_train: bool = True) -> NoneDict:
+def merge(opt: dict, overrides: dict) -> None:
+    """Nested update: a dict value updates the section it names."""
+    for k, v in overrides.items():
+        if isinstance(v, dict) and isinstance(opt.get(k), dict):
+            merge(opt[k], v)
+        else:
+            opt[k] = v
+
+
+def parse(opt_path: str, is_train: bool = True,
+          overrides: dict | None = None) -> NoneDict:
     """option.parse equivalent (option.py:9-68): load yml, infer per-dataset
-    phase/scale, set experiment directory layout."""
+    phase/scale, set experiment directory layout. `overrides` are merged
+    into the yml first (`merge`), so that the layout follows them."""
     import yaml
 
     with open(opt_path) as f:
         opt = yaml.safe_load(f)
+    if overrides:
+        merge(opt, overrides)
 
     opt["is_train"] = is_train
     scale = opt.get("scale", 4)
@@ -72,3 +85,39 @@ def parse(opt_path: str, is_train: bool = True) -> NoneDict:
         opt["path"].setdefault("log", results_root)
 
     return _to_nonedict(opt)
+
+
+def check_resume(opt: NoneDict, resume_iter: int) -> None:
+    """option.check_resume (option.py:102-117): point pretrain_model_G at
+    the checkpoint for the resumed iteration."""
+    if opt["path"].get("resume_state"):
+        opt["path"]["pretrain_model_G"] = osp.join(
+            opt["path"]["models"], f"{resume_iter}_G.pth")
+
+
+def trainer_config_from_opt(opt: NoneDict):
+    """A TrainerConfig from the reference `train` section; a missing (or
+    zero) value takes the JAX package's default."""
+    from motif_tpu_torch.trainer import TrainerConfig
+
+    t = opt.get("train") or {}
+    return TrainerConfig(
+        lr=float(t.get("lr_G") or 4e-4),
+        beta1=float(t.get("beta1") or 0.9),
+        beta2=float(t.get("beta2") or 0.99),
+        weight_decay=float(t.get("weight_decay_G") or 0.0),
+        pixel_criterion=t.get("pixel_criterion") or "cb",
+        pixel_weight=float(t.get("pixel_weight") or 1.0),
+        lr_scheme=t.get("lr_scheme") or "CosineAnnealingLR_Restart",
+        t_period=tuple(t.get("T_period") or (150000,) * 4),
+        restarts=tuple(t.get("restarts") or (150000, 300000, 450000)),
+        restart_weights=tuple(t.get("restart_weights") or (1, 1, 1)),
+        eta_min=float(t.get("eta_min") or 1e-7),
+        lr_steps=tuple(t.get("lr_steps") or ()),
+        lr_gamma=float(t.get("lr_gamma") or 0.5),
+        warmup_iter=int(t.get("warmup_iter") or -1),
+        # the reference hard-codes the 150k teacher-forcing decay
+        # (VideoSR_base_model.py:127-158); a short run sets its own, and
+        # 0 reads as 150000 (the JAX package's `or`)
+        teacher_forcing_steps=int(t.get("teacher_forcing_steps") or 150000),
+    )

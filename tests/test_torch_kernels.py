@@ -808,3 +808,186 @@ def test_evaluator_run_on_a_vid4_clip(dev):
     assert card["n_clips"] == 1 and all(np.isfinite(v) for v in card.values())
     _hold_summary(card, plain, RUN_GATES["plain"])
     _hold_summary(card, cpu, RUN_GATES["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# Training: each kernel's autograd Function (the kernel forward, a plain
+# backward) against autograd through its plain version, at the widths of
+# the training path; the float32 forwards differ from the plain versions by
+# a summation order at most, the backwards use the same inputs: 1e-5 of
+# each gradient's largest value.
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = 1e-5
+
+
+def _grad_close(got, want, what):
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    assert scale > 0 and err <= GRAD_TOL * scale, (what, err, scale)
+
+
+def _grads(fn, inputs, cotangents):
+    ts = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*ts)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o * c).sum() for o, c in zip(outs, cotangents))
+    return torch.autograd.grad(loss, ts)
+
+
+@pytest.mark.parametrize("z_nonpositive", [True, False])
+def test_splat_fused_backward(dev, z_nonpositive):
+    """C = 130 (the training splat) on 4 images of 128²."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, H, W, C = 4, 128, 128, 130
+    img = torch.randn((B, H, W, C), device=dev, generator=g)
+    flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
+    z = torch.randn((B, H, W, 1), device=dev, generator=g)
+    z = -z.abs() if z_nonpositive else z.abs()
+    cot = (torch.randn((B, H, W, C), device=dev, generator=g),
+           torch.randn((B, H, W, 1), device=dev, generator=g))
+    got, n = _launches("splat_fused", lambda: _grads(
+        lambda *a: softsplat.splat_fused(*a, z_nonpositive)[:2],
+        (img, flow, z), cot))
+    assert n == 1
+    want = _grads(lambda *a: softsplat.splat_fused_plain(*a, z_nonpositive)[:2],
+                  (img, flow, z), cot)
+    for what, a, b in zip(("img", "flow", "z"), got, want):
+        _grad_close(a, b, what)
+
+
+@pytest.mark.parametrize("offsets", [0.0, 2.0])
+def test_dcn_v2_backward(dev, offsets):
+    """The PCD's L1 at training size (8 frames of 32², G 8, cg 8), the
+    offsets and the mask strided views of one conv output."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, H, W, G, cg, K = 8, 32, 32, 8, 8, 3
+    x = torch.randn((B, H, W, G * cg), device=dev, generator=g)
+    com = torch.randn((B, H, W, G * K * K * 3), device=dev, generator=g) * offsets
+    w = torch.randn((64, G * cg, K, K), device=dev, generator=g) * 0.05
+    b = torch.randn((64,), device=dev, generator=g)
+    cot = (torch.randn((B, H, W, 64), device=dev, generator=g),)
+    n2 = G * K * K * 2
+
+    def run(op):
+        def f(xx, cc, ww, bb):
+            return op(xx, cc[..., :n2], torch.sigmoid(cc[..., n2:]), ww, bb,
+                      K, 1, 1, 1, G)
+        return f
+    got, n = _launches("dcn_im2col", lambda: _grads(run(dcn.dcn_v2),
+                                                    (x, com, w, b), cot))
+    assert n == 1
+    want = _grads(run(dcn.dcn_v2_plain), (x, com, w, b), cot)
+    for what, a, c in zip(("x", "offset|mask", "weight", "bias"), got, want):
+        _grad_close(a, c, what)
+
+
+@pytest.mark.parametrize("skip_first", [False, True])
+@pytest.mark.parametrize("dims", [(67, 64, 64, 256, 3), (66, 64, 64, 256, 64),
+                                  (198, 64, 64, 64, 256, 3)],
+                         ids=["stinf", "sinf", "synth"])
+def test_siren_mlp_backward(dev, dims, skip_first):
+    g = torch.Generator(device=dev).manual_seed(5)
+    dims = dims[1:] if skip_first else dims
+    ws = [(torch.rand((o, i), device=dev, generator=g) * 2 - 1)
+          * hidden_bound(i, 30.0) for i, o in zip(dims[:-1], dims[1:])]
+    bs = [torch.rand((o,), device=dev, generator=g) * 0.2 - 0.1
+          for o in dims[1:]]
+    x = torch.randn((3, 20000, dims[0]), device=dev, generator=g) * 0.3
+    cot = (torch.randn((3, 20000, dims[-1]), device=dev, generator=g),)
+    n = len(ws)
+
+    def run(op):
+        return lambda xx, *p: op(xx, list(p[:n]), list(p[n:]), 30.0, False,
+                                 skip_first)
+    got, launched = _launches("siren_mlp", lambda: _grads(
+        run(siren_kernel.siren_mlp), (x, *ws, *bs), cot))
+    assert launched == 1
+    want = _grads(run(siren_kernel.siren_mlp_plain), (x, *ws, *bs), cot)
+    for k, (a, c) in enumerate(zip(got, want)):
+        _grad_close(a, c, k)
+
+
+def test_lower_precision_entries_raise_under_grad(dev):
+    def t(shape, dtype=torch.float32):
+        return torch.rand(shape, device=dev, dtype=dtype, requires_grad=True)
+    before = dict(kernels.LAUNCHES)
+    bf = torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        softsplat.splat_fused(t((1, 8, 8, 64)), t((1, 8, 8, 2)),
+                              t((1, 8, 8, 1)), True,
+                              scatter_dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dcn.dcn_im2col(t((1, 8, 8, 64), bf), t((1, 8, 8, 144), bf),
+                       t((1, 8, 8, 72), bf), 3, 1, 1, 1, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        siren_kernel.siren_mlp(t((100, 64), bf), [t((64, 64), bf)],
+                               [t((64,), bf)], skip_first=True)
+    assert kernels.LAUNCHES == before
+    from motif_tpu_torch.models.motif import build_motif
+    m = build_motif(16, 1, 2, device=dev, compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m(torch.rand(1, 4, 16, 16, 3, device=dev),
+          torch.rand(1, 2, device=dev), (64, 64), iters=1)
+
+
+def test_siren_packed_follows_an_optimiser_step_on_the_card(dev):
+    """Adam's step on the card (foreach) moves the parameters' version
+    counters: the kernel's buffer is rebuilt and the next forward uses the
+    new weights."""
+    from motif_tpu_torch.models.siren import Siren
+
+    torch.manual_seed(0)
+    net = Siren(67, [64, 64, 256], 2, 3).to(dev)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+    x = torch.rand((4000, 67), device=dev)
+    net(x).square().sum().backward()
+    buf = net.packed(torch.float32)
+    opt.step()
+    assert net.packed(torch.float32) is not buf
+    with torch.no_grad():
+        got = net(x)
+        lins = net._kernel_linears()
+        want = siren_kernel.siren_mlp_plain(x, [m.weight for m in lins],
+                                            [m.bias for m in lins])
+    assert torch.equal(got, want)
+
+
+def test_trainer_step_matches_the_plain_versions(dev):
+    """Trainer.step at channel 16 (front 1 / back 2 blocks, LR 16² → HR
+    64², N 3, iters 2, DCN offsets perturbed), use_gt True and False, on
+    the card: the loss and every parameter's gradient against the same
+    step with the plain versions; every kernel launches."""
+    from motif_tpu_torch.models.motif import build_motif
+    from motif_tpu_torch.models.pcd import DCNSep
+    from motif_tpu_torch.trainer import Trainer, TrainerConfig
+
+    model = build_motif(16, 1, 2, device=dev, seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, DCNSep):
+                w, b = mod.conv_offset_mask.weight, mod.conv_offset_mask.bias
+                w.copy_(torch.randn(w.shape, generator=g) * 0.01)
+                b.copy_(torch.randn(b.shape, generator=g))
+    rng = np.random.default_rng(0)
+    batch = {"lq": rng.random((2, 4, 16, 16, 3), np.float32),
+             "gt": rng.random((2, 5, 64, 64, 3), np.float32),
+             "times": np.float32([[0.25, 0.5, 0.75]] * 2)}
+    tr = Trainer(model, TrainerConfig(teacher_forcing_steps=1), iters=2)
+    for use_gt in (True, False):
+        before = dict(kernels.LAUNCHES)
+        aux = tr.compute_grads(batch, use_gt)
+        grads = [p.grad.clone() for p in tr.params]
+        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        assert launched == {"splat_fused": 1, "dcn_im2col": 42,
+                            "siren_mlp": 3}
+        with _plain_versions():
+            plain = tr.compute_grads(batch, use_gt)
+        assert abs(float(aux["loss"]) - float(plain["loss"])) <= \
+            1e-5 * abs(float(plain["loss"]))
+        for (name, p), a in zip(model.named_parameters(), grads):
+            if float(p.grad.abs().max()) > 0:
+                _grad_close(a, p.grad, name)
+            else:
+                assert float(a.abs().max()) == 0.0, name

@@ -217,14 +217,14 @@ def test_splat_scatter_dtype_is_float16_or_the_inputs(rng):
         tsplat.splat_fused(img, flow, z, False, scatter_dtype=torch.bfloat16)
 
 
+@torch.no_grad()      # the serving path; under autograd a cast raises
 def test_cast_param_caches_and_follows_writes():
     conv = Conv2d(4, 4, 3, 1, 1)
     assert cast_param(conv, "weight", torch.float32) is conv.weight
     first = cast_param(conv, "weight", torch.bfloat16)
     assert first.dtype == torch.bfloat16
     assert cast_param(conv, "weight", torch.bfloat16) is first
-    with torch.no_grad():
-        conv.weight.copy_(torch.ones_like(conv.weight))   # what a load does
+    conv.weight.copy_(torch.ones_like(conv.weight))       # what a load does
     second = cast_param(conv, "weight", torch.bfloat16)
     assert second is not first and (second == 1).all()
     assert "_cast_cache" not in conv.state_dict()
@@ -232,6 +232,7 @@ def test_cast_param_caches_and_follows_writes():
     assert cast_param(nobias, "bias", torch.bfloat16) is None
 
 
+@torch.no_grad()      # the serving path; under autograd a cast raises
 def test_conv2d_bfloat16_input_gives_bfloat16():
     conv = Conv2d(4, 6, 3, 1, 1)
     x = torch.rand(1, 5, 5, 4)

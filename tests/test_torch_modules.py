@@ -24,6 +24,17 @@ from motif_tpu_torch.models.encoder import ZSMEncoder
 from motif_tpu_torch.models.pcd import BiDeformableConvLSTM, PCDAlign
 from motif_tpu_torch.models.raft import RAFT
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU forwards here are many small ops: one thread runs them
+    as fast and does not contend with the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-8
 NF = 16
 

@@ -22,6 +22,17 @@ from motif_tpu_torch import checkpoint as tckpt
 from motif_tpu_torch.eval import Evaluator
 from motif_tpu_torch.models.motif import MoTIF, build_motif
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU forwards here are many small ops: one thread runs them
+    as fast and does not contend with the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CH, FRONT, BACK = 16, 1, 2
 H = W = 16
 HH = WW = 64
