@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive motif_tpu_torch's serving forward and its training on one NVIDIA GPU.
+"""Drive motif_tpu_torch's serving, eval and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the smoke run
     python3 chip_smoke.py --profile DIR    # also write a torch.profiler
@@ -53,22 +53,39 @@ Phases, each fatal on failure:
      of four wrong kernel outputs planted, printing which the serving gate
      refuses: it must refuse the splat's targets half a pixel off;
   6. a {"kernels": [...]} line, the card line, and the result line, printed
-     last, after phase 7; each kernel row also carries its launches per
-     training step and its plain backward's device ms in one step;
-  7. training (run before phase 6's lines): the CLI (motif_tpu_torch.train
-     .main) on configs/train_smoke.yml with train_Ours_vimeo.yml's shapes
-     (Ours, nf 64, 5 + 40 blocks, iters 12, batch 8, GT 128 from LQ 32, 7
-     target times) on data/vimeo for 6 steps, the launch counters set to 0
-     before and read after (1 splat, 42 DCN im2cols, 3 SIRENs a step, all
-     float32 entries), teacher forcing decaying over 4 steps so that both
-     branches run, then a resume to step 8 from the saved state; a
-     Trainer's step split into forward, backward and optimiser, its peak
-     memory and HR frames/s; one profiled step with each plain backward's
-     device ms; a step held against the same step with the plain versions
-     (loss and every gradient, TRAIN_GATES) for use_gt True and False,
-     with the parameters upstream of each kernel checked for a non-zero
-     gradient, and a splat backward that drops the flow gradient planted,
-     which the gate must refuse.
+     last, after phases 7 and 8; each kernel row also carries its launches
+     on every path (requests, eval CLIs, training steps of both models)
+     and its plain backward's device ms in one two-anchor step;
+  7. training the two-anchor Ours (run before phase 6's lines): the CLI
+     (motif_tpu_torch.train.main) on configs/train_smoke.yml with the
+     shapes of the reference recipe train_Ours_vimeo.yml (nf 64, 5 + 40
+     blocks, iters 12, batch 8, GT 128 from LQ 32, 7 target times) but its
+     model swapped for Ours, whose teacher is RAFT live, on data/vimeo for
+     3 steps, the launch counters set to 0 before and read after (1
+     splat, 42 DCN im2cols, 3 SIRENs a step, all float32 entries), teacher
+     forcing decaying over 4 steps so that both branches run, then a
+     resume to step 4 from the saved state; a Trainer's step split into
+     forward, backward and optimiser, its peak memory and HR frames/s; one
+     profiled step with each plain backward's device ms; a step held
+     against the same step with the plain versions (loss and every
+     gradient, TRAIN_GATES) for use_gt True and False, with the parameters
+     upstream of each kernel checked for a non-zero gradient, and a splat
+     backward that drops the flow gradient planted, which the gate must
+     refuse;
+  8. the four-anchor Ours_44, the recipe's own model (before phase 6's
+     lines): requests (h) (fp32) and (i) (the serving knobs), 4 LQ frames
+     64x112 -> 256x448, 3 times one a forward with RAFT on the 12 cross
+     pairs, each counted alone, held against its plain versions, (i)
+     against (h), both timed in turns; the eval CLI over
+     configs/test_vimeo44.yml on a Vid4 clip in both configurations
+     against their plain versions (EVAL_GATES); data/vimeo copied into a
+     temporary directory, its flow files written by `python -m
+     motif_tpu_torch.precompute_flows` with the seeded Ours_44's RAFT, the
+     training CLI on the recipe's shapes for 3 steps and a resume, RAFT
+     counted (never run), a step by part, and the gradient gate for both
+     branches; the splat (224 images of 128², and its backward), the STINF
+     SIREN (3.67M tokens, and its backward) and the DCN im2col at the
+     shapes this path gives them.
 Exits non-zero without CUDA or without the package beside it.
 """
 
@@ -454,10 +471,14 @@ def time_dcn_v2(dev, dcn, dtype=torch.float32, level="L1"):
             "dcn_v2_eager_ms": cuda_ms(lambda: dcn.dcn_v2(*full))}
 
 
-def check_dcn(dev, dcn, kernels, dtype=torch.float32):
+DCN_SHAPES = {"L1": (2, 64, 112), "L2": (2, 32, 56), "L3": (2, 16, 28),
+              "H%8!=0": (2, 62, 110)}
+
+
+def check_dcn(dev, dcn, kernels, dtype=torch.float32, shapes=DCN_SHAPES):
     """L1 / L2 / L3 of the BiLSTM's PCD (B = 2, G = 8, cg = 8, K = 3),
-    offsets up to ±10 px, and one H % 8 != 0 height; the offsets a strided
-    view as on the main path. At L1 also the kernel with the L2 cold and
+    offsets up to ±10 px, and one H % 8 != 0 height (or the (B, H, W) of
+    `shapes`); the offsets a strided view as on the main path. At L1 also the kernel with the L2 cold and
     the whole dcn_v2 (kernel + addmm). float32: atol 1e-5. bfloat16: the
     kernel and the plain version do the same float32 arithmetic and round
     once, so 1 bfloat16 ulp of the largest column (a fused multiply-add
@@ -467,8 +488,7 @@ def check_dcn(dev, dcn, kernels, dtype=torch.float32):
     G, cg, K = 8, 8, 3
     esize = torch.empty((), dtype=dtype).element_size()
     worst, first = 0.0, None
-    for level, (B, H, W) in (("L1", (2, 64, 112)), ("L2", (2, 32, 56)),
-                             ("L3", (2, 16, 28)), ("H%8!=0", (2, 62, 110))):
+    for level, (B, H, W) in shapes.items():
         x, off, mask = dcn_inputs(dev, B, H, W, G, cg, K, dtype)
         args = (x, off, mask, K, 1, 1, 1, G)
         n0 = kernels.LAUNCHES["dcn_im2col"]
@@ -588,10 +608,10 @@ SIRENS = {  # name: (fan-in, hidden widths, out, tokens on the main path)
 
 
 def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
-                skip_first=False):
+                skip_first=False, mlps=SIRENS):
     """One entry of siren_mlp (element type; whole MLP or from the first
     layer's pre-activation) on the three MLPs at the main path's token
-    counts. float32: FMA and sinf, as the plain version with TF32 off:
+    counts (or those of `mlps`). float32: FMA and sinf, as the plain version with TF32 off:
     1e-5 (the outputs are about 0.05; TF32 products or a fast __sinf would
     miss it). bfloat16: the tensor cores sum in another order than the
     plain version, so the entry is held by accuracy (siren_kernel.mlp_gate:
@@ -603,7 +623,7 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
     products at the tensor cores' bf16 peak."""
     bf = dtype == torch.bfloat16
     worst, first = 0.0, None
-    for name, (cin, hidden, cout, n_tok) in SIRENS.items():
+    for name, (cin, hidden, cout, n_tok) in mlps.items():
         torch.manual_seed(3)
         m = Siren(cin, hidden, len(hidden) - 1, cout).to(dev)
         lins = m._linears()[1 if skip_first else 0:]
@@ -812,7 +832,8 @@ def hold_against(name, frames, ref, tol, min_psnr=None):
 def slice_vs_plain(ev, model, lq, times, name, tol, stats_rtol, mods):
     """One request against the same forward with the plain versions: the
     frames, the synthesis output before the clip (most frames clip with
-    random weights) and the flow statistics."""
+    random weights; every forward of the request) and the flow
+    statistics."""
     softsplat, dcn, siren_kernel, kernels = mods
     pre_clip = []
     hook = model.synth_net.register_forward_hook(
@@ -824,7 +845,8 @@ def slice_vs_plain(ev, model, lq, times, name, tol, stats_rtol, mods):
         if any(kernels.LAUNCHES.values()):
             raise AssertionError("the plain forward launched a kernel")
     hook.remove()
-    pre_k, pre_plain = pre_clip
+    half = len(pre_clip) // 2
+    pre_k, pre_plain = torch.cat(pre_clip[:half]), torch.cat(pre_clip[half:])
     err = float(np.abs(f_k - f_plain).max())
     err_pre = float((pre_k - pre_plain).abs().max())
     err_stats = max(abs(a - b) / abs(b) for a, b in zip(stats_k, stats_plain))
@@ -1109,35 +1131,38 @@ def clocked(ev_cls, fn):
     return out, clock
 
 
-def eval_ymls(tmp):
-    """test.yml as it is (the fp32 configuration) and test.yml with the
-    serving knobs in its network_G, written into `tmp`."""
-    with open(os.path.join(ROOT, "test.yml")) as f:
+def eval_ymls(tmp, src="test.yml", name="tmp"):
+    """An eval yml of the repository (`src`, whose `name:` is `name`) as it
+    is (the fp32 configuration) and with the serving knobs in its
+    network_G, written into `tmp`; and the two runs' names."""
+    with open(os.path.join(ROOT, src)) as f:
         text = f.read()
     knobs = "".join(f"  {k}: {str(v).lower() if isinstance(v, bool) else v}\n"
                     for k, v in {**SERVING, "decode_chunks": 1}.items())
-    serving = text.replace("name: tmp\n", "name: serving\n").replace(
+    served = f"{name}_serving"
+    serving = text.replace(f"name: {name}\n", f"name: {served}\n").replace(
         "network_G:\n", "network_G:\n" + knobs)
-    if serving.count("serving") != 1 or knobs not in serving:
-        raise AssertionError("test.yml has no `name: tmp` or `network_G:` "
+    if serving.count(served) != 1 or knobs not in serving:
+        raise AssertionError(f"{src} has no `name: {name}` or `network_G:` "
                              "line to put the serving knobs under")
-    paths = {"fp32": os.path.join(tmp, "test.yml"),
-             "serving": os.path.join(tmp, "serving.yml")}
-    for name, body in (("fp32", text), ("serving", serving)):
-        with open(paths[name], "w") as f:
+    stem = os.path.splitext(os.path.basename(src))[0]
+    paths = {"fp32": os.path.join(tmp, f"{stem}.yml"),
+             "serving": os.path.join(tmp, f"{stem}_serving.yml")}
+    for config, body in (("fp32", text), ("serving", serving)):
+        with open(paths[config], "w") as f:
             f.write(body)
-    return paths, {"fp32": "tmp", "serving": "serving"}
+    return paths, {"fp32": name, "serving": served}
 
 
-def reference_pth(dev, path):
-    """MoTIF at full width with build_request's weights (seed 0, DCN
-    offsets perturbed from seed 1), saved as the reference saves a
+def reference_pth(dev, path, n_anchors=2):
+    """MoTIF (`n_anchors`) at full width with build_request's weights (seed
+    0, DCN offsets perturbed from seed 1), saved as the reference saves a
     checkpoint: DataParallel's `module.` prefix, the fixed blur's
     `g_filter` and a {"state_dict": ...} wrapper."""
     from motif_tpu_torch.models.motif import build_motif
 
     model = build_motif(channel=64, front_rbs=5, back_rbs=40, device=dev,
-                        seed=0)
+                        seed=0, n_anchors=n_anchors)
     perturb_offsets(model, seed=1)
     sd = {f"module.{k}": v.detach().cpu()
           for k, v in model.state_dict().items()}
@@ -1145,10 +1170,10 @@ def reference_pth(dev, path):
     torch.save({"state_dict": sd}, path)
 
 
-def cli_run(tmp, yml, pth):
-    """`python -m motif_tpu_torch.test -opt yml --checkpoint pth` run in
-    `tmp` with the Vid4 dataroots as overrides: its summary and the clock
-    of its `infer` calls (with their frames)."""
+def cli_run(tmp, yml, pth, clips=4):
+    """`python -m motif_tpu_torch.test -opt yml --checkpoint pth
+    --max_clips clips` run in `tmp` with the Vid4 dataroots as overrides:
+    its summary and the clock of its `infer` calls (with their frames)."""
     from motif_tpu_torch import test as cli
     from motif_tpu_torch.eval import Evaluator
 
@@ -1156,7 +1181,7 @@ def cli_run(tmp, yml, pth):
     os.chdir(tmp)
     try:
         summary, clock = clocked(Evaluator, lambda: cli.main(
-            ["-opt", yml, "--checkpoint", pth],
+            ["-opt", yml, "--checkpoint", pth, "--max_clips", str(clips)],
             overrides={"dataroot_GT": os.path.join(VID4, "HR"),
                        "dataroot_LQ": os.path.join(VID4, "LR")}))
     finally:
@@ -1171,24 +1196,28 @@ def read_npys(tmp, stem):
                  for suffix in ("", "_ssim"))
 
 
-def eval_cli(tmp, config, yml, stem, pth, mods):
-    """The CLI over test.yml in one configuration, with the kernels (the
-    launch counters set to 0 just before and read just after) and with the
-    plain versions, held against each other."""
+def eval_cli(tmp, config, yml, stem, pth, mods, per_clip=None,
+             frames_shape=(3, 1, 64, 96, 3), clips=4):
+    """The CLI over an eval yml in one configuration on its first `clips`
+    clips, with the kernels (the launch counters set to 0 just before and
+    read just after) and with the plain versions, held against each other.
+    `per_clip`: what a clip must launch (one forward of
+    EVAL_ENTRIES[config] by default); the frames of each clip's `infer`
+    have `frames_shape`."""
     softsplat, dcn, siren_kernel, kernels = mods
     gate = EVAL_GATES[config]
     kernels.reset_launches()
-    summary, clock = cli_run(tmp, yml, pth)
+    summary, clock = cli_run(tmp, yml, pth, clips)
     launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
     psnrs, ssims = read_npys(tmp, stem)
     with plain_versions(softsplat, dcn, siren_kernel):
         kernels.reset_launches()
-        summary_p, clock_p = cli_run(tmp, yml, pth)
+        summary_p, clock_p = cli_run(tmp, yml, pth, clips)
         if any(kernels.LAUNCHES.values()):
             raise AssertionError("the plain CLI run launched a kernel")
     psnrs_p, ssims_p = read_npys(tmp, stem)
     n = summary["n_clips"]
-    want = {k: v * n for k, v in EVAL_ENTRIES[config].items()}
+    want = {k: v * n for k, v in (per_clip or EVAL_ENTRIES[config]).items()}
     frames_err = max(float(np.abs(a - b).max())
                      for a, b in zip(clock.frames, clock_p.frames))
     frames_db = min(psnr(a, b) for a, b in zip(clock.frames, clock_p.frames))
@@ -1206,7 +1235,7 @@ def eval_cli(tmp, config, yml, stem, pth, mods):
           "clip_infer_s_plain": clock_p.seconds()[0]})
     finite = all(np.isfinite(v) for s in (summary, summary_p)
                  for v in s.values())
-    if not (n == summary_p["n_clips"] == 4 and len(clock.frames) == 4
+    if not (n == summary_p["n_clips"] == clips and len(clock.frames) == clips
             and finite and np.isfinite(psnrs).all()
             and np.isfinite(ssims).all()):
         raise AssertionError(f"eval CLI ({config}): {n} clips, summaries "
@@ -1215,7 +1244,7 @@ def eval_cli(tmp, config, yml, stem, pth, mods):
         raise AssertionError(f"eval CLI ({config}) launched {entries} "
                              f"(wanted {want})")
     for frames in clock.frames:
-        check_frames(f"eval {config}", frames, (3, 1, 64, 96, 3))
+        check_frames(f"eval {config}", frames, frames_shape)
     hold_eval(f"eval CLI ({config}) kernels vs plain", gate, frames_err,
               frames_db, psnr_err, ssim_err)
     return entries, (clock_p.frames, psnrs_p, ssims_p)
@@ -1344,7 +1373,7 @@ def run_eval(dev, card, mods):
 # the float32 entries a training step runs: 1 splat, 42 DCNs, 3 SIRENs
 TRAIN_ENTRIES = {"splat_fused/float32/C=130": 1, "dcn_im2col/float32": 42,
                  "siren_mlp/float32/whole": 3}
-TRAIN_STEPS, RESUME_STEPS = 6, 2
+TRAIN_STEPS, RESUME_STEPS = 3, 1
 # a step of the kernels against the same step with the plain versions, TF32
 # off: the loss relative, each parameter's gradient relative to its
 # tensor's largest |g|. Readings on an H100 (one run): loss equal, gradients
@@ -1356,26 +1385,30 @@ BACKWARDS = {"splat_fused": "splat_fused.backward",
              "siren_mlp": "siren_mlp.backward"}
 
 
-def train_yml(tmp: str) -> str:
-    """configs/train_smoke.yml with train_Ours_vimeo.yml's shapes (Ours,
-    nf 64, setting 5, iters 12, batch 8, GT 128, 7 frames, 200 passes an
-    epoch) on the repository's data/vimeo, teacher forcing decaying over 4
-    steps so that both branches run, a log line a step and a save every 3
-    steps, under `tmp`."""
+def train_yml(tmp: str, which: str = "Ours", vimeo: str | None = None,
+              steps: int = TRAIN_STEPS) -> str:
+    """configs/train_smoke.yml with the shapes of the reference recipe
+    train_Ours_vimeo.yml (nf 64, setting 5, iters 12, batch 8, GT 128, 7
+    frames, 200 passes an epoch) for the model `which`: the recipe's own
+    Ours_44 (four anchors, on the precomputed flows under `vimeo`, which
+    the CLI loads by default for it) in phase 8, the two-anchor Ours (the
+    live RAFT teacher, on the repository's data/vimeo) in phase 7; teacher
+    forcing decaying over 4 steps so that both branches run, `steps`
+    steps, a log line a step and a save every 3 steps, under `tmp`."""
     import yaml
 
     with open(os.path.join(ROOT, "configs", "train_smoke.yml")) as f:
         opt = yaml.safe_load(f)
-    vimeo = os.path.join(ROOT, "data", "vimeo")
+    vimeo = vimeo or os.path.join(ROOT, "data", "vimeo")
     opt["dataset_ratio"] = 200
     opt["datasets"]["train"].update(
         dataroot_GT=os.path.join(vimeo, "GT"),
         dataroot_LQ=os.path.join(vimeo, "LR"),
         cache_keys=os.path.join(vimeo, "keys.txt"), N_frames=7,
         batch_size=8, GT_size=128)
-    opt["network_G"].update(which_model_G="Ours", nf=64, setting=5, iters=12)
+    opt["network_G"].update(which_model_G=which, nf=64, setting=5, iters=12)
     opt["path"] = {"root": tmp}
-    opt["train"].update(niter=TRAIN_STEPS, teacher_forcing_steps=4)
+    opt["train"].update(niter=steps, teacher_forcing_steps=4)
     opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 3}
     path = os.path.join(tmp, "train.yml")
     with open(path, "w") as f:
@@ -1493,19 +1526,128 @@ def profile_train_step(trainer, batch, out_dir, mods):
     return back, prof_stats
 
 
-def run_train(dev, card, args, mods):
-    """Training at full width: the CLI for TRAIN_STEPS steps and a resume,
-    with the launch counters read around them; a Trainer's step split by
-    part, peak memory and HR frames/s; one profiled step; the gradient gate
-    against the plain versions for both teacher-forcing branches, refusing
-    a splat backward that drops the flow gradient."""
-    import tempfile
-
+def train_cli(yml, opt, kernels, entries, card, tag, steps=None,
+              resume_steps=None):
+    """The training CLI on `yml` (its `niter` steps), the launch counters
+    set to 0 just before and read just after: `entries` a step and no
+    other entry; then a resume for `resume_steps` more. Returns the
+    launches per step of every entry."""
     from motif_tpu_torch import checkpoint, train
+
+    steps = steps or TRAIN_STEPS
+    resume_steps = resume_steps or RESUME_STEPS
+    models = opt["path"]["models"]
+    log_path = os.path.join(opt["path"]["experiments_root"], "train_log.jsonl")
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    train.main(["-opt", yml])
+    cli_s = time.perf_counter() - t1
+    launches = dict(kernels.ENTRY_LAUNCHES)
+    if checkpoint.latest_step(models) != steps:
+        raise AssertionError(f"{tag}: no final train state")
+    log = [json.loads(ln) for ln in open(log_path)]
+    if [ln["step"] for ln in log] != list(range(1, steps + 1)) or \
+            {ln["use_gt"] for ln in log} != {True, False} or \
+            not all(np.isfinite(ln["loss"]) for ln in log):
+        raise AssertionError(f"{tag}: log {log}")
+    per_step = {k: launches.get(k, 0) / steps for k in ENTRIES}
+    for entry, n in entries.items():
+        if per_step[entry] != n:
+            raise AssertionError(f"{tag}: {entry} launched {per_step[entry]} "
+                                 f"times a step, not {n}")
+    if sum(launches.values()) != steps * sum(entries.values()):
+        raise AssertionError(f"{tag}: other entries ran {launches}")
+    t1 = time.perf_counter()
+    train.main(["-opt", yml, "--max_steps", str(steps + resume_steps)])
+    resume_s = time.perf_counter() - t1
+    log2 = [json.loads(ln) for ln in open(log_path)]
+    if [ln["step"] for ln in log2[steps:]] != list(
+            range(steps + 1, steps + resume_steps + 1)) or \
+            checkpoint.latest_step(models) != steps + resume_steps:
+        raise AssertionError(f"{tag}: resume log {log2}")
+    emit({"phase": f"{tag}_cli", "card": card, "steps": steps,
+          "seconds": cli_s, "resume_steps": resume_steps,
+          "resume_seconds": resume_s,
+          "losses": [ln["loss"] for ln in log2],
+          "use_gt": [ln["use_gt"] for ln in log2],
+          "lr": [ln["lr"] for ln in log2],
+          "launches": launches, "launches_per_step": per_step})
+    return per_step
+
+
+def train_steps_by_part(dev, opt, card, tag, ds_extra=None):
+    """A Trainer on the yml's model and data: a warm-up step, then three
+    steps split into forward, backward and optimiser, their peak memory
+    and HR frames/s. Returns (trainer, model, the batch iterator)."""
     from motif_tpu_torch.data import BatchLoader, create_dataset, \
         device_prefetch
     from motif_tpu_torch.models.factory import define_g
     from motif_tpu_torch.trainer import Trainer
+    from motif_tpu_torch.utils import config as cfg
+
+    net = opt["network_G"]
+    model = define_g(net, device=dev)
+    ds_opt = {**opt["datasets"]["train"], **(ds_extra or {})}
+    B, N, gt = ds_opt["batch_size"], ds_opt["N_frames"], ds_opt["GT_size"]
+    loader = BatchLoader(create_dataset(ds_opt), batch_size=B,
+                         shuffle=True, seed=0,
+                         epoch_ratio=opt["dataset_ratio"])
+    batches = device_prefetch(loader.epoch(0), dev)
+    tr = Trainer(model, cfg.trainer_config_from_opt(opt), (gt, gt),
+                 iters=net["iters"], seed=0,
+                 family=net["which_model_G"])
+    tr.step(next(batches))                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    parts = [tr.step(next(batches), sync_times=True)["ms"]
+             for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = {k: float(np.median([p[k] for p in parts])) for k in parts[0]}
+    step_ms = sum(ms.values())
+    emit({"phase": f"{tag}_step", "card": card, "model":
+          net["which_model_G"], "batch": B, "times": N, "gt": gt,
+          "lq": gt // 4, "ms_median_of_3": ms, "step_ms": step_ms,
+          "ms_runs": parts, "peak_memory_gb": peak / 1e9,
+          "hr_frames_per_s": B * N / (step_ms / 1e3)})
+    return tr, model, batches
+
+
+def train_gates(tr, model, batch, mods, card, tag):
+    """A step of the kernels against the same step with the plain
+    versions, same weights and batch, for use_gt True and False (the loss
+    and every gradient, TRAIN_GATES), every kernel's upstream parameters
+    with a non-zero gradient. Returns the plain use_gt=False gradients."""
+    softsplat, dcn, siren_kernel, _ = mods
+    for use_gt in (True, False):
+        aux = tr.compute_grads(batch, use_gt)
+        got = [p.grad.clone() for p in tr.params]
+        nonzero = upstream_nonzero(model)
+        with plain_versions(softsplat, dcn, siren_kernel):
+            plain = tr.compute_grads(batch, use_gt)
+        want = [p.grad.clone() for p in tr.params]
+        gate = grad_gate(model, got, want, float(aux["loss"]),
+                         float(plain["loss"]))
+        emit({"phase": f"{tag}_gate", "use_gt": use_gt, "card": card,
+              "loss": float(aux["loss"]), "plain_loss": float(plain["loss"]),
+              "gates": TRAIN_GATES, "upstream_nonzero": nonzero, **gate})
+        if not gate["ok"]:
+            raise AssertionError(f"{tag}: the step with use_gt={use_gt} "
+                                 f"fails its gate {gate}")
+        if not all(nonzero.values()):
+            raise AssertionError(f"{tag}: a kernel cut the gradient "
+                                 f"{nonzero}")
+    return want, plain
+
+
+def run_train(dev, card, args, mods):
+    """Training of the two-anchor Ours at full width: the CLI for
+    TRAIN_STEPS steps and a resume, with the launch counters read around
+    them; a Trainer's step split by part, peak memory and HR frames/s; one
+    profiled step; the gradient gate against the plain versions for both
+    teacher-forcing branches, refusing a splat backward that drops the
+    flow gradient."""
+    import tempfile
+
     from motif_tpu_torch.utils import config as cfg
 
     softsplat, dcn, siren_kernel, kernels = mods
@@ -1514,96 +1656,20 @@ def run_train(dev, card, args, mods):
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         yml = train_yml(tmp)
         opt = cfg.parse(yml, is_train=True)
-        models = opt["path"]["models"]
         # ---- the main path: the CLI, counters from 0, then a resume ----
-        kernels.reset_launches()
-        t1 = time.perf_counter()
-        train.main(["-opt", yml])
-        cli_s = time.perf_counter() - t1
-        launches = dict(kernels.ENTRY_LAUNCHES)
-        if checkpoint.latest_step(models) != TRAIN_STEPS:
-            raise AssertionError("train: no final train state")
-        log = [json.loads(ln) for ln in open(os.path.join(
-            opt["path"]["experiments_root"], "train_log.jsonl"))]
-        if [ln["step"] for ln in log] != list(range(1, TRAIN_STEPS + 1)) or \
-                {ln["use_gt"] for ln in log} != {True, False} or \
-                not all(np.isfinite(ln["loss"]) for ln in log):
-            raise AssertionError(f"train: log {log}")
-        per_step = {k: launches.get(k, 0) / TRAIN_STEPS for k in ENTRIES}
-        for entry, n in TRAIN_ENTRIES.items():
-            if per_step[entry] != n:
-                raise AssertionError(f"train: {entry} launched "
-                                     f"{per_step[entry]} times a step, not {n}")
-        if sum(launches.values()) != TRAIN_STEPS * sum(TRAIN_ENTRIES.values()):
-            raise AssertionError(f"train: other entries ran {launches}")
-        t1 = time.perf_counter()
-        train.main(["-opt", yml, "--max_steps",
-                    str(TRAIN_STEPS + RESUME_STEPS)])
-        resume_s = time.perf_counter() - t1
-        log2 = [json.loads(ln) for ln in open(os.path.join(
-            opt["path"]["experiments_root"], "train_log.jsonl"))]
-        if [ln["step"] for ln in log2[TRAIN_STEPS:]] != list(
-                range(TRAIN_STEPS + 1, TRAIN_STEPS + RESUME_STEPS + 1)) or \
-                checkpoint.latest_step(models) != TRAIN_STEPS + RESUME_STEPS:
-            raise AssertionError(f"train: resume log {log2}")
-        emit({"phase": "train_cli", "card": card, "steps": TRAIN_STEPS,
-              "seconds": cli_s, "resume_steps": RESUME_STEPS,
-              "resume_seconds": resume_s,
-              "losses": [ln["loss"] for ln in log2],
-              "use_gt": [ln["use_gt"] for ln in log2],
-              "lr": [ln["lr"] for ln in log2],
-              "launches": launches, "launches_per_step": per_step})
+        per_step = train_cli(yml, opt, kernels, TRAIN_ENTRIES, card, "train")
 
-        # ---- a Trainer's step by part ----
-        model = define_g(opt["network_G"], device=dev)
-        ds_opt = dict(opt["datasets"]["train"])
-        B, N, gt = ds_opt["batch_size"], ds_opt["N_frames"], ds_opt["GT_size"]
-        loader = BatchLoader(create_dataset(ds_opt), batch_size=B,
-                             shuffle=True, seed=0,
-                             epoch_ratio=opt["dataset_ratio"])
-        batches = device_prefetch(loader.epoch(0), dev)
-        tr = Trainer(model, cfg.trainer_config_from_opt(opt), (gt, gt),
-                     iters=opt["network_G"]["iters"], seed=0)
-        tr.step(next(batches))                       # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        parts = [tr.step(next(batches), sync_times=True)["ms"]
-                 for _ in range(3)]
-        peak = torch.cuda.max_memory_allocated(dev)
-        ms = {k: float(np.median([p[k] for p in parts])) for k in parts[0]}
-        step_ms = sum(ms.values())
+        # ---- a Trainer's step by part, and one profiled step ----
+        tr, model, batches = train_steps_by_part(dev, opt, card, "train")
         back, prof_stats = profile_train_step(tr, next(batches),
                                               args.profile, mods)
-        emit({"phase": "train_step", "card": card, "batch": B, "times": N,
-              "gt": gt, "lq": gt // 4, "ms_median_of_3": ms, "step_ms": step_ms,
-              "ms_runs": parts, "peak_memory_gb": peak / 1e9,
-              "hr_frames_per_s": B * N / (step_ms / 1e3),
+        emit({"phase": "train_profile", "card": card,
               "plain_backward": back, "profiled_step": prof_stats})
 
-        # ---- the gradient gate: a step of the kernels against the same
-        # step with the plain versions, same weights and batch ----
+        # ---- the gradient gate, and a planted fault: a splat backward
+        # that drops the flow gradient ----
         batch = next(batches)
-        gates = {}
-        for use_gt in (True, False):
-            aux = tr.compute_grads(batch, use_gt)
-            got = [p.grad.clone() for p in tr.params]
-            nonzero = upstream_nonzero(model)
-            with plain_versions(softsplat, dcn, siren_kernel):
-                plain = tr.compute_grads(batch, use_gt)
-            want = [p.grad.clone() for p in tr.params]
-            gates[use_gt] = grad_gate(model, got, want, float(aux["loss"]),
-                                      float(plain["loss"]))
-            emit({"phase": "train_gate", "use_gt": use_gt, "card": card,
-                  "loss": float(aux["loss"]), "plain_loss":
-                  float(plain["loss"]), "gates": TRAIN_GATES,
-                  "upstream_nonzero": nonzero, **gates[use_gt]})
-            if not gates[use_gt]["ok"]:
-                raise AssertionError(f"train: the step with use_gt={use_gt} "
-                                     f"fails its gate {gates[use_gt]}")
-            if not all(nonzero.values()):
-                raise AssertionError(f"train: a kernel cut the gradient "
-                                     f"{nonzero}")
-        # planted: a splat backward that drops the flow gradient
+        want, plain = train_gates(tr, model, batch, mods, card, "train")
         with _drop_flow_grad(softsplat):
             aux = tr.compute_grads(batch, False)
         fault = grad_gate(model, [p.grad.clone() for p in tr.params], want,
@@ -1619,6 +1685,342 @@ def run_train(dev, card, args, mods):
     seconds = time.perf_counter() - t0
     emit({"phase": "train", "seconds": seconds})
     return per_step, back
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the four-anchor MoTIF (Ours_44)
+# ---------------------------------------------------------------------------
+
+FOUR = "Ours_44"
+TRAIN44_STEPS, RESUME44_STEPS = 3, 1
+# the eval CLI over configs/test_vimeo44.yml on its first Vid4 clip (7
+# one-time forwards)
+EVAL44_CLIPS = 1
+# training shapes of the recipe (batch 8, N 7, GT 128) for four anchors:
+# the splat over 4 * 8 * 7 = 224 images of 128², the STINF over as many
+# tokens; the DCNs of the PCD's L1 over the 3 frame pairs of 8 clips at
+# 32² and of a request's 3 pairs at 64x112
+SPLAT44 = (224, 128, 128, 130)
+STINF44 = {"stinf_train44": (67, [64, 64, 256], 3, 224 * 128 * 128)}
+DCN44 = {"train44_L1": (24, 32, 32), "request_h_L1": (3, 64, 112)}
+
+
+def per_forward(dcns: int, config: str) -> dict:
+    """What one four-anchor forward launches in a configuration: `dcns`
+    DCNs (read from request (h)'s counters), three SIRENs, one splat."""
+    if config == "fp32":
+        return {"dcn_im2col/float32": dcns, "siren_mlp/float32/whole": 3,
+                "splat_fused/float32/C=130": 1}
+    return {"dcn_im2col/bfloat16": dcns, "siren_mlp/bfloat16/skip_first": 3,
+            "splat_fused/float16/C=64": 1}
+
+
+def times_n(entries: dict, n: int) -> dict:
+    return {k: v * n for k, v in entries.items()}
+
+
+def build_request44(dev, **knobs):
+    """MoTIF(n_anchors=4) at full width with build_request's weights (seed
+    0, DCN offsets perturbed from seed 1) and its Evaluator (family
+    Ours_44: one time a forward)."""
+    from motif_tpu_torch.eval import Evaluator
+    from motif_tpu_torch.models.motif import build_motif
+
+    model = build_motif(channel=64, front_rbs=5, back_rbs=40, device=dev,
+                        seed=0, n_anchors=4, **knobs)
+    perturb_offsets(model, seed=1)
+    return model, Evaluator(model, scale=4, iters=4, family=FOUR, device=dev)
+
+
+def raft_counter(model):
+    """(the batch sizes of RAFT's forwards on `model`, its hook)."""
+    calls = []
+    hook = model.flow_predictor.register_forward_hook(
+        lambda mod, inp, out: calls.append(int(inp[0].shape[0])))
+    return calls, hook
+
+
+def run_requests44(dev, card, mods, profile=None):
+    """Requests (h) (fp32) and (i) (the serving knobs): four LQ frames of
+    64x112 -> 256x448, 3 times, iters 4, each time its own forward with
+    RAFT on the 12 cross pairs. Each counted alone; (i) against (h), each
+    against its plain versions; both timed in turns; profiled into the
+    directory `profile` when given. Returns the entries each launched and
+    the DCNs of one forward."""
+    softsplat, dcn, siren_kernel, kernels = mods
+    t0 = time.perf_counter()
+    model_h, ev_h = build_request44(dev)
+    model_i, ev_i = build_request44(dev, **SERVING)
+    lq = np.random.default_rng(0).random((1, 4, 64, 112, 3), dtype=np.float32)
+    t3 = np.linspace(0, 1, 3, dtype=np.float32)[None]
+    entries, rafts, frames = {}, {}, {}
+    for name, model, ev in (("h", model_h, ev_h), ("i", model_i, ev_i)):
+        calls, hook = raft_counter(model)
+        kernels.reset_launches()
+        frames[name], _ = ev.infer(lq, t3, (256, 448))
+        entries[name] = dict(kernels.ENTRY_LAUNCHES)
+        hook.remove()
+        rafts[name] = calls
+        check_frames(name, frames[name], (3, 1, 256, 448, 3))
+    dcns = entries["h"].get("dcn_im2col/float32", 0) // 3
+    want = {"h": times_n(per_forward(dcns, "fp32"), 3),
+            "i": times_n(per_forward(dcns, "serving"), 3)}
+    emit({"phase": "requests44", "model": FOUR, "entries": entries,
+          "dcn_per_forward": dcns, "raft_batches": rafts,
+          "seconds": time.perf_counter() - t0})
+    if entries != want or rafts != {"h": [12] * 3, "i": [12] * 3}:
+        raise AssertionError(f"requests (h), (i) launched {entries} (wanted "
+                             f"{want}), RAFT batches {rafts}")
+    hold_against("i", frames["i"], frames["h"], 6e-2, 35.0)
+    slice_vs_plain(ev_h, model_h, lq, t3, "h", 1e-5, 1e-5, mods)
+    slice_vs_plain(ev_i, model_i, lq, t3, "i", 6e-2, 1e-2, mods)
+    # the splat on the requests' own inputs: 4 images a forward
+    check_splat_request(softsplat, kernels,
+                        capture_splat(ev_h, softsplat, lq, t3), "h")
+    check_splat_request(softsplat, kernels,
+                        capture_splat(ev_i, softsplat, lq, t3), "i")
+
+    h1 = time_request(ev_h, lq, t3, 5)
+    i1 = time_request(ev_i, lq, t3, 5)
+    i2 = time_request(ev_i, lq, t3, 5)
+    h2 = time_request(ev_h, lq, t3, 5)
+    h_ms = float(np.median(h1 + h2))
+    for name, runs, knobs in (("h", h1 + h2, {}), ("i", i1 + i2, SERVING)):
+        ms = float(np.median(runs))
+        emit({"phase": f"request_{name}_time", "card": card, "model": FOUR,
+              "forward_ms_median": ms, "hr_frames_per_s": 3e3 / ms,
+              "forward_ms": runs, "request_h_forward_ms_median": h_ms,
+              "knobs": knobs, "launches_per_request": entries[name],
+              "note": "Evaluator.infer wall time incl. host copy-out, TF32 "
+                      "off, iters 4, LQ 4x64x112 -> HR 256x448, 3 times one "
+                      "a forward; timed in turns: h, i, i, h"})
+    if profile:
+        profile_request(ev_h, lq, t3, profile, "h")
+        profile_request(ev_i, lq, t3, profile, "i")
+    del model_h, model_i, ev_h, ev_i
+    torch.cuda.empty_cache()
+    return entries, dcns
+
+
+def run_eval44(dev, card, mods, dcns):
+    """The eval CLI over configs/test_vimeo44.yml (Vimeo_test_44 on the
+    first EVAL44_CLIPS data/Vid4 clips: the septuplet LQ 16x24 -> 7 times
+    at 64x96, one a forward) from a reference-format Ours_44 .pth, fp32
+    and with the serving knobs, each against its plain versions
+    (EVAL_GATES)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    entries = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        pth = os.path.join(tmp, "best44.pth")
+        reference_pth(dev, pth, n_anchors=4)
+        ymls, stems = eval_ymls(tmp, os.path.join("configs",
+                                                  "test_vimeo44.yml"),
+                                "vimeo44")
+        for config in ("fp32", "serving"):
+            entries[config], _ = eval_cli(
+                tmp, config, ymls[config], stems[config], pth, mods,
+                per_clip=times_n(per_forward(dcns, config), 7),
+                frames_shape=(7, 1, 64, 96, 3), clips=EVAL44_CLIPS)
+    emit({"phase": "eval44", "seconds": time.perf_counter() - t0})
+    return entries
+
+
+def run_train44(dev, card, mods, dcns, profile=None):
+    """Training of Ours_44 as the reference recipe does: data/vimeo copied
+    into a temporary directory, its flow files written there by `python -m
+    motif_tpu_torch.precompute_flows` with the RAFT of the smoke's seeded
+    Ours_44 (a reference-format .pth), then the CLI on
+    train_Ours_vimeo.yml's shapes for TRAIN44_STEPS steps and a resume,
+    RAFT counted (it must not run); a Trainer's step by part and one
+    profiled step (its table into the directory `profile` when given); the
+    gradient gate against the plain versions for both teacher-forcing
+    branches. Returns the launches per step and the plain backwards."""
+    import shutil
+    import tempfile
+
+    from motif_tpu_torch.models.raft import RAFT
+    from motif_tpu_torch.utils import config as cfg
+
+    kernels = mods[3]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        vimeo = shutil.copytree(os.path.join(ROOT, "data", "vimeo"),
+                                os.path.join(tmp, "vimeo"))
+        pth = os.path.join(tmp, "best44.pth")
+        reference_pth(dev, pth, n_anchors=4)
+        t1 = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        tool = subprocess.run(
+            [sys.executable, "-m", "motif_tpu_torch.precompute_flows",
+             "--gt_root", os.path.join(vimeo, "GT"),
+             "--lq_root", os.path.join(vimeo, "LR"),
+             "--keys", os.path.join(vimeo, "keys.txt"),
+             "--checkpoint", pth, "--iters", "12"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        if tool.returncode != 0:
+            raise AssertionError(f"precompute_flows failed: {tool.stderr}")
+        flows = {}
+        with open(os.path.join(vimeo, "keys.txt")) as f:
+            for key in (ln.strip() for ln in f if ln.strip()):
+                lr = np.load(os.path.join(vimeo, "LR", key, "lr_flow_12.npy"))
+                hr = np.load(os.path.join(vimeo, "GT", key, "hr_gt_flow.npy"))
+                if lr.shape != (16, 2, 32, 32) or hr.shape != (28, 2, 128, 128) \
+                        or not (np.isfinite(lr).all() and np.isfinite(hr).all()):
+                    raise AssertionError(f"flow files of {key}: {lr.shape}, "
+                                         f"{hr.shape}")
+                flows[key] = {"lr_abs_mean": float(np.abs(lr).mean()),
+                              "hr_abs_mean": float(np.abs(hr).mean())}
+        emit({"phase": "flow_tool", "card": card, "seconds":
+              time.perf_counter() - t1, "clips": flows,
+              "stdout": tool.stdout.strip().splitlines()})
+
+        raft_calls = []
+        forward = RAFT.forward
+
+        def counted(self, *a, **kw):
+            raft_calls.append(1)
+            return forward(self, *a, **kw)
+        yml = train_yml(tmp, FOUR, vimeo, TRAIN44_STEPS)
+        opt = cfg.parse(yml, is_train=True)
+        with mock.patch.object(RAFT, "forward", counted):
+            per_step = train_cli(yml, opt, kernels, per_forward(dcns, "fp32"),
+                                 card, "train44", TRAIN44_STEPS,
+                                 RESUME44_STEPS)
+            tr, model, batches = train_steps_by_part(
+                dev, opt, card, "train44", {"load_flows": True})
+            back, prof_stats = profile_train_step(
+                tr, next(batches), profile and os.path.join(profile,
+                                                            "ours44"), mods)
+            emit({"phase": "train44_profile", "card": card,
+                  "plain_backward": back, "profiled_step": prof_stats})
+            batch = next(batches)
+            shapes = {k: list(batch[k].shape) for k in ("flow", "flow_gt")}
+            train_gates(tr, model, batch, mods, card, "train44")
+        ds = opt["datasets"]["train"]
+        B, N, gt = ds["batch_size"], ds["N_frames"], ds["GT_size"]
+        want = {"flow": [B, 16, gt // 4, gt // 4, 2],
+                "flow_gt": [B, N, 4, gt, gt, 2]}
+        emit({"phase": "train44_raft", "raft_forwards": len(raft_calls),
+              "batch_flows": shapes})
+        if raft_calls or shapes != want:
+            raise AssertionError(f"train44: RAFT ran {len(raft_calls)} "
+                                 f"times, batch flows {shapes}")
+        batches.close()
+        del tr, model
+    torch.cuda.empty_cache()
+    emit({"phase": "train44", "seconds": time.perf_counter() - t0})
+    return per_step, back
+
+
+def grads_of(fn, inputs, cotangents):
+    """d(sum of outputs x cotangents) / d inputs, through fn."""
+    ts = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*ts)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o * c).sum() for o, c in zip(outs, cotangents))
+    return torch.autograd.grad(loss, ts)
+
+
+def hold_backward(name, fn, fn_plain, inputs, cotangents, card):
+    """An entry's autograd Function (the kernel forward, its plain
+    backward) against autograd through the plain version at a training
+    shape: each gradient within 1e-5 of its largest value (the card tests'
+    gate); the Function's forward + backward ms and peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = grads_of(fn, inputs, cotangents)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    want = grads_of(fn_plain, inputs, cotangents)
+    errs = [float((a.double() - b.double()).abs().max())
+            / float(b.double().abs().max()) for a, b in zip(got, want)]
+    del got, want
+    ms = cuda_ms(lambda: grads_of(fn, inputs, cotangents), reps=2, warmup=1)
+    emit({"check": f"{name}_backward", "card": card,
+          "shapes": [list(t.shape) for t in inputs], "grad_rel_errs": errs,
+          "tol": 1e-5, "forward_backward_ms": ms,
+          "peak_memory_gb": peak / 1e9})
+    if not max(errs) <= 1e-5:
+        raise AssertionError(f"{name} backward at {inputs[0].shape}: {errs}")
+
+
+def check_shapes44(dev, card, mods, Siren):
+    """Each entry the four-anchor path runs, at its shapes there: the
+    float32 splat over 224 images of 128² (C = 130) and its backward, the
+    float32 SIREN at the training step's STINF tokens and its backward,
+    the DCN im2col (float32, and bfloat16 for request (i)) over the PCD's
+    frame pairs."""
+    softsplat, dcn, siren_kernel, kernels = mods
+    B, H, W, C = SPLAT44
+    g = torch.Generator(device=dev).manual_seed(7)
+    img = torch.randn((B, H, W, C), device=dev, generator=g)
+    flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
+    z = -(torch.randn((B, H, W, 1), device=dev, generator=g) * 0.5).abs()
+    held = hold_splat(softsplat, kernels, img, flow, z, True)
+    b_ms, b_by = splat_bound(B, H, W, C, True)
+
+    def run():
+        return softsplat.splat_fused(img, flow, z, True)
+    ms = device_ms(run, reps=5)
+    emit({"check": "splat_fused", "sums": "float32", "case": "train44",
+          "shape": [B, H, W, C], "tile": list(softsplat.plan(C, 4)), **held,
+          "ms": ms, "eager_ms": cuda_ms(run, reps=5),
+          "plain_ms": device_ms(lambda: softsplat.splat_fused_plain(
+              img, flow, z, True), reps=2),
+          "bound_ms": b_ms, "bound_by": b_by, "fraction_of_bound": b_ms / ms,
+          "elements": B * H * W * C})
+    cot = (torch.randn((B, H, W, C), device=dev, generator=g),
+           torch.randn((B, H, W, 1), device=dev, generator=g))
+    hold_backward("splat_fused",
+                  lambda *a: softsplat.splat_fused(*a, True)[:2],
+                  lambda *a: softsplat.splat_fused_plain(*a, True)[:2],
+                  (img, flow, z), cot, card)
+    del img, flow, z, cot
+    torch.cuda.empty_cache()
+
+    check_siren(dev, siren_kernel, Siren, kernels, mlps=STINF44)
+    (cin, hidden, cout, n_tok), = STINF44.values()
+    torch.manual_seed(3)
+    net = Siren(cin, hidden, len(hidden) - 1, cout).to(dev)
+    lins = net._linears()
+    ws = [m.weight.detach() for m in lins]
+    bs = [m.bias.detach() for m in lins]
+    x = torch.rand((n_tok, cin), device=dev, generator=g) * 2.0 - 1.0
+    n = len(ws)
+    hold_backward("siren_mlp",
+                  lambda xx, *p: siren_kernel.siren_mlp(xx, p[:n], p[n:]),
+                  lambda xx, *p: siren_kernel.siren_mlp_plain(xx, p[:n],
+                                                              p[n:]),
+                  (x, *ws, *bs),
+                  (torch.randn((n_tok, cout), device=dev, generator=g),),
+                  card)
+    del x, net
+    torch.cuda.empty_cache()
+    check_dcn(dev, dcn, kernels, shapes=DCN44)
+    check_dcn(dev, dcn, kernels, torch.bfloat16,
+              {"request_i_L1": DCN44["request_h_L1"]})
+
+
+def run_four_anchor(dev, card, args, mods, Siren):
+    """Phase 8: requests (h) and (i), the test_vimeo44.yml CLI, training
+    on precomputed flows, and the entries at the new shapes. Returns the
+    launches of each entry on each of its paths and the plain backwards'
+    device ms in one Ours_44 step."""
+    t0 = time.perf_counter()
+    entries, dcns = run_requests44(dev, card, mods, args.profile)
+    eval_entries = run_eval44(dev, card, mods, dcns)
+    train_per_step, back = run_train44(dev, card, mods, dcns, args.profile)
+    check_shapes44(dev, card, mods, Siren)
+    emit({"phase": "four_anchor", "seconds": time.perf_counter() - t0})
+    return {"launches_request_h": entries["h"],
+            "launches_request_i": entries["i"],
+            "launches_eval_vimeo44": eval_entries,
+            "launches_train_step_ours44": train_per_step,
+            "plain_backward_ms_train_step_ours44": back}
 
 
 def profile_request(ev, lq, times, out_dir, name):
@@ -1857,6 +2259,8 @@ def main() -> int:
     eval_entries = run_eval(dev, card, (softsplat, dcn, siren_kernel, kernels))
     train_per_step, train_back = run_train(
         dev, card, args, (softsplat, dcn, siren_kernel, kernels))
+    four = run_four_anchor(dev, card, args,
+                           (softsplat, dcn, siren_kernel, kernels), Siren)
 
     meta = {
         "splat_fused": ("motif_tpu_torch/csrc/splat_fused.cu",
@@ -1886,6 +2290,16 @@ def main() -> int:
                "launches_eval": {c: e.get(entry, 0)
                                  for c, e in eval_entries.items()}}
         row["launches_train_step"] = train_per_step[entry]
+        row["launches_request_h"] = four["launches_request_h"].get(entry, 0)
+        row["launches_request_i"] = four["launches_request_i"].get(entry, 0)
+        row["launches_eval_vimeo44"] = {
+            c: e.get(entry, 0)
+            for c, e in four["launches_eval_vimeo44"].items()}
+        row["launches_train_step_ours44"] = \
+            four["launches_train_step_ours44"][entry]
+        row["plain_backward_ms_train_step_ours44"] = (
+            four["plain_backward_ms_train_step_ours44"][name]["device_ms"]
+            if entry in TRAIN_ENTRIES else None)
         row["plain_backward_ms_train_step"] = (
             train_back[name]["device_ms"] if entry in TRAIN_ENTRIES else None)
         row["plain_backward_event_ms_train_step"] = (

@@ -1,13 +1,16 @@
-"""motif_tpu_torch — the MoTIF inference forward in PyTorch, with
+"""motif_tpu_torch — MoTIF (the two-anchor Ours and the four-anchor
+Ours_44 / Ours_4) in PyTorch, served, evaluated and trained, with
 hand-written CUDA kernels for Hopper (sm_90a).
 
-It mirrors `motif_tpu`'s module layout (`models/`, `ops/`, `checkpoint.py`,
-`eval.py`) and is held against that package by the tests. It imports
-neither JAX nor `motif_tpu`. Public functions keep `motif_tpu`'s NHWC
-layout; convolutions run NCHW views of the same memory (channels_last).
+It mirrors `motif_tpu`'s module layout (`models/`, `ops/`, `data/`,
+`checkpoint.py`, `eval.py`, `trainer.py`) and is held against that package
+by the tests. It imports neither JAX nor `motif_tpu`. Public functions
+keep `motif_tpu`'s NHWC layout; convolutions run NCHW views of the same
+memory (channels_last).
 
-Entry points (`models.motif.build_motif`, `eval.Evaluator`) run on CUDA
-unless the caller passes ``device="cpu"``; without CUDA they raise. On CPU
+Entry points (`models.motif.build_motif`, `eval.Evaluator`, the CLIs
+`test`, `train` and `precompute_flows`) run on CUDA unless the caller
+passes ``device="cpu"``; without CUDA they raise. On CPU
 tensors each kernel wrapper runs its plain PyTorch version; on CUDA tensors
 it launches its kernel or raises.
 """

@@ -99,16 +99,15 @@ def load_flax_params(model: torch.nn.Module, params: Mapping) -> None:
 REFERENCE_ONLY_KEYS = ("g_filter", "num_batches_tracked", ".norm3.")
 
 
-def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load a reference-format `.pth` / `.pt` state dict into `model`.
+def reference_state_dict(path: str) -> dict:
+    """The state dict of a reference-format `.pth` / `.pt`, as the port's
+    modules name their parameters.
 
     The file is read on the CPU; a `state_dict` or `params` wrapper is
     unwrapped, DataParallel's `module.` prefix stripped and every key
-    holding one of `REFERENCE_ONLY_KEYS` dropped, then the rest loads with
-    strict=True: a missing or unexpected key raises and names itself. (The
-    JAX package merges a checkpoint over its init and keeps what the file
-    lacks.) An orbax directory, the JAX package's own format, raises
-    NotImplementedError (ROADMAP.md §A.5)."""
+    holding one of `REFERENCE_ONLY_KEYS` dropped. An orbax directory, the
+    JAX package's own format, raises NotImplementedError (ROADMAP.md
+    §A.5)."""
     if not path.endswith((".pth", ".pt")):
         kind = "an orbax checkpoint directory" if os.path.isdir(path) \
             else "not a .pth / .pt file"
@@ -125,7 +124,15 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
         key = key.removeprefix("module.")
         if not any(s in key for s in REFERENCE_ONLY_KEYS):
             out[key] = value
-    model.load_state_dict(out, strict=True)
+    return out
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Load a reference-format `.pth` / `.pt` (`reference_state_dict`) into
+    `model` with strict=True: a missing or unexpected key raises and names
+    itself. (The JAX package merges a checkpoint over its init and keeps
+    what the file lacks.)"""
+    model.load_state_dict(reference_state_dict(path), strict=True)
 
 
 def _step_path(ckpt_dir: str, step: int) -> str:

@@ -16,10 +16,12 @@ Windows follow Adobe_test* / Gopro_test (Adobe_test_3.py:88-109):
 
 The Vimeo septuplet training set (`vimeo`) follows Vimeo7_dataset.py:112-205
 as the JAX package does, with the same draws from `random.Random(seed)` in
-the same order: reverse, crop, hflip, vflip, rot90. Its precomputed flows
-(Ours_44, ROADMAP.md §A.8) and LMDB packs (§A.7) are not ported; the other
-training modes (Adobe, Adobe_4, Adobe_flow, Adobe_a, vimeo_a) raise
-(§A.7).
+the same order: reverse, crop, hflip, vflip, rot90; with `load_flows` it
+also reads the precomputed flows a four-anchor model trains on
+(`hr_gt_flow.npy`, `lr_flow_12.npy`; `python -m
+motif_tpu_torch.precompute_flows` writes them). Its LMDB packs (§A.7) are
+not ported; the other training modes (Adobe, Adobe_4, Adobe_flow, Adobe_a,
+vimeo_a) raise (§A.7).
 """
 
 from __future__ import annotations
@@ -83,6 +85,9 @@ class WindowEvalDataset:
     ref_num: int = 4
     gt_sampled_idx: Sequence[int] = (0, 0, 1, 2, 2)
     time_denom: float = 2.0
+    # the LQ frames are the GT window's frames at these indices instead of
+    # the window's inputs (`SEPTUPLET_LQ` for a four-anchor model)
+    lq_index: Sequence[int] | None = None
 
     def __post_init__(self):
         self.file_list: list[list[str]] = []
@@ -106,7 +111,9 @@ class WindowEvalDataset:
     def __getitem__(self, index: int) -> dict:
         idx = list(self.gt_sampled_idx)
         gt_paths = np.array([osp.join(self.gt_root, f) for f in self.gt_list[index]])[idx]
-        lq_paths = [osp.join(self.lq_root, f) for f in self.file_list[index]]
+        lq_files = self.file_list[index] if self.lq_index is None else \
+            [self.gt_list[index][i] for i in self.lq_index]
+        lq_paths = [osp.join(self.lq_root, f) for f in lq_files]
         lq = np.stack([read_img(p) for p in lq_paths], 0)
         gt = np.stack([read_img(p) for p in gt_paths], 0)
         times = np.asarray([i / self.time_denom for i in idx[1:-1]], np.float32)
@@ -145,6 +152,15 @@ class ArbitraryScaleTestDataset:
         return {"lq": lq, "gt": gt, "times": item["times"], "key": item["key"]}
 
 
+def load_keys(path: str) -> list[str]:
+    """Vimeo clip keys 'a_b' from a .pkl list or a .txt of 'a/b' lines."""
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    with open(path) as f:
+        return [ln.strip().replace("/", "_") for ln in f if ln.strip()]
+
+
 @dataclass
 class Vimeo7Dataset:
     """The Vimeo-90K septuplet training set (Vimeo7_dataset.py): GT frames
@@ -152,7 +168,14 @@ class Vimeo7Dataset:
     im1, im3, im5, im7; in the train phase a random reverse, a random crop
     and flip / transpose augmentation. Items:
     {'lq': (4, s, s, 3), 'gt': (9, GT_size, GT_size, 3), 'times': (7,),
-    'key': 'a_b'} with s = GT_size / scale."""
+    'key': 'a_b'} with s = GT_size / scale; with `load_flows` also
+    'flow' (16, s, s, 2), the LR anchor i → anchor j flows in i·4+j order,
+    and 'flow_gt' (7, 4, GT_size, GT_size, 2), the GT anchor → time flows,
+    read from each clip's `LR/<a>/<b>/lr_flow_12.npy` (16, 2, h, w) and
+    `GT/<a>/<b>/hr_gt_flow.npy` (28, 2, H, W), reversed, cropped and
+    augmented with the frames. The flips keep the reference's signs: an
+    hflip negates channel 1, a vflip channel 0, and the transpose swaps
+    the two channels."""
     gt_root: str
     lq_root: str
     keys: Sequence[str] | str = "sep_trainlist.txt"
@@ -168,10 +191,6 @@ class Vimeo7Dataset:
     seed: int | None = None
 
     def __post_init__(self):
-        if self.load_flows:
-            raise NotImplementedError(
-                "Vimeo7Dataset: precomputed flows (Ours_44 training) are not "
-                "ported (ROADMAP.md §A.8)")
         if self.data_type == "lmdb":
             raise NotImplementedError(
                 "Vimeo7Dataset: LMDB packs are not ported (ROADMAP.md §A.7)")
@@ -181,13 +200,7 @@ class Vimeo7Dataset:
             else:  # a bare file name: next to the GT root
                 path = osp.join(osp.dirname(self.gt_root.rstrip("/")),
                                 self.keys)
-            if path.endswith(".pkl"):
-                with open(path, "rb") as f:
-                    self.keys = pickle.load(f)
-            else:
-                with open(path) as f:
-                    self.keys = [ln.strip().replace("/", "_")
-                                 for ln in f if ln.strip()]
+            self.keys = load_keys(path)
         half = self.n_frames // 2
         self.lr_index_list = [i * 2 for i in range(1 + half)]  # 0, 2, 4, 6
         self._rng = random.Random(self.seed)
@@ -199,7 +212,9 @@ class Vimeo7Dataset:
         key = self.keys[index]
         name_a, name_b = key.split("_")
         neighbor = list(range(1, 8))
-        if self.random_reverse and self._rng.random() < 0.5:
+        # drawn whether or not it is used, as the JAX package draws it
+        reverse = self._rng.random() < 0.5 and self.random_reverse
+        if reverse:
             neighbor.reverse()
         gt_dir = osp.join(self.gt_root, name_a, name_b)
         lq_dir = osp.join(self.lq_root, name_a, name_b)
@@ -208,6 +223,19 @@ class Vimeo7Dataset:
         lqs = [read_img(osp.join(lq_dir, f"im{neighbor[i]}.png"))
                for i in self.lr_index_list]
         times = np.asarray([(v - 1) / 6.0 for v in neighbor], np.float32)
+        if self.load_flows:
+            # channel-first (K, 2, h, w) as the reference writes them
+            gt_flow = np.load(osp.join(gt_dir, "hr_gt_flow.npy")).astype(
+                np.float32)
+            lr_flow = np.load(osp.join(lq_dir, "lr_flow_12.npy")).astype(
+                np.float32)
+            if reverse:   # Vimeo7_dataset.py:159-162: times and anchors
+                _, _, h, w = gt_flow.shape
+                gt_flow = np.flip(np.flip(gt_flow.reshape(7, 4, 2, h, w), 0),
+                                  1).reshape(28, 2, h, w)
+                lr_flow = np.flip(np.flip(lr_flow.reshape(
+                    4, 4, 2, h // 4, w // 4), 0), 1).reshape(
+                        16, 2, h // 4, w // 4)
 
         if self.phase == "train":
             H, W = lqs[0].shape[:2]
@@ -218,6 +246,10 @@ class Vimeo7Dataset:
             rh4, rw4 = rh * self.scale, rw * self.scale
             gts = [v[rh4:rh4 + self.gt_size, rw4:rw4 + self.gt_size]
                    for v in gts]
+            if self.load_flows:
+                lr_flow = lr_flow[:, :, rh:rh + lq_size, rw:rw + lq_size]
+                gt_flow = gt_flow[:, :, rh4:rh4 + self.gt_size,
+                                  rw4:rw4 + self.gt_size]
             # flip / transpose augmentation (data/util.py:92-128)
             hflip = self.use_flip and self._rng.random() < 0.5
             vflip = self.use_rot and self._rng.random() < 0.5
@@ -232,10 +264,29 @@ class Vimeo7Dataset:
                     img = img.transpose(1, 0, 2)
                 return np.ascontiguousarray(img)
 
+            def aug_flow(fl):          # (K, 2, h, w), channels (x, y)
+                if hflip:
+                    fl = fl[:, :, :, ::-1]
+                    fl[:, 1] *= -1
+                if vflip:
+                    fl = fl[:, :, ::-1, :]
+                    fl[:, 0] *= -1
+                if rot90:
+                    fl = np.flip(fl.transpose(0, 1, 3, 2), 1)
+                return np.ascontiguousarray(fl)
+
             lqs = [aug(v) for v in lqs]
             gts = [aug(v) for v in gts]
-        return {"lq": np.stack(lqs, 0), "gt": np.stack(gts, 0),
-                "times": times, "key": key}
+            if self.load_flows:
+                lr_flow = aug_flow(lr_flow.copy())
+                gt_flow = aug_flow(gt_flow.copy())
+        out = {"lq": np.stack(lqs, 0), "gt": np.stack(gts, 0),
+               "times": times, "key": key}
+        if self.load_flows:
+            out["flow"] = lr_flow.transpose(0, 2, 3, 1)
+            g = gt_flow.transpose(0, 2, 3, 1)
+            out["flow_gt"] = g.reshape(7, 4, *g.shape[1:3], 2)
+        return out
 
 
 # window presets of the eval modes
@@ -251,11 +302,18 @@ WINDOW_MODES = {
     "Vimeo_test_44": dict(interval=5, gt_sampled_idx=[0, 0] + list(range(1, 7)) + [6],
                           time_denom=6.0),
 }
+# the LQ of a four-anchor model on a septuplet window (7 GT frames, times
+# i/6): its frames 0, 2, 4, 6, the Vimeo septuplet's im1, im3, im5, im7 at
+# the anchor positions, as Vimeo7Dataset reads them in training
+SEPTUPLET_LQ = (0, 2, 4, 6)
 
 
-def create_dataset(opt: dict):
+def create_dataset(opt: dict, lq_index: Sequence[int] | None = None):
     """Factory keyed by the reference mode strings (data/__init__.py:57-88),
-    for the eval modes and `vimeo`."""
+    for the eval modes and `vimeo`. `lq_index` (a window mode only) reads
+    the LQ frames at those indices of the GT window instead of the window's
+    inputs: test.py passes `SEPTUPLET_LQ` for a four-anchor model on
+    `Vimeo_test_44`."""
     mode = opt["mode"]
     if mode in WINDOW_MODES:
         videos = opt.get("videos")
@@ -265,6 +323,7 @@ def create_dataset(opt: dict):
                       else sorted(os.listdir(opt["dataroot_GT"])))
         return WindowEvalDataset(opt["dataroot_GT"], opt["dataroot_LQ"], videos,
                                  ref_num=opt.get("ref_num", 4),
+                                 lq_index=lq_index,
                                  **WINDOW_MODES[mode])
     if mode == "Gopro_test_a":
         return ArbitraryScaleTestDataset(opt["dataroot_GT"],
@@ -273,7 +332,8 @@ def create_dataset(opt: dict):
                                          d_scale=opt.get("d_scale", 4.0))
     if mode == "vimeo":
         # the JAX package's default: no precomputed flows (a 2-anchor model
-        # computes its teacher flow live)
+        # computes its teacher flow live; train.py turns them on for a
+        # four-anchor model)
         return Vimeo7Dataset(opt["dataroot_GT"], opt["dataroot_LQ"],
                              keys=opt.get("cache_keys") or "sep_trainlist.txt",
                              gt_size=opt.get("GT_size", 128),

@@ -1,13 +1,14 @@
-"""Evaluation harness, the counterpart of motif_tpu/eval.py for the `Ours`
-family: the reference test.py protocol. `infer` zero-pads the LQ to
-multiples of 4, forwards the target times in chunks of 3 (the last chunk
-padded by repeating its last time, then cropped), crops to `out_hw` and
-reports the flow statistics the reference logs (mean |flow - flow_GT| and
-mean |flow|). `run` scores every clip of a loader: L1, Y-channel PSNR split
-into anchor / inter / center, MATLAB SSIM, and the per-clip `.npy` files.
+"""Evaluation harness, the counterpart of motif_tpu/eval.py for the MoTIF
+families (`Ours` and the four-anchor Ours_44 / Ours_4): the reference
+test.py protocol. `infer` zero-pads the LQ to multiples of 4, forwards the
+target times in chunks (3 for Ours, 1 for the four-anchor pair; the last
+chunk padded by repeating its last time, then cropped), crops to `out_hw`
+and reports the flow statistics the reference logs (mean |flow - flow_GT|
+and mean |flow|). `run` scores every clip of a loader: L1, Y-channel PSNR
+split into anchor / inter / center, MATLAB SSIM, and the per-clip `.npy`
+files.
 
-The other families (the 4-anchor Ours_44 / Ours_4 and the baselines) are
-not ported yet and raise.
+The baselines are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from motif_tpu_torch import resolve_device
-from motif_tpu_torch.models.factory import unported
+from motif_tpu_torch.models.factory import FOUR_ANCHOR, unported
 from motif_tpu_torch.utils import metrics
 
 
@@ -78,7 +79,7 @@ class Evaluator:
     def __init__(self, model: torch.nn.Module, scale: int = 4, iters: int = 4,
                  chunk: int = 3, family: str = "Ours", device=None, **knobs):
         self.family, chunk = resolve_family(family, chunk)
-        if self.family != "Ours":
+        if self.family != "Ours" and self.family not in FOUR_ANCHOR:
             reason = unported(self.family) or f"[{self.family}] is not known"
             raise NotImplementedError(f"eval family {reason}")
         self.device = resolve_device(device)

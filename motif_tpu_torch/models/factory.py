@@ -1,17 +1,19 @@
 """Model factory, the counterpart of motif_tpu/models/factory.py: the
 reference networks.define_G dispatch from a yml's `network_G` section.
 
-The port builds the `Ours` family at `setting: 5` (two anchors). The other
-MoTIF variants (other settings, Ours_44 / Ours_4, Ours_7, Ours_flow) wait
-for ROADMAP.md §A.8 and the baselines (LIIF, ZSM, Zooming, TMNet, EDVR,
-Super_SloMo) for §A.9; each raises NotImplementedError.
+The port builds the `Ours` family (two anchors) and the four-anchor
+`Ours_44` / `Ours_4` at `setting: 5`. The other MoTIF variants (other
+settings, Ours_7, Ours_flow) wait for ROADMAP.md §A.8 and the baselines
+(LIIF, ZSM, Zooming, TMNet, EDVR, Super_SloMo) for §A.9; each raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 from motif_tpu_torch.models.motif import MoTIF, build_motif
 
-VARIANTS = ("Ours_44", "Ours_4", "Ours_7", "Ours_flow")
+VARIANTS = ("Ours_7", "Ours_flow")
+FOUR_ANCHOR = ("Ours_44", "Ours_4")
 BASELINES = ("LIIF", "ZSM", "Zooming", "TMNet", "EDVR", "Super_SloMo")
 
 # chunking behaviour per model family at eval time
@@ -29,9 +31,10 @@ def unported(which: str) -> str | None:
 
 
 def define_g(opt: dict, device=None) -> MoTIF:
-    """The `Ours` MoTIF of a `network_G` section, with random weights from
-    seed 0 (`build_motif`), on `device` (CUDA unless the caller names
-    another device).
+    """The MoTIF of a `network_G` section (four anchors for Ours_44 /
+    Ours_4, two for every other Ours_*), with random weights from seed 0
+    (`build_motif`), on `device` (CUDA unless the caller names another
+    device).
 
     As in the JAX package, the trunk has 5 front / 40 back residual blocks
     and the splat one channel group whatever `front_RBs`, `back_RBs` and
@@ -52,6 +55,7 @@ def define_g(opt: dict, device=None) -> MoTIF:
                                   "setting 5 only (ROADMAP.md §A.8)")
     return build_motif(
         channel=nf, device=device, seed=0,
+        n_anchors=4 if which in FOUR_ANCHOR else 2,
         fused_decode=bool(opt.get("fused_decode") or False),
         compute_dtype=opt.get("compute_dtype") or None,
         splat_dtype=opt.get("splat_dtype") or None,

@@ -1,16 +1,20 @@
 """MoTIF continuous space-time video super-resolution — the counterpart of
-motif_tpu/models/motif.py::MoTIF for the serving forward this port covers:
-setting=5, n_anchors=2 (the reference `Ours`), groups=1, inference only.
-With no knob given it runs the reference float-op order in the input's
-dtype; the serving knobs of the JAX package (`fused_decode`,
-`compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`) are
-taken under its names. `splat_method` has no counterpart (one splat
-kernel), nor has `fused_siren` (every SIREN runs through `siren_mlp`).
+motif_tpu/models/motif.py::MoTIF at setting=5, groups=1, for both anchor
+families: n_anchors=2 (the reference `Ours`: the two center frames anchor
+the flows) and n_anchors=4 (`Ours_44` / `Ours_4`: all four input frames
+anchor them, at positions 0, 2, 4, 6 of 6, and the residual is the
+encoder output at round(t·6) per target time). With no knob given it runs
+the reference float-op order in the input's dtype; the serving knobs of
+the JAX package (`fused_decode`, `compute_dtype`, `splat_dtype`,
+`raft_resolution`, `decode_chunks`) are taken under its names.
+`splat_method` has no counterpart (one splat kernel), nor has
+`fused_siren` (every SIREN runs through `siren_mlp`).
 
-Pipeline: RAFT-small on the two cross pairs of the two center frames at HR
-→ reliability metrics psi_photo / psi_flow / psi_var → ZSM encoder →
-flow-context convs → separable LIIF nearest takes → STINF / SINF SIRENs →
-softmax splat (CUDA kernel `splat_fused`) → synthesis SIREN → clip.
+Pipeline: RAFT-small on the n(n-1) cross pairs of the anchor frames at HR
+(or the precomputed LR flows of `flows=`) → reliability metrics psi_photo
+/ psi_flow / psi_var → ZSM encoder → flow-context convs → separable LIIF
+nearest takes → STINF / SINF SIRENs → softmax splat (CUDA kernel
+`splat_fused`) → synthesis SIREN → clip.
 
 Tensors are NHWC as in the JAX package: forward takes x (B, N_in, H, W, 3)
 and returns frames (N, B, HH, WW, 3).
@@ -70,12 +74,19 @@ def _gauss_blur_reflect(x: torch.Tensor) -> torch.Tensor:
     return xh[:, :-2] * k0 + xh[:, 1:-1] * k1 + xh[:, 2:] * k0
 
 
+# anchor time positions per family (Ours.py [0, 8] / 8; Ours_44.py
+# [0, 2, 4, 6] / 6): the last one divides the rsd rows
+POSITIONS = {2: (0.0, 8.0), 4: (0.0, 2.0, 4.0, 6.0)}
+
+
 class MoTIF(nn.Module):
-    """The MoTIF model, setting=5 with two anchors. Parameter names are the
-    reference torch names, so `load_state_dict(strict=True)` takes the
-    bridged JAX parameters (checkpoint.py). The parameters are float32 (or
-    what `.double()` makes them) whatever the knobs: one checkpoint loads
-    in every mode.
+    """The MoTIF model at setting=5 with `n_anchors` 2 or 4. Parameter
+    names are the reference torch names, so `load_state_dict(strict=True)`
+    takes the bridged JAX parameters (checkpoint.py); both families have
+    the same parameters (RAFT too, though a four-anchor model trained on
+    precomputed flows never runs it). The parameters are float32 (or what
+    `.double()` makes them) whatever the knobs: one checkpoint loads in
+    every mode. `positions` are the anchors' times (POSITIONS).
 
     Each SIREN runs whole through `siren_mlp`: the JAX package's
     fused_siren=True. The knobs, all off by default (the parity path):
@@ -95,15 +106,17 @@ class MoTIF(nn.Module):
     decode_chunks: the SIRENs decode the HR tokens in this many pieces.
     """
 
-    n_anchors = 2
-    positions = (0.0, 8.0)
-
     def __init__(self, channel: int = 64, front_rbs: int = 5,
                  back_rbs: int = 40, fused_decode: bool = False,
                  compute_dtype: str | None = None,
                  splat_dtype: str | None = None,
-                 raft_resolution: float = 1.0, decode_chunks: int = 1):
+                 raft_resolution: float = 1.0, decode_chunks: int = 1,
+                 n_anchors: int = 2):
         super().__init__()
+        if n_anchors not in POSITIONS:
+            raise ValueError(f"MoTIF: n_anchors={n_anchors}: 2 (Ours) or 4 "
+                             "(Ours_44 / Ours_4)")
+        self.n_anchors, self.positions = n_anchors, POSITIONS[n_anchors]
         ch = self.channel = channel
         n = self.n_anchors
         self.flow_predictor = RAFT()
@@ -201,30 +214,35 @@ class MoTIF(nn.Module):
             self._tables[key] = hit
         return hit
 
-    def _motion(self, frames, tab, lr_hw, raft_hw, out_hw, iters, cd, cf):
+    def _motion(self, frames, tab, lr_hw, raft_hw, out_hw, iters, cd, cf,
+                lr_flow=None):
         """RAFT on the cross pairs only (the self-pair flows are exact
-        zeros) at `raft_hw`, the flows brought to LR, and the reliability
+        zeros) at `raft_hw`, the flows brought to LR, or the precomputed
+        `lr_flow` (B, n², H, W, 2) without RAFT; then the reliability
         metrics psi_photo / psi_flow / psi_var: (flow (n²B, H, W, 2),
         psies (n²B, H, W, 3))."""
         n = self.n_anchors
         n2 = n * n
         B = frames[0].shape[0]
         (H, W), (RH, RW), (HH, WW) = lr_hw, raft_hw, out_hw
-        hr_frames = [interpolate_bilinear(f, (RH, RW)) for f in frames]
-        pairs = [(i, j) for i in range(n) for j in range(n) if i != j]
-        src = torch.cat([hr_frames[i] for i, _ in pairs], 0)
-        dst = torch.cat([hr_frames[j] for _, j in pairs], 0)
-        fl = cf(self.flow_predictor(cd(src * 255.0), cd(dst * 255.0),
-                                    iters=iters))
-        if (RH, RW) == (HH, WW):
-            fl = interpolate_bilinear(fl, (H, W)) * (H / HH)
+        if lr_flow is not None:
+            flow = lr_flow.transpose(0, 1).reshape(n2 * B, H, W, 2)
         else:
-            fl = interpolate_bilinear(fl, (H, W)) * tab["flow_scale"]
-        fl = fl.reshape(len(pairs), B, H, W, 2)
-        flow = fl.new_zeros((n2, B, H, W, 2))
-        for k, (i, j) in enumerate(pairs):
-            flow[i * n + j] = fl[k]
-        flow = flow.reshape(n2 * B, H, W, 2)
+            hr_frames = [interpolate_bilinear(f, (RH, RW)) for f in frames]
+            pairs = [(i, j) for i in range(n) for j in range(n) if i != j]
+            src = torch.cat([hr_frames[i] for i, _ in pairs], 0)
+            dst = torch.cat([hr_frames[j] for _, j in pairs], 0)
+            fl = cf(self.flow_predictor(cd(src * 255.0), cd(dst * 255.0),
+                                        iters=iters))
+            if (RH, RW) == (HH, WW):
+                fl = interpolate_bilinear(fl, (H, W)) * (H / HH)
+            else:
+                fl = interpolate_bilinear(fl, (H, W)) * tab["flow_scale"]
+            fl = fl.reshape(len(pairs), B, H, W, 2)
+            flow = fl.new_zeros((n2, B, H, W, 2))
+            for k, (i, j) in enumerate(pairs):
+                flow[i * n + j] = fl[k]
+            flow = flow.reshape(n2 * B, H, W, 2)
 
         tgt = torch.cat([frames[j] for _ in range(n) for j in range(n)], 0)
         srclr = torch.cat([frames[i] for i in range(n) for _ in range(n)], 0)
@@ -269,17 +287,18 @@ class MoTIF(nn.Module):
                 use_gt: bool = False, iters: int = 12,
                 target_frames: torch.Tensor | None = None,
                 train: bool = False, flows=None):
-        """x (B, N_in, H, W, 3) LR frames in [0, 1]; target_t (B, N) times in
-        [0, 1]; out_hw (HH, WW). Returns (frames (N, B, HH, WW, 3), flow
-        (2BN, HH, WW, 2) / 20 / (HH/H), the teacher flow likewise), all in
-        x's dtype. With `train` the teacher flow is RAFT's from each anchor
-        GT frame to each target GT frame of `target_frames` (B, N+2, HH, WW,
-        3) at 128², else zeros; `use_gt` splats with the teacher flow in
-        place of the predicted one (teacher forcing)."""
-        if flows is not None:
-            raise NotImplementedError(
-                "MoTIF: precomputed flows (Ours_44 training) are not ported "
-                "(ROADMAP.md §A.8)")
+        """x (B, N_in, H, W, 3) LR frames in [0, 1] (N_in = 4 for four
+        anchors); target_t (B, N) times in [0, 1]; out_hw (HH, WW). Returns
+        (frames (N, B, HH, WW, 3), flow (nBN, HH, WW, 2) / 20 / (HH/H), the
+        teacher flow likewise), in x's dtype. The teacher flow is
+        `flows[1]` when given, else with `train` RAFT's from each anchor GT
+        frame to each target GT frame of `target_frames` (B, N+2, HH, WW,
+        3) at 128², else zeros; `use_gt` splats with it in place of the
+        predicted flow (teacher forcing). `flows` = (lr_flow (B, n², H, W,
+        2) in i·n+j order, flow_gt (B, N, n, HH, WW, 2)), either None: the
+        dataset's precomputed flows, which replace RAFT's (RAFT does not run
+        when both are given, or lr_flow is and `train` is off) and take no
+        gradient."""
         if (self.compute_dtype is not None or self.splat_dtype is not None) \
                 and torch.is_grad_enabled() \
                 and any(p.requires_grad for p in self.parameters()):
@@ -292,8 +311,15 @@ class MoTIF(nn.Module):
         N = target_t.shape[1]
         ch = self.channel
         n = self.n_anchors
-        c = N_in // 2
-        frames = [x[:, c - 1], x[:, c]]
+        if n == 2:
+            c = N_in // 2
+            frames = [x[:, c - 1], x[:, c]]
+        elif N_in == 4:
+            frames = [x[:, i] for i in range(4)]
+        else:
+            raise ValueError(f"MoTIF: four anchors take 4 input frames, not "
+                             f"{N_in}")
+        lr_flow, flow_gt = flows if flows is not None else (None, None)
         # cd casts into the compute dtype, cf back to the input's; both
         # are the identity without a compute dtype
         cdt = self.compute_dtype
@@ -310,17 +336,26 @@ class MoTIF(nn.Module):
         # package's stop_gradients)
         with torch.no_grad():
             flow, psies = self._motion(frames, tab, (H, W), (RH, RW), (HH, WW),
-                                       iters, cd, cf)
-            if train:
+                                       iters, cd, cf, lr_flow)
+            if flow_gt is not None:       # (B, N, n, HH, WW, 2), anchor-major
+                flow_gt = flow_gt.permute(2, 0, 1, 3, 4, 5).reshape(
+                    n * B * N, HH, WW, 2)
+            elif train:
                 flow_gt = self._teacher(target_frames, N, (HH, WW), iters,
                                         cd, cf)
             else:
                 flow_gt = x.new_zeros((n * B * N, HH, WW, 2))
 
-        # ---- encoder ----
-        feat_t = self.encoder(cd(torch.stack(frames, 1)))    # (B, 3, H, W, ch)
-        residual_bn = feat_t[:, feat_t.shape[1] // 2][:, None].expand(
-            B, N, H, W, ch).reshape(B * N, H, W, ch)
+        # ---- encoder: 2n - 1 fused frames ----
+        feat_t = self.encoder(cd(torch.stack(frames, 1)))  # (B, 2n-1, H, W, ch)
+        if n == 2:       # the middle fused frame for every time
+            residual = feat_t[:, feat_t.shape[1] // 2][:, None].expand(
+                B, N, H, W, ch)
+        else:            # the fused frame at round(t·6) per time (Ours_44.py)
+            idx = torch.round(target_t * 6.0).long().clamp(
+                0, feat_t.shape[1] - 1)
+            residual = feat_t[torch.arange(B, device=x.device)[:, None], idx]
+        residual_bn = residual.reshape(B * N, H, W, ch)
         feat = torch.cat([feat_t[:, 2 * i] for i in range(n)], 0)  # (nB,H,W,ch)
 
         # ---- flow-context encoder: per source frame i, the targets j of
@@ -417,7 +452,7 @@ class MoTIF(nn.Module):
             feat_hr, splat_flow, z, z_nonpositive=self._alpha_nonpositive(),
             scatter_dtype=self.splat_dtype)
 
-        # ---- merge the two directions + extras ----
+        # ---- merge the n directions + extras ----
         Cf = output.shape[-1]
         output = output.reshape(n, B * N, HH, WW, Cf).sum(0)
         warped_z = warped_z.reshape(n, B * N, HH, WW, 1).sum(0)
@@ -470,17 +505,20 @@ def _dtype(knob: str, name, allowed):
 
 
 def build_motif(channel: int = 64, front_rbs: int = 5, back_rbs: int = 40,
-                device=None, seed: int = 0, **knobs) -> MoTIF:
-    """A MoTIF with float32 random weights from `seed`, in eval mode, on
-    `device` (CUDA unless the caller passes another device; raises without
-    CUDA). `knobs` are MoTIF's serving knobs by name (`fused_decode`,
-    `compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`);
-    the weights do not depend on them. On CUDA the conv weights take the
-    channels_last memory format."""
+                device=None, seed: int = 0, n_anchors: int = 2,
+                **knobs) -> MoTIF:
+    """A MoTIF with `n_anchors` (2: Ours, 4: Ours_44) and float32 random
+    weights from `seed`, in eval mode, on `device` (CUDA unless the caller
+    passes another device; raises without CUDA). `knobs` are MoTIF's
+    serving knobs by name (`fused_decode`, `compute_dtype`, `splat_dtype`,
+    `raft_resolution`, `decode_chunks`); the weights depend on neither
+    (both families draw the same weights from a seed). On CUDA the conv
+    weights take the channels_last memory format."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = MoTIF(channel, front_rbs, back_rbs, **knobs)
+        model = MoTIF(channel, front_rbs, back_rbs, n_anchors=n_anchors,
+                      **knobs)
     model = model.to(dev).eval()
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

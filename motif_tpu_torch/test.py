@@ -11,6 +11,11 @@ leaves the random init from seed 0, with a warning), evaluates the
 SSIMs to ./psnrs/<name>.npy and ./psnrs/<name>_ssim.npy. It prints and
 returns `EvalResults.summary()`. The model runs on CUDA unless `--device`
 names another device.
+
+A four-anchor model (Ours_44 / Ours_4, e.g. configs/test_vimeo44.yml) on
+`Vimeo_test_44` takes the septuplet window's frames 0, 2, 4, 6 as its LQ
+(`datasets.SEPTUPLET_LQ`): the window's inputs are its two end frames,
+and the model takes four.
 """
 
 from __future__ import annotations
@@ -32,8 +37,10 @@ def main(argv: list[str] | None = None, overrides: dict | None = None):
 
     from motif_tpu_torch.checkpoint import load_reference_checkpoint
     from motif_tpu_torch.data import BatchLoader, create_dataset
+    from motif_tpu_torch.data.datasets import SEPTUPLET_LQ
     from motif_tpu_torch.eval import Evaluator
-    from motif_tpu_torch.models.factory import EVAL_CHUNK, define_g
+    from motif_tpu_torch.models.factory import (EVAL_CHUNK, FOUR_ANCHOR,
+                                                define_g)
     from motif_tpu_torch.utils import config as cfg
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -51,12 +58,14 @@ def main(argv: list[str] | None = None, overrides: dict | None = None):
             else:
                 opt["datasets"]["train"][k] = v
     dataset_opt = opt["datasets"]["train"]  # the reference test.yml uses 'train'
-    dataset = create_dataset(dataset_opt)
+    net_opt = opt["network_G"]
+    which = net_opt.get("which_model_G") or "Ours"
+    septuplet = which in FOUR_ANCHOR and dataset_opt["mode"] == "Vimeo_test_44"
+    dataset = create_dataset(dataset_opt,
+                             lq_index=SEPTUPLET_LQ if septuplet else None)
     loader = BatchLoader(dataset, batch_size=1, shuffle=False)
     logger.info("dataset %s: %d clips", dataset_opt["mode"], len(dataset))
 
-    net_opt = opt["network_G"]
-    which = net_opt.get("which_model_G") or "Ours"
     model = define_g(net_opt, device=args.device)
 
     ckpt = args.checkpoint or opt["path"].get("pretrain_model_G")

@@ -4,17 +4,20 @@
     python -m motif_tpu_torch.train -opt configs/train_smoke.yml
         [--max_steps N] [--device cpu]
 
-It builds the yml's `network_G` (`define_g`, the `Ours` family at setting
-5), the `datasets.train` set (`vimeo`) in shuffled batches of
-`batch_size` (`dataset_ratio` passes over it an epoch), and a `Trainer`
+It builds the yml's `network_G` (`define_g`: the `Ours` family or the
+four-anchor Ours_44 / Ours_4, at setting 5), the `datasets.train` set
+(`vimeo`; for a four-anchor model with its precomputed flows unless the
+yml says `load_flows: false`, as the JAX package's train.py does) in
+shuffled batches of `batch_size` (`dataset_ratio` passes over it an
+epoch), and a `Trainer`
 from the `train` section; it resumes from the latest `step_<n>` under
 `path.models`, trains to `train.niter` steps (or `--max_steps`), appends a
 JSON line to `<experiments_root>/train_log.jsonl` every
 `logger.print_freq` steps and saves the train state every
 `logger.save_checkpoint_freq` steps and at the end. The model runs on CUDA
 unless `--device` names another device. `main` returns the last step's
-aux. The arbitrary-scale modes (`*_a`, ROADMAP.md §A.7), the 4-anchor and
-other MoTIF variants (§A.8) and the baselines (§A.9) raise.
+aux. The arbitrary-scale modes (`*_a`, ROADMAP.md §A.7), the other MoTIF
+variants (§A.8) and the baselines (§A.9) raise.
 """
 
 from __future__ import annotations
@@ -74,6 +77,10 @@ def main(argv: list[str] | None = None, overrides: dict | None = None):
             "are not ported (ROADMAP.md §A.7)")
     model = define_g(net_opt, device=args.device)
     device = next(model.parameters()).device
+    if model.n_anchors == 4 and mode == "vimeo":
+        # Ours_44 trains on the precomputed flow npys (Vimeo7_dataset.py:
+        # 143,152): RAFT does not run in a step
+        dataset_opt.setdefault("load_flows", True)
     dataset = create_dataset(dataset_opt)
     batch_size = int(dataset_opt.get("batch_size") or 1)
     loader = BatchLoader(dataset, batch_size=batch_size, shuffle=True,

@@ -1,6 +1,7 @@
 """Training, the counterpart of motif_tpu/trainer.py (reference
 models/VideoSR_base_model.py + base_model.py): one optimiser step of a
-MoTIF model (the `Ours` family) per batch.
+MoTIF model (the `Ours` family, or the four-anchor Ours_44 / Ours_4 on the
+dataset's precomputed flows) per batch.
 
 The step keeps the reference's training semantics as the JAX package does
 (VideoSR_base_model.py:127-158):
@@ -94,23 +95,27 @@ def make_optimizer(cfg: TrainerConfig, params):
 
 
 class Trainer:
-    """Trains a MoTIF (the `Ours` family) in place.
+    """Trains a MoTIF (the `Ours` family, Ours_44 / Ours_4) in place.
 
     batch: {'lq': (B, N_in, H, W, 3), 'gt': (B, N+2, HH, WW, 3),
-    'times': (B, N)}, numpy arrays or tensors; they are moved to the
-    model's device and dtype. GT holds the two anchor frames at [0] and
-    [-1] (the teacher's), the loss is on gt[:, 1:-1].
+    'times': (B, N)} and, when the dataset has them (a four-anchor model),
+    the precomputed flows 'flow' (B, n², H, W, 2) and 'flow_gt' (B, N, n,
+    HH, WW, 2), which the model takes in place of RAFT's (its `flows=`);
+    numpy arrays or tensors, moved to the model's device and dtype. GT
+    holds the two anchor frames at [0] and [-1] (the live teacher's), the
+    loss is on gt[:, 1:-1].
     `step_count` is the number of optimiser steps taken (the JAX package's
     state.step)."""
 
     def __init__(self, model, cfg: TrainerConfig, out_hw=None,
                  iters: int = 12, flow_loss: bool = True, seed: int = 0,
                  family: str = "Ours"):
-        if not family.startswith("Ours") or family in (
-                "Ours_44", "Ours_4", "Ours_7", "Ours_flow"):
+        if not family.startswith("Ours") or family in ("Ours_7",
+                                                       "Ours_flow"):
             raise NotImplementedError(
                 f"Trainer: family [{family}] is not ported (LIIF: ROADMAP.md "
-                "§A.9; the 4-anchor and linear-motion variants: §A.8)")
+                "§A.9; the linear-motion variant and the flow precomputer: "
+                "§A.8)")
         self.model = model
         self.cfg = cfg
         # None: the output size is read from each batch's GT
@@ -132,7 +137,8 @@ class Trainer:
     def _tensors(self, batch) -> dict:
         p = self.params[0]
         return {k: torch.as_tensor(batch[k]).to(p.device, p.dtype)
-                for k in ("lq", "gt", "times")}
+                for k in ("lq", "gt", "times", "flow", "flow_gt")
+                if k in batch}
 
     def _out_hw(self, gt) -> tuple[int, int]:
         return self.out_hw or (int(gt.shape[2]), int(gt.shape[3]))
@@ -143,9 +149,12 @@ class Trainer:
         cfg = self.cfg
         b = self._tensors(batch)
         out_hw = self._out_hw(b["gt"])
+        flows = None
+        if "flow" in b or "flow_gt" in b:     # precomputed (Ours_44 / Vimeo)
+            flows = (b.get("flow"), b.get("flow_gt"))
         frames, flow, flow_gt = self.model(
             b["lq"], b["times"], out_hw, use_gt=use_gt, iters=self.iters,
-            target_frames=b["gt"], train=True)
+            target_frames=b["gt"], train=True, flows=flows)
         gt = b["gt"][:, 1:-1]
         l_pix = 0.0
         for idx in range(frames.shape[0]):              # per-time sum loss

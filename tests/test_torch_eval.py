@@ -156,18 +156,20 @@ FAMILIES = ["Ours", "Ours_7", "Ours_flow", "Ours_back", "Ours_44", "Ours_4",
 @pytest.mark.parametrize("family", FAMILIES)
 def test_family_dispatch_matches_motif_tpu(family):
     """Every Ours_* but the 4-anchor pair is Ours; Ours_44 / Ours_4 take
-    one time a forward and raise (not ported), as do the baselines. The
-    family never reaches the model as a serving knob."""
+    one time a forward; the baselines raise (not ported). The family never
+    reaches the model as a serving knob."""
     jev = jeval.Evaluator(None, None, chunk=3, family=family)
     assert resolve_family(family, 3) == (jev.family, jev.chunk)
-    m = build_motif(CH, FRONT, BACK, device="cpu", decode_chunks=2)
+    four = family in factory.FOUR_ANCHOR
+    m = build_motif(CH, FRONT, BACK, device="cpu", decode_chunks=2,
+                    n_anchors=4 if four else 2)
     knobs = m.knobs()
-    if jev.family == "Ours":
+    if jev.family.startswith("Ours"):
         ev = Evaluator(m, family=family, device="cpu")
-        assert ev.family == "Ours" and ev.chunk == 3
+        assert (ev.family, ev.chunk) == (jev.family, jev.chunk)
+        assert ev.chunk == (1 if four else 3)
     else:
-        want = {"Ours_44": "A.8", "Ours_4": "A.8", "VSR": "not known"}.get(
-            family, "A.9")
+        want = {"VSR": "not known"}.get(family, "A.9")
         with pytest.raises(NotImplementedError, match=want):
             Evaluator(m, family=family, device="cpu")
     assert m.knobs() == knobs
@@ -247,7 +249,7 @@ def test_define_g_reads_the_serving_knobs_as_motif_tpu():
 
 
 @pytest.mark.parametrize("which,setting,want", [
-    ("Ours", 3, "A.8"), ("Ours_44", 5, "A.8"), ("Ours_4", 5, "A.8"),
+    ("Ours", 3, "A.8"), ("Ours_44", 3, "A.8"), ("Ours_4", 6, "A.8"),
     ("Ours_7", 5, "A.8"), ("Ours_flow", 5, "A.8"), ("LIIF", 5, "A.9"),
     ("ZSM", 5, "A.9"), ("Zooming", 5, "A.9"), ("TMNet", 5, "A.9"),
     ("EDVR", 5, "A.9"), ("Super_SloMo", 5, "A.9"), ("VSR", 5, "not recognized"),

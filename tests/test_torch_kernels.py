@@ -991,3 +991,144 @@ def test_trainer_step_matches_the_plain_versions(dev):
                 _grad_close(a, p.grad, name)
             else:
                 assert float(a.abs().max()) == 0.0, name
+
+
+# ---------------------------------------------------------------------------
+# The four-anchor MoTIF (Ours_44): a request and a training step on
+# precomputed flows against the plain versions, at channel 16 (front 1 /
+# back 2 blocks); the splat and the SIREN at the recipe's training shapes
+# for four anchors (4 anchors x batch 8 x 7 times = 224 images of 128²).
+# ---------------------------------------------------------------------------
+
+
+def _four_anchor_model(dev):
+    from motif_tpu_torch.models.motif import build_motif
+    from motif_tpu_torch.models.pcd import DCNSep
+
+    model = build_motif(16, 1, 2, device=dev, seed=0, n_anchors=4)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, DCNSep):
+                w, b = mod.conv_offset_mask.weight, mod.conv_offset_mask.bias
+                w.copy_(torch.randn(w.shape, generator=g) * 0.01)
+                b.copy_(torch.randn(b.shape, generator=g))
+    return model
+
+
+def test_ours44_request_matches_the_plain_versions(dev):
+    """Evaluator.infer with family Ours_44 (one time a forward, RAFT on the
+    12 cross pairs) on LR 16² → 64², 3 times: each forward launches one
+    splat, three SIRENs and the DCNs of a four-frame encoder; the frames
+    and the flow statistics hold against the plain versions to 1e-5."""
+    from motif_tpu_torch.eval import Evaluator
+
+    ev = Evaluator(_four_anchor_model(dev), iters=2, family="Ours_44",
+                   device=dev)
+    rng = np.random.default_rng(0)
+    lq = rng.random((1, 4, 16, 16, 3), np.float32)
+    times = np.float32([[0.1, 0.5, 0.75]])
+    before = dict(kernels.ENTRY_LAUNCHES)
+    got, stats = ev.infer(lq, times, (64, 64))
+    launched = {k: v - before.get(k, 0)
+                for k, v in kernels.ENTRY_LAUNCHES.items()
+                if v != before.get(k, 0)}
+    # channel 16: the splat's payload is 64 + 2 + 16 = 82 wide (generic)
+    assert launched == {"dcn_im2col/float32": 3 * 90,
+                        "siren_mlp/float32/whole": 9,
+                        "splat_fused/float32/generic": 3}
+    with _plain_versions():
+        want, want_stats = ev.infer(lq, times, (64, 64))
+    assert got.shape == (3, 1, 64, 64, 3) and np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 1e-5
+    for a, b in zip(stats, want_stats):
+        assert abs(a - b) <= 1e-5 * abs(b)
+
+
+def test_ours44_trainer_step_matches_the_plain_versions(dev):
+    """Trainer.step of Ours_44 on a batch with precomputed flows (LR 16² →
+    HR 64², N 3, batch 2), use_gt True and False: RAFT never runs, and the
+    loss and every parameter's gradient hold against the same step with
+    the plain versions."""
+    from motif_tpu_torch.trainer import Trainer, TrainerConfig
+
+    model = _four_anchor_model(dev)
+    calls = []
+    model.flow_predictor.register_forward_hook(lambda *a: calls.append(1))
+    rng = np.random.default_rng(0)
+    batch = {"lq": rng.random((2, 4, 16, 16, 3), np.float32),
+             "gt": rng.random((2, 5, 64, 64, 3), np.float32),
+             "times": np.float32([[0.25, 0.5, 0.75]] * 2),
+             "flow": rng.standard_normal((2, 16, 16, 16, 2), np.float32),
+             "flow_gt": rng.standard_normal((2, 3, 4, 64, 64, 2),
+                                            np.float32) * 3}
+    tr = Trainer(model, TrainerConfig(teacher_forcing_steps=1), iters=2,
+                 family="Ours_44")
+    for use_gt in (True, False):
+        before = dict(kernels.LAUNCHES)
+        aux = tr.compute_grads(batch, use_gt)
+        grads = [p.grad.clone() for p in tr.params]
+        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        assert launched == {"splat_fused": 1, "dcn_im2col": 90,
+                            "siren_mlp": 3}
+        with _plain_versions():
+            plain = tr.compute_grads(batch, use_gt)
+        assert abs(float(aux["loss"]) - float(plain["loss"])) <= \
+            1e-5 * abs(float(plain["loss"]))
+        for (name, p), a in zip(model.named_parameters(), grads):
+            if float(p.grad.abs().max()) > 0:
+                _grad_close(a, p.grad, name)
+            else:
+                assert float(a.abs().max()) == 0.0, name
+    assert calls == []
+
+
+def test_splat_fused_at_the_ours44_training_step(dev):
+    """C = 130 over 224 images of 128² (4.8e8 payload elements): the
+    forward against the plain version and the backward against autograd
+    through it."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, H, W, C = 224, 128, 128, 130
+    img = torch.randn((B, H, W, C), device=dev, generator=g)
+    flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
+    z = -(torch.randn((B, H, W, 1), device=dev, generator=g)).abs()
+    with torch.no_grad():
+        got = softsplat.splat_fused(img, flow, z, True)
+        want = softsplat.splat_fused_plain(img, flow, z, True)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4
+    del got, want
+    cot = (torch.randn((B, H, W, C), device=dev, generator=g),
+           torch.randn((B, H, W, 1), device=dev, generator=g))
+    got = _grads(lambda *a: softsplat.splat_fused(*a, True)[:2],
+                 (img, flow, z), cot)
+    want = _grads(lambda *a: softsplat.splat_fused_plain(*a, True)[:2],
+                  (img, flow, z), cot)
+    for what, a, b in zip(("img", "flow", "z"), got, want):
+        _grad_close(a, b, what)
+
+
+def test_siren_mlp_at_the_ours44_training_step(dev):
+    """The STINF (67 → 64 → 64 → 256 → 3) over the Ours_44 step's 3.67M
+    tokens: the forward against the plain version (1e-5, as at the
+    serving shapes), the backward against autograd through it."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    dims = (67, 64, 64, 256, 3)
+    ws = [(torch.rand((o, i), device=dev, generator=g) * 2 - 1)
+          * hidden_bound(i, 30.0) for i, o in zip(dims[:-1], dims[1:])]
+    bs = [torch.rand((o,), device=dev, generator=g) * 0.2 - 0.1
+          for o in dims[1:]]
+    x = torch.rand((224 * 128 * 128, 67), device=dev, generator=g) * 2 - 1
+    with torch.no_grad():
+        assert float((siren_kernel.siren_mlp(x, ws, bs)
+                      - siren_kernel.siren_mlp_plain(x, ws, bs)).abs().max()
+                     ) <= 1e-5
+    cot = (torch.randn((x.shape[0], 3), device=dev, generator=g),)
+    n = len(ws)
+
+    def run(op):
+        return lambda xx, *p: op(xx, list(p[:n]), list(p[n:]))
+    got = _grads(run(siren_kernel.siren_mlp), (x, *ws, *bs), cot)
+    want = _grads(run(siren_kernel.siren_mlp_plain), (x, *ws, *bs), cot)
+    for k, (a, c) in enumerate(zip(got, want)):
+        _grad_close(a, c, k)

@@ -60,6 +60,21 @@ def test_vimeo_items_are_bit_equal(gt_size, seed):
     assert seen == {0.0, 1.0}            # both the forward and the reverse
 
 
+def test_vimeo_draws_match_without_random_reverse():
+    """The reverse is drawn whether or not it is used, as motif_tpu draws
+    it: without random_reverse the crops and flips that follow are still
+    the same draws, item for item."""
+    opt = _vimeo_opt(GT_size=64, random_reverse=False)
+    got, want = datasets.create_dataset(opt), jdatasets.create_dataset(opt)
+    got._rng.seed(5)
+    want._rng.seed(5)
+    for k in range(8):
+        a, b = got[k % 2], want[k % 2]
+        for key in ("lq", "gt", "times"):
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+        assert a["times"][0] == 0.0
+
+
 def test_vimeo_without_augmentation_outside_the_train_phase():
     opt = _vimeo_opt(phase="val", random_reverse=False)
     got, want = datasets.create_dataset(opt), jdatasets.create_dataset(opt)
@@ -69,9 +84,19 @@ def test_vimeo_without_augmentation_outside_the_train_phase():
     assert got[0]["gt"].shape == (9, 128, 128, 3)
 
 
-@pytest.mark.parametrize("kw,what", [({"load_flows": True}, "A.8"),
+@pytest.mark.parametrize("kw,what", [({"load_flows": True}, "hr_gt_flow"),
                                      ({"data_type": "lmdb"}, "A.7")])
 def test_vimeo_flows_and_lmdb_raise(kw, what):
+    """LMDB packs are not ported; flows are (tests/test_torch_flows.py),
+    and an item whose flow files are missing (the repository's data/vimeo
+    ships none) raises, naming the file, as motif_tpu's does."""
+    if "load_flows" in kw:
+        ds = datasets.create_dataset(_vimeo_opt(**kw))
+        with pytest.raises(FileNotFoundError, match=what):
+            ds[0]
+        with pytest.raises(FileNotFoundError, match=what):
+            jdatasets.create_dataset(_vimeo_opt(**kw))[0]
+        return
     with pytest.raises(NotImplementedError, match=what):
         datasets.create_dataset(_vimeo_opt(**kw))
 
@@ -163,7 +188,7 @@ def test_train_cli_runs_saves_and_resumes(tmp_path, one_torch_thread):
 
 @pytest.mark.parametrize("over,what", [
     ({"network_G": {"which_model_G": "LIIF"}}, "A.9"),
-    ({"network_G": {"which_model_G": "Ours_44"}}, "A.8"),
+    ({"network_G": {"which_model_G": "Ours_7"}}, "A.8"),
     ({"datasets": {"train": {"mode": "vimeo_a"}}}, "A.7")])
 def test_train_cli_raises_for_what_is_not_ported(tmp_path, over, what):
     with pytest.raises(NotImplementedError, match=what):

@@ -388,7 +388,36 @@ def test_float32_entries_keep_their_no_grad_path(rng):
 
 
 def test_precomputed_flows_raise():
-    m = MoTIF(8, 1, 1)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        m(torch.rand(1, 4, 16, 16, 3), torch.rand(1, 2), (64, 64),
+    """What still raises around the four-anchor path: an anchor count the
+    port does not have, and four anchors given other than four frames (the
+    precomputed flows themselves run: test_precomputed_flows_skip_raft)."""
+    with pytest.raises(ValueError, match="n_anchors=3"):
+        MoTIF(8, 1, 1, n_anchors=3)
+    m = MoTIF(8, 1, 1, n_anchors=4)
+    with pytest.raises(ValueError, match="4 input frames"):
+        m(torch.rand(1, 3, 16, 16, 3), torch.rand(1, 2), (64, 64),
           flows=(None, None))
+
+
+@pytest.mark.parametrize("n_anchors", [2, 4])
+def test_precomputed_flows_skip_raft(n_anchors):
+    """With both flows given a training forward never runs RAFT, its
+    output's teacher flow is the given one, and the gradient reaches no
+    flow: the flows are data, as motif_tpu's stop_gradient makes them."""
+    m = MoTIF(8, 1, 1, n_anchors=n_anchors)
+    calls = []
+    m.flow_predictor.register_forward_hook(lambda *a: calls.append(1))
+    n = n_anchors
+    g = torch.Generator().manual_seed(0)
+    lr = torch.randn(1, n * n, 16, 16, 2, generator=g, requires_grad=True)
+    fg = torch.randn(1, 2, n, 64, 64, 2, generator=g, requires_grad=True)
+    frames, flow, flow_gt = m(torch.rand(1, 4, 16, 16, 3, generator=g),
+                              torch.tensor([[0.3, 0.7]]), (64, 64),
+                              train=True, use_gt=True, flows=(lr, fg))
+    assert calls == []
+    torch.testing.assert_close(
+        flow_gt, fg.detach().permute(2, 0, 1, 3, 4, 5).reshape(
+            n * 2, 64, 64, 2) / 20.0 / 4.0, rtol=0, atol=0)
+    (frames.sum() + flow.sum()).backward()
+    assert lr.grad is None and fg.grad is None
+    assert float(m.imnet.net[0].linear.weight.grad.abs().max()) > 0
