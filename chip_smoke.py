@@ -53,9 +53,11 @@ Phases, each fatal on failure:
      of four wrong kernel outputs planted, printing which the serving gate
      refuses: it must refuse the splat's targets half a pixel off;
   6. a {"kernels": [...]} line, the card line, and the result line, printed
-     last, after phases 7 and 8; each kernel row also carries its launches
-     on every path (requests, eval CLIs, training steps of both models)
-     and its plain backward's device ms in one two-anchor step;
+     last, after phases 7, 8 and 9; each kernel row also carries its
+     launches on every path (requests, eval CLIs, training steps of both
+     models, the baselines) and its plain backward's device ms in one
+     two-anchor step; two more rows hold the entries at the baselines'
+     shapes (the DCN at cg 16, VideoINR's three SIRENs);
   7. training the two-anchor Ours (run before phase 6's lines): the CLI
      (motif_tpu_torch.train.main) on configs/train_smoke.yml with the
      shapes of the reference recipe train_Ours_vimeo.yml (nf 64, 5 + 40
@@ -85,7 +87,19 @@ Phases, each fatal on failure:
      counted (never run), a step by part, and the gradient gate for both
      branches; the splat (224 images of 128², and its backward), the STINF
      SIREN (3.67M tokens, and its backward) and the DCN im2col at the
-     shapes this path gives them.
+     shapes this path gives them;
+  9. the baselines (before phase 6's lines): LIIF (VideoINR), ZSM, TMNet,
+     EDVR and Super-SloMo at their configs/test_vid4_*.yml widths and
+     depths (EDVR nf 128), random weights, DCN offsets perturbed: a request
+     each (2 LQ frames 64x112 -> 256x448, 3 times) counted alone (the
+     family's DCNs; VideoINR's SIRENs, cut into 8 launches a time), held
+     against its plain versions (1e-5), timed and profiled; the eval CLI
+     over the family's yml on one Vid4 clip from a reference-format .pth
+     against its plain versions (EVAL_GATES fp32); then the DCN at EDVR's
+     16 channels a group (L1 - L3) and the float32 SIREN at VideoINR's
+     three widths over a request's 114,688 tokens (a cut MLP also launch
+     by launch). Every training gate also prints, ungated, the plain step
+     against itself.
 Exits non-zero without CUDA or without the package beside it.
 """
 
@@ -383,21 +397,30 @@ def check_splat(dev, softsplat, kernels, C=130, sdt=None):
                                     reps=2),
           "lists": tile_lists(conv, tile), "note": note})
 
-    # yardstick: the same 4-corner scatter as ONE index_add_ call, its
-    # payload and indices prepared outside the timed call
-    # (in the sums' type: a float16 index_add_ for the float16 entry)
+    return dict(max_abs_err=worst, library_ms=index_add_ms(
+        softsplat, img, flow, zn, sdt), **lines["z<=0"])
+
+
+def index_add_ms(softsplat, img, flow, z, sdt=None, reps=10):
+    """The splat's yardstick: the same 4-corner scatter of [img e^z, e^z, 1]
+    as ONE index_add_ call in the sums' type (a float16 index_add_ for the
+    float16 entry), its payload and indices prepared outside the timed
+    call; device ms."""
+    B, H, W, C = img.shape
     corners = softsplat._corner_data(flow, H, W)
-    ez = torch.exp(zn).reshape(B, H * W, 1)
+    ez = torch.exp(z).reshape(B, H * W, 1)
     flat = torch.cat([img.reshape(B, H * W, C) * ez, ez], -1)
-    boff = (torch.arange(B, device=dev) * H * W)[:, None, None]
+    boff = (torch.arange(B, device=img.device) * H * W)[:, None, None]
     idx = torch.cat([(c[0] + boff).reshape(-1) for c in corners])
     src = torch.cat([torch.cat([flat * torch.where(c[2], c[1], 0).reshape(
         B, H * W, 1), c[2].float().reshape(B, H * W, 1)], -1).reshape(-1, C + 2)
         for c in corners]).to(sdt or torch.float32)
-    acc = torch.zeros((B * H * W, C + 2), device=dev, dtype=src.dtype)
-    library = device_ms(lambda: acc.index_add_(0, idx, src), reps=10)
+    del flat, corners
+    acc = torch.zeros((B * H * W, C + 2), device=img.device, dtype=src.dtype)
+    ms = device_ms(lambda: acc.index_add_(0, idx, src), reps=reps)
     del src, idx, acc
-    return dict(max_abs_err=worst, library_ms=library, **lines["z<=0"])
+    torch.cuda.empty_cache()
+    return ms
 
 
 def check_splat_request(softsplat, kernels, inputs, request):
@@ -418,6 +441,8 @@ def check_splat_request(softsplat, kernels, inputs, request):
           "sums": dname(sdt or torch.float32), "shape": [B, H, W, C],
           "z_nonpositive": nonpos, "tile": tile, **held, "ms": ms,
           "bound_ms": b_ms, "fraction_of_bound": b_ms / ms,
+          "library_ms": index_add_ms(softsplat, img, flow, z, sdt),
+          "library": f"{dname(sdt or torch.float32)} index_add_",
           "eager_ms": cuda_ms(run), "phases_ms": splat_phases(run),
           "flow_abs_max": float(flow.abs().max()),
           "lists": tile_lists(flow, tile)})
@@ -475,17 +500,19 @@ DCN_SHAPES = {"L1": (2, 64, 112), "L2": (2, 32, 56), "L3": (2, 16, 28),
               "H%8!=0": (2, 62, 110)}
 
 
-def check_dcn(dev, dcn, kernels, dtype=torch.float32, shapes=DCN_SHAPES):
+def check_dcn(dev, dcn, kernels, dtype=torch.float32, shapes=DCN_SHAPES,
+              cg=8):
     """L1 / L2 / L3 of the BiLSTM's PCD (B = 2, G = 8, cg = 8, K = 3),
     offsets up to ±10 px, and one H % 8 != 0 height (or the (B, H, W) of
-    `shapes`); the offsets a strided view as on the main path. At L1 also the kernel with the L2 cold and
+    `shapes`, and `cg` channels a group: EDVR's 16); the offsets a strided
+    view as on the main path. At L1 also the kernel with the L2 cold and
     the whole dcn_v2 (kernel + addmm). float32: atol 1e-5. bfloat16: the
     kernel and the plain version do the same float32 arithmetic and round
     once, so 1 bfloat16 ulp of the largest column (a fused multiply-add
     may move a float32 sum across a rounding boundary)."""
     import torch.nn.functional as F
 
-    G, cg, K = 8, 8, 3
+    G, K = 8, 3
     esize = torch.empty((), dtype=dtype).element_size()
     worst, first = 0.0, None
     for level, (B, H, W) in shapes.items():
@@ -693,9 +720,47 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
               "exact_share": exact, "fraction_of_bound": b_ms / ms,
               "peak": "bf16 tensor cores" if bf else "fp32",
               "library": "addmm + sin per layer (cuBLAS)", **line,
-              **({"accuracy_vs_float64": held} if bf else {})})
+              **({"accuracy_vs_float64": held} if bf else {}),
+              **({"by_launch": siren_launch_ms(siren_kernel, x, ws, bs,
+                                               skip_first)}
+                 if launches > 1 else {})})
         first = first or line
     return dict(max_abs_err=worst, **first)
+
+
+def siren_launch_ms(siren_kernel, x, ws, bs, skip_first):
+    """A float32 MLP cut into launches (`siren_kernel.segments`), each
+    launch's layers timed as an MLP of their own on the input the launch
+    reads (the plain version's activation before it), beside `addmm` +
+    `sin` of the same layers: device ms."""
+    dims = [x.shape[-1]] + [w.shape[0] for w in ws]
+    h, rows = x, []
+    for s in siren_kernel.segments(dims):
+        lw, lb = list(ws[s.first:s.last]), list(bs[s.first:s.last])
+        lw[-1] = lw[-1][s.cols[0]:s.cols[1]].contiguous()
+        lb[-1] = lb[-1][s.cols[0]:s.cols[1]].contiguous()
+        sine = s.last < len(ws)
+        skip = skip_first and s.first == 0
+
+        def kernel(h=h, lw=lw, lb=lb, sine=sine, skip=skip):
+            return siren_kernel.siren_mlp(h, lw, lb, 30.0, sine, skip)
+
+        def library(h=h, lw=lw, lb=lb, sine=sine, skip=skip):
+            y = torch.sin(30.0 * h) if skip else h
+            for i, (w, b) in enumerate(zip(lw, lb)):
+                y = torch.addmm(b, y, w.t())
+                if i < len(lw) - 1 or sine:
+                    y = torch.sin(30.0 * y)
+            return y
+        rows.append({"layers": [s.first, s.last], "cols": list(s.cols),
+                     "dims": s.dims, "smem": s.smem,
+                     "ms": device_ms(kernel, reps=10),
+                     "library_ms": device_ms(library, reps=10)})
+        if s.cols[1] == dims[s.last]:
+            h = siren_kernel.siren_mlp_plain(
+                h, ws[s.first:s.last], bs[s.first:s.last], 30.0, sine,
+                skip)
+    return rows
 
 
 def siren_case(dev, dims, n_tok, dtype, skip_first, scale=1.0):
@@ -774,12 +839,14 @@ def perturb_offsets(model, seed: int) -> int:
     return n
 
 
-def check_frames(name, frames, shape):
+def check_frames(name, frames, shape, clipped=True):
+    """The frames' shape, finite values, and (where the model clips them,
+    as MoTIF does; the baselines do not) values in [0, 1]."""
     if frames.shape != shape:
         raise AssertionError(f"request {name}: shape {frames.shape} != {shape}")
     if not np.isfinite(frames).all():
         raise AssertionError(f"request {name}: non-finite frames")
-    if frames.min() < 0.0 or frames.max() > 1.0:
+    if clipped and (frames.min() < 0.0 or frames.max() > 1.0):
         raise AssertionError(f"request {name}: frames outside [0, 1]")
 
 
@@ -800,13 +867,13 @@ def build_request(dev, **knobs):
     return model, n_dcn, ev, rng, lq_a, t3
 
 
-def time_request(ev, lq, times, n):
+def time_request(ev, lq, times, n, out_hw=(256, 448)):
     """Wall milliseconds of n runs of one request, each ending in the
     frames' copy to the host."""
     ts = []
     for _ in range(n):
         t = time.perf_counter()
-        ev.infer(lq, times, (256, 448))
+        ev.infer(lq, times, out_hw)
         ts.append((time.perf_counter() - t) * 1e3)
     return ts
 
@@ -1197,13 +1264,13 @@ def read_npys(tmp, stem):
 
 
 def eval_cli(tmp, config, yml, stem, pth, mods, per_clip=None,
-             frames_shape=(3, 1, 64, 96, 3), clips=4):
+             frames_shape=(3, 1, 64, 96, 3), clips=4, clipped=True):
     """The CLI over an eval yml in one configuration on its first `clips`
     clips, with the kernels (the launch counters set to 0 just before and
     read just after) and with the plain versions, held against each other.
     `per_clip`: what a clip must launch (one forward of
     EVAL_ENTRIES[config] by default); the frames of each clip's `infer`
-    have `frames_shape`."""
+    have `frames_shape` (in [0, 1] where `clipped`)."""
     softsplat, dcn, siren_kernel, kernels = mods
     gate = EVAL_GATES[config]
     kernels.reset_launches()
@@ -1217,7 +1284,8 @@ def eval_cli(tmp, config, yml, stem, pth, mods, per_clip=None,
             raise AssertionError("the plain CLI run launched a kernel")
     psnrs_p, ssims_p = read_npys(tmp, stem)
     n = summary["n_clips"]
-    want = {k: v * n for k, v in (per_clip or EVAL_ENTRIES[config]).items()}
+    want = {k: v * n for k, v in (EVAL_ENTRIES[config] if per_clip is None
+                                  else per_clip).items()}
     frames_err = max(float(np.abs(a - b).max())
                      for a, b in zip(clock.frames, clock_p.frames))
     frames_db = min(psnr(a, b) for a, b in zip(clock.frames, clock_p.frames))
@@ -1240,11 +1308,11 @@ def eval_cli(tmp, config, yml, stem, pth, mods, per_clip=None,
             and np.isfinite(ssims).all()):
         raise AssertionError(f"eval CLI ({config}): {n} clips, summaries "
                              f"{summary} / {summary_p}")
-    if entries != want or not all(launches.values()):
+    if entries != want or not all(launches[k.split("/")[0]] for k in want):
         raise AssertionError(f"eval CLI ({config}) launched {entries} "
                              f"(wanted {want})")
     for frames in clock.frames:
-        check_frames(f"eval {config}", frames, frames_shape)
+        check_frames(f"eval {config}", frames, frames_shape, clipped)
     hold_eval(f"eval CLI ({config}) kernels vs plain", gate, frames_err,
               frames_db, psnr_err, ssim_err)
     return entries, (clock_p.frames, psnrs_p, ssims_p)
@@ -1623,13 +1691,21 @@ def train_gates(tr, model, batch, mods, card, tag):
         got = [p.grad.clone() for p in tr.params]
         nonzero = upstream_nonzero(model)
         with plain_versions(softsplat, dcn, siren_kernel):
+            again = tr.compute_grads(batch, use_gt)
+            twice = [p.grad.clone() for p in tr.params]
             plain = tr.compute_grads(batch, use_gt)
         want = [p.grad.clone() for p in tr.params]
         gate = grad_gate(model, got, want, float(aux["loss"]),
                          float(plain["loss"]))
+        # read, not gated: the plain step against itself (the backward's
+        # own run-to-run distance, ROADMAP.md §C.10)
+        self_gate = grad_gate(model, twice, want, float(again["loss"]),
+                              float(plain["loss"]))
         emit({"phase": f"{tag}_gate", "use_gt": use_gt, "card": card,
               "loss": float(aux["loss"]), "plain_loss": float(plain["loss"]),
-              "gates": TRAIN_GATES, "upstream_nonzero": nonzero, **gate})
+              "gates": TRAIN_GATES, "upstream_nonzero": nonzero, **gate,
+              "plain_twice_grad_rel": self_gate["grad_rel"],
+              "plain_twice_grad_rel_at": self_gate["grad_rel_at"]})
         if not gate["ok"]:
             raise AssertionError(f"{tag}: the step with use_gt={use_gt} "
                                  f"fails its gate {gate}")
@@ -1972,7 +2048,8 @@ def check_shapes44(dev, card, mods, Siren):
           "plain_ms": device_ms(lambda: softsplat.splat_fused_plain(
               img, flow, z, True), reps=2),
           "bound_ms": b_ms, "bound_by": b_by, "fraction_of_bound": b_ms / ms,
-          "elements": B * H * W * C})
+          "library_ms": index_add_ms(softsplat, img, flow, z, reps=3),
+          "library": "float32 index_add_", "elements": B * H * W * C})
     cot = (torch.randn((B, H, W, C), device=dev, generator=g),
            torch.randn((B, H, W, 1), device=dev, generator=g))
     hold_backward("splat_fused",
@@ -2023,7 +2100,137 @@ def run_four_anchor(dev, card, args, mods, Siren):
             "plain_backward_ms_train_step_ours44": back}
 
 
-def profile_request(ev, lq, times, out_dir, name):
+# ---------------------------------------------------------------------------
+# phase 9: the baselines
+# ---------------------------------------------------------------------------
+
+# each family: its eval yml, and what one request launches of the kernels
+# (2 LQ frames 64x112 -> 256x448, 3 times): the ZSM trunk's 42 DCNs (6 in
+# the PCD, 36 in the ConvLSTM's), TMNet's 2 more in its comparison stage,
+# EDVR's 4 (its PCD and cascade, the frames batched), VideoINR's SIRENs
+# per time in 2 + 1 + 5 launches (siren_kernel.segments)
+BASELINES = {
+    "LIIF": ("test_vid4_liif.yml", {"dcn_im2col/float32": 42,
+                                    "siren_mlp/float32/whole": 24}),
+    "ZSM": ("test_vid4_zsm.yml", {"dcn_im2col/float32": 42}),
+    "TMNet": ("test_vid4_tmnet.yml", {"dcn_im2col/float32": 44}),
+    "EDVR": ("test_vid4_edvr.yml", {"dcn_im2col/float32": 4}),
+    "Super_SloMo": ("test_vid4_superslomo.yml", {}),
+}
+# the entries at their new shapes: VideoINR's SIRENs over a request's
+# 256x448 tokens, one time; EDVR's DCNs (nf 128: 8 groups of 16) at its
+# PCD's three levels of the request's 2 frames
+VIDEOINR_SIRENS = {"feat_imnet": (201, [64, 64, 256], 64, 256 * 448),
+                   "flow_imnet": (263, [64, 64, 256], 4, 256 * 448),
+                   "encode_imnet": (525, [64, 64, 256, 256], 3, 256 * 448)}
+EDVR_DCN = {"edvr_L1": (2, 64, 112), "edvr_L2": (2, 32, 56),
+            "edvr_L3": (2, 16, 28)}
+BASE_LQ = (64, 112)           # a request's LQ; the frames are 4x that
+
+
+def build_baseline_request(dev, family):
+    """The family at its yml's full width and depth (configs/test_vid4_*;
+    EDVR nf 128) with random weights from seed 0, DCN offsets perturbed
+    from seed 1, and its Evaluator."""
+    from motif_tpu_torch.eval import Evaluator
+    from motif_tpu_torch.models.factory import define_g
+    from motif_tpu_torch.utils import config
+
+    yml = os.path.join(ROOT, "configs", BASELINES[family][0])
+    opt = config.parse(yml, is_train=False)
+    model = define_g(opt["network_G"], device=dev)
+    perturb_offsets(model, seed=1)
+    return (model, Evaluator(model, scale=4, family=family, device=dev), yml,
+            opt["name"])
+
+
+def baseline_pth(model, path):
+    """`model`'s state dict as the reference saves a checkpoint."""
+    torch.save({"state_dict": {f"module.{k}": v.detach().cpu()
+                               for k, v in model.state_dict().items()}},
+               path)
+
+
+def run_baselines(dev, card, mods, out_dir, tmp):
+    """Phase 9, per family: a request (2 LQ frames 64x112 -> 256x448, 3
+    times) counted alone, held against its plain versions (1e-5), timed
+    (median of 10 after it) and profiled; then the CLI over its yml on one
+    Vid4 clip against its plain versions (EVAL_GATES fp32). Returns each
+    family's entry launches (request, CLI)."""
+    softsplat, dcn, siren_kernel, kernels = mods
+    h, w = BASE_LQ
+    hw = (4 * h, 4 * w)
+    lq = np.random.default_rng(0).random((1, 2, h, w, 3), dtype=np.float32)
+    t3 = np.linspace(0, 1, 3, dtype=np.float32)[None]
+    out = {}
+    for family, (_, want) in BASELINES.items():
+        t0 = time.perf_counter()
+        model, ev, yml, stem = build_baseline_request(dev, family)
+        kernels.reset_launches()
+        frames, stats = ev.infer(lq, t3, hw)
+        entries = dict(kernels.ENTRY_LAUNCHES)
+        check_frames(family, frames, (3, 1, *hw, 3), clipped=False)
+        if entries != want or stats is not None:
+            raise AssertionError(f"request ({family}) launched {entries} "
+                                 f"(wanted {want}), flow stats {stats}")
+        with plain_versions(softsplat, dcn, siren_kernel):
+            kernels.reset_launches()
+            plain, _ = ev.infer(lq, t3, hw)
+            if any(kernels.LAUNCHES.values()):
+                raise AssertionError("the plain forward launched a kernel")
+        err = float(np.abs(frames - plain).max())
+        emit({"phase": "baseline_vs_plain", "model": family,
+              "max_abs_err": err, "tol": 1e-5,
+              "mean_abs_err": float(np.abs(frames - plain).mean()),
+              "max_abs": float(np.abs(plain).max()),
+              "params": sum(p.numel() for p in model.parameters()),
+              "entry_launches": entries})
+        if not err <= 1e-5:
+            raise AssertionError(f"request ({family}) kernels vs plain: "
+                                 f"{err} (tol 1e-5)")
+        torch.cuda.reset_peak_memory_stats()
+        runs = time_request(ev, lq, t3, 10, hw)
+        ms = float(np.median(runs))
+        emit({"phase": "baseline_request_time", "model": family, "card": card,
+              "forward_ms_median": ms, "hr_frames_per_s": 3e3 / ms,
+              "forward_ms": runs,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "note": "Evaluator.infer wall time incl. host copy-out, fp32, "
+                      "TF32 off, LQ 2x64x112 -> HR 256x448, 3 times, median "
+                      "of 10 after the counted and the plain request; peak "
+                      "memory over the 10"})
+        profile_request(ev, lq, t3, out_dir, family, hw)
+        pth = os.path.join(tmp, f"{family}.pth")
+        baseline_pth(model, pth)
+        cli, _ = eval_cli(tmp, "fp32", yml, stem, pth, mods, per_clip=want,
+                          clips=1, clipped=False)
+        out[family] = {"request": entries, "cli": cli}
+        emit({"phase": "baseline", "model": family,
+              "seconds": time.perf_counter() - t0})
+        del model, ev
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_baseline_phase(dev, card, args, mods, Siren):
+    """Phase 9: the five baselines' requests and CLIs, then the entries at
+    the shapes they give them (K2 at cg 16, K4 float32 at VideoINR's
+    widths). Returns the launches per family and the checks' rows."""
+    import tempfile
+
+    _, dcn, siren_kernel, kernels = mods
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        launches = run_baselines(dev, card, mods, args.profile or tmp, tmp)
+    dcn16 = check_dcn(dev, dcn, kernels, shapes=EDVR_DCN, cg=16)
+    sirens = {name: check_siren(dev, siren_kernel, Siren, kernels,
+                                mlps={name: shape})
+              for name, shape in VIDEOINR_SIRENS.items()}
+    emit({"phase": "baselines", "seconds": time.perf_counter() - t0})
+    return launches, dcn16, sirens
+
+
+def profile_request(ev, lq, times, out_dir, name, out_hw=(256, 448)):
     """One request under torch.profiler: the table goes to `out_dir`; the
     device busy time (kernels and copies only, not the host-side ops that
     enclose them) against the request's wall time."""
@@ -2033,7 +2240,7 @@ def profile_request(ev, lq, times, out_dir, name):
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t = time.perf_counter()
-        ev.infer(lq, times, (256, 448))
+        ev.infer(lq, times, out_hw)
         wall_ms = (time.perf_counter() - t) * 1e3
     events = p.key_averages()
     with open(os.path.join(out_dir, f"profile_request_{name}.txt"), "w") as f:
@@ -2261,6 +2468,8 @@ def main() -> int:
         dev, card, args, (softsplat, dcn, siren_kernel, kernels))
     four = run_four_anchor(dev, card, args,
                            (softsplat, dcn, siren_kernel, kernels), Siren)
+    base, dcn16, sirens = run_baseline_phase(
+        dev, card, args, (softsplat, dcn, siren_kernel, kernels), Siren)
 
     meta = {
         "splat_fused": ("motif_tpu_torch/csrc/splat_fused.cu",
@@ -2304,11 +2513,38 @@ def main() -> int:
             train_back[name]["device_ms"] if entry in TRAIN_ENTRIES else None)
         row["plain_backward_event_ms_train_step"] = (
             train_back[name]["event_ms"] if entry in TRAIN_ENTRIES else None)
+        row["launches_baselines"] = {
+            f: {path: e.get(entry, 0) for path, e in runs.items()}
+            for f, runs in base.items()}
         if "device_kernels_per_call" in r:
             row["device_kernels_per_call"] = r["device_kernels_per_call"]
         if name in also:
             row["also_replaces"] = also[name]
         rows.append(row)
+    # the entries at the baselines' new shapes: the DCN at EDVR's L1 (its
+    # launches: an EDVR request's), the three VideoINR SIRENs of one time
+    # summed (their launches: a LIIF request's, 3 times)
+    src, replaces = meta["dcn_im2col"]
+    rows.append({
+        "name": "dcn_im2col[float32/cg=16]", "kernel": "dcn_im2col",
+        "route": "cuda", "source": src, "replaces": replaces,
+        "launches": base["EDVR"]["request"]["dcn_im2col/float32"],
+        **{k: dcn16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "eager_ms")},
+        "shape": "EDVR PCD L1: 2x64x112, G 8, cg 16, K 3",
+        "also_replaces": also["dcn_im2col"]})
+    src, replaces = meta["siren_mlp"]
+    worst = max(sirens.values(), key=lambda r: r["bound_ms"])
+    rows.append({
+        "name": "siren_mlp[float32/whole/VideoINR]", "kernel": "siren_mlp",
+        "route": "cuda", "source": src, "replaces": replaces,
+        "launches": base["LIIF"]["request"]["siren_mlp/float32/whole"],
+        "max_abs_err": max(r["max_abs_err"] for r in sirens.values()),
+        **{k: sum(r[k] for r in sirens.values())
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "eager_ms")},
+        "bound_by": worst["bound_by"],
+        "shape": "feat_imnet + flow_imnet + encode_imnet, 114,688 tokens "
+                 "each (one time of a 256x448 request)"})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

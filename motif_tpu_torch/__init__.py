@@ -1,6 +1,7 @@
 """motif_tpu_torch — MoTIF (the two-anchor Ours and the four-anchor
-Ours_44 / Ours_4) in PyTorch, served, evaluated and trained, with
-hand-written CUDA kernels for Hopper (sm_90a).
+Ours_44 / Ours_4) in PyTorch, served, evaluated and trained, and the
+baselines it is compared against (VideoINR, ZSM, TMNet, EDVR, Super-SloMo)
+served and evaluated, with hand-written CUDA kernels for Hopper (sm_90a).
 
 It mirrors `motif_tpu`'s module layout (`models/`, `ops/`, `data/`,
 `checkpoint.py`, `eval.py`, `trainer.py`) and is held against that package

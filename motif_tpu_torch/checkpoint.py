@@ -8,8 +8,11 @@ ModuleList indices merged into the preceding name ("net.0.linear" →
 walks the port's own keys and maps each to its flax path:
 
   * conv kernels HWIO → OIHW, linear kernels IO → OI;
-  * the scanned `feature_extraction` / `recon_trunk` stacks (one `block`
-    subtree with a leading block axis) are unstacked into `.0 ... .k-1`;
+  * EDVR's ModuleDict level keys merge like indices ("offset_conv1.l3" →
+    "offset_conv1_l3");
+  * the scanned `feature_extraction` / `recon_trunk` / `reconstruction`
+    stacks (one `block` subtree with a leading block axis) are unstacked
+    into `.0 ... .k-1`;
   * `pcd_h` / `pcd_c` stay separate subtrees, as in the reference;
   * `g_filter`, the reference's fixed blur (not a parameter of either
     package), is not produced.
@@ -35,14 +38,16 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
-SCANNED_BLOCK_FAMILIES = ("feature_extraction", "recon_trunk")
+SCANNED_BLOCK_FAMILIES = ("feature_extraction", "recon_trunk",
+                          "reconstruction")
 
 
 def torch_key_to_flax_path(key: str) -> tuple:
-    """'a.b.0.linear.weight' → ('a', 'b_0', 'linear', 'kernel')."""
+    """'a.b.0.linear.weight' → ('a', 'b_0', 'linear', 'kernel'); EDVR's
+    'offset_conv1.l3.weight' → ('offset_conv1_l3', 'kernel')."""
     out: list = []
     for p in key.split("."):
-        if out and p.isdigit():
+        if out and (p.isdigit() or p in ("l1", "l2", "l3")):
             out[-1] = f"{out[-1]}_{p}"
         else:
             out.append(p)

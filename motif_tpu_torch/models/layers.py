@@ -206,3 +206,28 @@ class Linear(nn.Linear):
         super().reset_parameters()
         with torch.no_grad():
             self.weight.uniform_(-self._bound, self._bound)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
+    """nn.PixelShuffle on NHWC: input channel (c, ry, rx), fastest last,
+    goes to out[b, h * r + ry, w * r + rx, c]."""
+    B, H, W, C = x.shape
+    c = C // (r * r)
+    x = x.reshape(B, H, W, c, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(B, H * r, W * r, c)
+
+
+def max_pool2d(x: torch.Tensor, window: int = 3, stride: int = 2,
+               padding: int = 1) -> torch.Tensor:
+    """nn.MaxPool2d on NHWC (the padding never wins)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool2d_padded(x: torch.Tensor, window: int = 3, stride: int = 2,
+                      padding: int = 1) -> torch.Tensor:
+    """nn.AvgPool2d on NHWC with count_include_pad=True (its default): the
+    zero padding counts in the denominator."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride, padding,
+                     count_include_pad=True)
+    return y.permute(0, 2, 3, 1)

@@ -1,7 +1,7 @@
 """Pyramid-cascading-deformable alignment — the counterpart of
-motif_tpu/models/pcd.py: DCNSep, PCDAlign (without the temporal modulation
-blocks, which MoTIF does not use), EasyPCD, DeformableConvLSTM and
-BiDeformableConvLSTM. NHWC throughout.
+motif_tpu/models/pcd.py: DCNSep, TMB, PCDAlign (with TMNet's temporal
+modulation blocks where asked for; MoTIF does not use them), EasyPCD,
+DeformableConvLSTM and BiDeformableConvLSTM. NHWC throughout.
 """
 
 from __future__ import annotations
@@ -11,8 +11,8 @@ import math
 import torch
 from torch import nn
 
-from motif_tpu_torch.models.layers import (Conv2d, ConvLSTMCell, cast_param,
-                                           lrelu)
+from motif_tpu_torch.models.layers import (Conv2d, ConvLSTMCell, LReLU,
+                                           cast_param, lrelu)
 from motif_tpu_torch.ops import dcn
 from motif_tpu_torch.ops.resize import interpolate_bilinear
 
@@ -52,11 +52,32 @@ def _up2(x):
     return interpolate_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), False)
 
 
+class TMB(nn.Module):
+    """Temporal modulation block: f_process(x) * t_process(t), x (B, H, W,
+    nf), t (B, 1, 1, 1) a time code; the reference hardcodes 64 == nf
+    channels."""
+
+    def __init__(self, nf: int = 64):
+        super().__init__()
+        self.f_process = nn.Sequential(Conv2d(nf, nf, 3, 1, 1), LReLU(),
+                                       Conv2d(nf, nf, 3, 1, 1), LReLU())
+        self.t_process = nn.Sequential(
+            Conv2d(1, nf, 1, 1, 0, bias=False), LReLU(),
+            Conv2d(nf, nf, 1, 1, 0, bias=False), LReLU(),
+            Conv2d(nf, nf, 1, 1, 0, bias=False), LReLU())
+
+    def forward(self, x, t):
+        return self.f_process(x) * self.t_process(t)
+
+
 class PCDAlign(nn.Module):
     """Bidirectional three-level deformable alignment of two [L1, L2, L3]
-    NHWC pyramids; returns cat(y1, y2) on channels."""
+    NHWC pyramids; returns cat(y1, y2) on channels. With `use_time`
+    (TMNet) each level's offsets are modulated by a TMB of the time code,
+    `t` for the first branch and `t_back` for the second (TMB_A_* and
+    TMB_B_*)."""
 
-    def __init__(self, nf: int = 64, groups: int = 8):
+    def __init__(self, nf: int = 64, groups: int = 8, use_time: bool = False):
         super().__init__()
         for s in ("1", "2"):
             for lvl in ("L3", "L2", "L1"):
@@ -70,30 +91,47 @@ class PCDAlign(nn.Module):
                         Conv2d(2 * nf, nf, 3, 1, 1))
                 setattr(self, f"{lvl}_offset_conv3_{s}", Conv2d(nf, nf, 3, 1, 1))
                 setattr(self, f"{lvl}_fea_conv_{s}", Conv2d(2 * nf, nf, 3, 1, 1))
+        self.use_time = use_time
+        if use_time:
+            for ab in ("A", "B"):
+                for lvl in ("l3", "l2", "l1"):
+                    setattr(self, f"TMB_{ab}_{lvl}", TMB(nf))
 
-    def _branch(self, a, b, s):
+    def _branch(self, a, b, s, tt):
         m = lambda name: getattr(self, f"{name}_{s}")  # noqa: E731
+
+        def modulated(off_c, off, lvl):
+            if tt is None:
+                return off_c
+            ab = "A" if s == "1" else "B"
+            return off_c + getattr(self, f"TMB_{ab}_{lvl}")(off, tt)
+
         l3_off = lrelu(m("L3_offset_conv1")(torch.cat([a[2], b[2]], -1)))
-        l3_off_c = lrelu(m("L3_offset_conv2")(l3_off))
+        l3_off_c = modulated(lrelu(m("L3_offset_conv2")(l3_off)), l3_off, "l3")
         l3_fea = lrelu(m("L3_dcnpack")(a[2], l3_off_c))
 
         l2_off = lrelu(m("L2_offset_conv1")(torch.cat([a[1], b[1]], -1)))
         l2_off = lrelu(m("L2_offset_conv2")(
             torch.cat([l2_off, _up2(l3_off_c) * 2.0], -1)))
-        l2_off_c = lrelu(m("L2_offset_conv3")(l2_off))
+        l2_off_c = modulated(lrelu(m("L2_offset_conv3")(l2_off)), l2_off, "l2")
         l2_fea = m("L2_dcnpack")(a[1], l2_off_c)
         l2_fea = lrelu(m("L2_fea_conv")(torch.cat([l2_fea, _up2(l3_fea)], -1)))
 
         l1_off = lrelu(m("L1_offset_conv1")(torch.cat([a[0], b[0]], -1)))
         l1_off = lrelu(m("L1_offset_conv2")(
             torch.cat([l1_off, _up2(l2_off_c) * 2.0], -1)))
-        l1_off_c = lrelu(m("L1_offset_conv3")(l1_off))
+        l1_off_c = modulated(lrelu(m("L1_offset_conv3")(l1_off)), l1_off, "l1")
         l1_fea = m("L1_dcnpack")(a[0], l1_off_c)
         return m("L1_fea_conv")(torch.cat([l1_fea, _up2(l2_fea)], -1))
 
-    def forward(self, fea1, fea2):
-        return torch.cat([self._branch(fea1, fea2, "1"),
-                          self._branch(fea2, fea1, "2")], dim=-1)
+    def forward(self, fea1, fea2, t=None, t_back=None):
+        """`t` / `t_back` (B, 1, 1, 1): the time codes of a use_time PCD,
+        which needs them; None otherwise."""
+        if self.use_time != (t is not None and t_back is not None):
+            raise ValueError("PCDAlign: time codes go with use_time=True, "
+                             "and only there")
+        return torch.cat([self._branch(fea1, fea2, "1", t),
+                          self._branch(fea2, fea1, "2", t_back)], dim=-1)
 
 
 class EasyPCD(nn.Module):

@@ -13,7 +13,9 @@ starts with sin(omega0 * x) and is given the layers after it). In bfloat16
 the products accumulate in float32 and a value is rounded where the JAX
 package's composed bfloat16 path rounds: after the product, after the
 bias, after omega0 * and after the sine. The float32 entries are bit-equal
-to `F.linear` + `sin`. The bfloat16 entries contract on the tensor cores,
+to `F.linear` + `sin`; an MLP too large for one block's shared memory runs
+in several launches (`segments`), and is bit-equal all the same. The
+bfloat16 entries contract on the tensor cores,
 which sum in another order than the plain version: they are held to it by
 accuracy against `siren_mlp_reference64` (`accuracy`, `layer_gate`,
 `mlp_gate`), not by equality.
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -49,7 +52,8 @@ DTYPES = (torch.float32, torch.bfloat16)   # the kernel's entries
 
 _SIGNATURES = {"siren_mlp_forward": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+    ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p]}
 _SIGNATURES_BF16 = {"siren_mlp_bf16_forward": [
@@ -85,8 +89,77 @@ def plan(dims):
             if l < L - 1:
                 rows = max(rows, _pad8(dims[l + 1]))
             l += 1
-    return fused, rows, 4 * (pack_size(dims, torch.float32)
-                             + 2 * rows * TILE)
+    return fused, rows, 4 * (_pack_size_one(dims) + 2 * rows * TILE)
+
+
+class Launch(NamedTuple):
+    """One launch of the float32 kernel within an MLP (`segments`): layers
+    `first` .. `last` - 1, and of the last of them the output columns
+    `cols` (all of them unless the layer is cut into column slices);
+    `dims` its widths, and `fused`, `rows`, `smem` its `plan`."""
+    first: int
+    last: int
+    cols: tuple
+    dims: list
+    fused: list
+    rows: int
+    smem: int
+
+
+def _launch(dims, first, last, cols=None):
+    cols = cols or (0, dims[last])
+    sub = dims[first:last] + [cols[1] - cols[0]]
+    return Launch(first, last, cols, sub, *plan(sub))
+
+
+def _column_slices(dims, l):
+    """Layer l alone in the fewest column slices whose launches fit (each
+    a multiple of 8 columns but the last), or None."""
+    n = dims[l + 1]
+    for parts in range(1, -(-n // 8) + 1):
+        w = _pad8(-(-n // parts))
+        if _launch(dims, l, l + 1, (0, w)).smem <= SMEM_LIMIT:
+            return [_launch(dims, l, l + 1, (c, min(c + w, n)))
+                    for c in range(0, n, w)]
+    return None
+
+
+def segments(dims):
+    """The float32 kernel's launches for layer widths `dims` (d[0] .. d[L];
+    from the pre-activation for the skip-first entry): a list of `Launch`.
+    An MLP whose weights and buffers fit one block's shared memory (every
+    MoTIF SIREN) is one launch. Otherwise it is cut into runs of whole
+    layers that each fit, the activation between two runs written to and
+    read from global memory, and a layer too large alone into column
+    slices, each a launch that reads the layer's whole input and writes its
+    columns of the activation. Of the cuts, the one that moves the fewest
+    activation elements per token (a cut at width d writes d and reads d,
+    a slice reads the input once more), then the fewest launches. Raises
+    where no cut fits (a layer whose input is too wide for even 8 columns
+    of weights)."""
+    L = len(dims) - 1
+    best = [None] * (L + 1)     # (cost, launches) of the cheapest cover
+    best[0] = (0, [])
+    for j in range(1, L + 1):
+        for i in range(j):
+            if best[i] is None:
+                continue
+            run = [_launch(dims, i, j)]
+            if run[0].smem > SMEM_LIMIT:
+                run = _column_slices(dims, i) if j == i + 1 else None
+                if run is None:
+                    continue
+            cost = (best[i][0] + (len(run) - 1) * dims[i]
+                    + (2 * dims[j] if j < L else 0))
+            cand = (cost, best[i][1] + run)
+            if best[j] is None or (cand[0], len(cand[1])) < (
+                    best[j][0], len(best[j][1])):
+                best[j] = cand
+    if best[L] is None:
+        raise ValueError(
+            f"siren_mlp: widths {dims} cannot be cut into launches that fit "
+            f"the {SMEM_LIMIT} B of shared memory a block may use")
+    return best[L][1]
 
 
 def siren_mlp_plain(x: torch.Tensor, weights, biases, omega0: float = 30.0,
@@ -114,14 +187,19 @@ def siren_mlp_plain(x: torch.Tensor, weights, biases, omega0: float = 30.0,
 
 
 def pack_params(weights, biases) -> torch.Tensor:
-    """The float32 kernel's parameter buffer: per layer the weight
-    transposed to (in, out) and zero-padded to a multiple of 8 columns, then
-    the bias zero-padded likewise."""
+    """The float32 kernel's parameter buffer: per launch of `segments`, per
+    layer of it, the weight (its launch's columns) transposed to (in, out)
+    and zero-padded to a multiple of 8 columns, then the bias zero-padded
+    likewise. For an MLP of one launch: every layer so, back to back."""
+    dims = [weights[0].shape[1]] + [w.shape[0] for w in weights]
     parts = []
-    for w, b in zip(weights, biases):
-        n = w.shape[0]
-        parts.append(F.pad(w.t(), (0, _pad8(n) - n)).reshape(-1))
-        parts.append(F.pad(b, (0, _pad8(n) - n)))
+    for s in segments(dims):
+        for l in range(s.first, s.last):
+            c0, c1 = s.cols if l == s.last - 1 else (0, dims[l + 1])
+            w, b = weights[l][c0:c1], biases[l][c0:c1]
+            n = c1 - c0
+            parts.append(F.pad(w.t(), (0, _pad8(n) - n)).reshape(-1))
+            parts.append(F.pad(b, (0, _pad8(n) - n)))
     return torch.cat(parts).contiguous()
 
 
@@ -277,48 +355,65 @@ def _mlp_forward(x, weights, biases, omega0, sine_last, skip_first, packed):
     bf16 = dtype == torch.bfloat16
     if bf16:
         nbuf, smem = plan_bf16(dims, xf.data_ptr() % 16 == 0)
-        what = (f"the weights resident plus {BF16_WARPS} warps' slabs of "
-                f"{BF16_TILE} tokens")
+        if smem > SMEM_LIMIT:
+            raise ValueError(
+                f"siren_mlp: widths {dims} need {smem} B of shared memory "
+                f"(the weights resident plus {BF16_WARPS} warps' slabs of "
+                f"{BF16_TILE} tokens), more than the {SMEM_LIMIT} B a block "
+                "may use")
     else:
-        fused, rows, smem = plan(dims)
-        what = f"the weights resident plus two {rows}x{TILE} activation buffers"
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"siren_mlp: widths {dims} need {smem} B of shared memory "
-            f"({what}), more than the {SMEM_LIMIT} B a block may use")
+        launches = segments(dims)
     if packed is None:
         packed = pack(weights, biases)
     elif packed.dtype != dtype or packed.device != x.device or \
             packed.numel() != pack_size(dims, dtype):
         raise ValueError("siren_mlp: `packed` is not pack(weights, biases)")
-    out = torch.empty((xf.shape[0], dims[-1]), dtype=dtype, device=x.device)
-    c_dims = (ctypes.c_int * len(dims))(*dims)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     stream = kernels.stream_handle(x.device)
+    entry = str(dtype).removeprefix("torch.") + (
+        "/skip_first" if skip_first else "/whole")
     if bf16:
+        out = torch.empty((xf.shape[0], dims[-1]), dtype=dtype,
+                          device=x.device)
         lib = kernels.load("siren_mlp_bf16", _SIGNATURES_BF16)
         err = lib.siren_mlp_bf16_forward(
             xf.data_ptr(), packed.data_ptr(), out.data_ptr(), xf.shape[0],
-            c_dims, len(weights), n_sm, float(omega0), int(sine_last),
-            int(skip_first), nbuf, stream)
-    else:
-        lib = kernels.load("siren_mlp", _SIGNATURES)
-        c_fused = (ctypes.c_int * len(weights))(*fused)
+            (ctypes.c_int * len(dims))(*dims), len(weights), n_sm,
+            float(omega0), int(sine_last), int(skip_first), nbuf, stream)
+        kernels.count("siren_mlp", entry)
+        kernels.check(err, "siren_mlp")
+        return out.reshape(*lead, dims[-1])
+    lib = kernels.load("siren_mlp", _SIGNATURES)
+    h, offset, L = xf, 0, len(weights)
+    for s in launches:
+        if s.cols[0] == 0:      # a new activation (the output at the end)
+            out = torch.empty((xf.shape[0], dims[s.last]), dtype=dtype,
+                              device=x.device)
+        n = len(s.dims) - 1
         err = lib.siren_mlp_forward(
-            xf.data_ptr(), packed.data_ptr(), out.data_ptr(), xf.shape[0],
-            c_dims, c_fused, len(weights), rows, n_sm, float(omega0),
-            int(sine_last), int(skip_first), 0, stream)
-    kernels.count("siren_mlp", str(dtype).removeprefix("torch.")
-                  + ("/skip_first" if skip_first else "/whole"))
-    kernels.check(err, "siren_mlp")
+            h.data_ptr(), packed.data_ptr() + 4 * offset,
+            out.data_ptr() + 4 * s.cols[0], xf.shape[0], dims[s.last],
+            (ctypes.c_int * len(s.dims))(*s.dims),
+            (ctypes.c_int * n)(*s.fused), n, s.rows, n_sm, float(omega0),
+            int(sine_last or s.last < L), int(skip_first and s.first == 0),
+            0, stream)
+        kernels.count("siren_mlp", entry)
+        kernels.check(err, "siren_mlp")
+        offset += _pack_size_one(s.dims)
+        if s.cols[1] == dims[s.last]:
+            h = out
     return out.reshape(*lead, dims[-1])
+
+
+def _pack_size_one(dims) -> int:
+    return sum((k + 1) * _pad8(n) for k, n in zip(dims[:-1], dims[1:]))
 
 
 def pack_size(dims, dtype: torch.dtype) -> int:
     """The length of `pack`'s buffer for widths `dims`."""
     if dtype == torch.bfloat16:
         return layout_bf16(dims)[1]
-    return sum((k + 1) * _pad8(n) for k, n in zip(dims[:-1], dims[1:]))
+    return sum(_pack_size_one(s.dims) for s in segments(dims))
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,10 @@ SSIMs to ./psnrs/<name>.npy and ./psnrs/<name>_ssim.npy. It prints and
 returns `EvalResults.summary()`. The model runs on CUDA unless `--device`
 names another device.
 
+The baselines evaluate the same way (configs/test_vid4_{liif,zsm,tmnet,
+edvr,superslomo}.yml: LIIF, ZSM, TMNet, EDVR, Super_SloMo), each called
+as `Evaluator` calls its family; they report no flow statistics.
+
 A four-anchor model (Ours_44 / Ours_4, e.g. configs/test_vimeo44.yml) on
 `Vimeo_test_44` takes the septuplet window's frames 0, 2, 4, 6 as its LQ
 (`datasets.SEPTUPLET_LQ`): the window's inputs are its two end frames,

@@ -156,22 +156,24 @@ FAMILIES = ["Ours", "Ours_7", "Ours_flow", "Ours_back", "Ours_44", "Ours_4",
 @pytest.mark.parametrize("family", FAMILIES)
 def test_family_dispatch_matches_motif_tpu(family):
     """Every Ours_* but the 4-anchor pair is Ours; Ours_44 / Ours_4 take
-    one time a forward; the baselines raise (not ported). The family never
-    reaches the model as a serving knob."""
+    one time a forward; the baselines are themselves and take every time in
+    one call; an unknown family raises. The family never reaches the model
+    as a serving knob."""
     jev = jeval.Evaluator(None, None, chunk=3, family=family)
     assert resolve_family(family, 3) == (jev.family, jev.chunk)
     four = family in factory.FOUR_ANCHOR
     m = build_motif(CH, FRONT, BACK, device="cpu", decode_chunks=2,
                     n_anchors=4 if four else 2)
     knobs = m.knobs()
-    if jev.family.startswith("Ours"):
+    if family == "VSR":
+        with pytest.raises(NotImplementedError, match="not known"):
+            Evaluator(m, family=family, device="cpu")
+    else:
         ev = Evaluator(m, family=family, device="cpu")
         assert (ev.family, ev.chunk) == (jev.family, jev.chunk)
-        assert ev.chunk == (1 if four else 3)
-    else:
-        want = {"VSR": "not known"}.get(family, "A.9")
-        with pytest.raises(NotImplementedError, match=want):
-            Evaluator(m, family=family, device="cpu")
+        assert ev.chunked == jev._chunked
+        if ev.chunked:
+            assert ev.chunk == (1 if four else 3)
     assert m.knobs() == knobs
 
 
@@ -250,14 +252,21 @@ def test_define_g_reads_the_serving_knobs_as_motif_tpu():
 
 @pytest.mark.parametrize("which,setting,want", [
     ("Ours", 3, "A.8"), ("Ours_44", 3, "A.8"), ("Ours_4", 6, "A.8"),
-    ("Ours_7", 5, "A.8"), ("Ours_flow", 5, "A.8"), ("LIIF", 5, "A.9"),
-    ("ZSM", 5, "A.9"), ("Zooming", 5, "A.9"), ("TMNet", 5, "A.9"),
-    ("EDVR", 5, "A.9"), ("Super_SloMo", 5, "A.9"), ("VSR", 5, "not recognized"),
+    ("Ours_7", 5, "A.8"), ("Ours_flow", 5, "A.8"), ("LIIF", 3, None),
+    ("ZSM", 3, None), ("Zooming", 3, None), ("TMNet", 3, None),
+    ("EDVR", 3, None), ("Super_SloMo", 3, None), ("VSR", 5, "not recognized"),
 ])
 def test_define_g_raises_for_what_is_not_ported(which, setting, want):
+    """What is not ported raises and names its ROADMAP entry; the baselines
+    build whatever `setting` says (the JAX package reads it for MoTIF
+    only), at nf 16 here."""
+    net = _network_g(which_model_G=which, setting=setting)
+    if want is None:
+        m = factory.define_g(net | {"nf": 16}, device="cpu")
+        assert type(m).__name__ == type(jfactory.define_g(net)).__name__
+        return
     with pytest.raises(NotImplementedError, match=want):
-        factory.define_g(_network_g(which_model_G=which, setting=setting),
-                         device="cpu")
+        factory.define_g(net, device="cpu")
 
 
 def test_cli_equals_evaluator_run(tmp_path, monkeypatch):

@@ -673,8 +673,11 @@ def test_siren_mlp_other_widths(dev, dims, sine_last):
 
 
 def test_siren_mlp_too_wide_raises(dev):
-    ws, bs, g = _siren(dev, [64, 256, 256, 3])
-    x = torch.zeros((10, 64), device=dev)
+    """A layer whose input is too wide for even 8 columns of weights in a
+    block cannot be cut into launches: it raises before any launch (an MLP
+    merely too large for one block runs in several, below)."""
+    ws, bs, g = _siren(dev, [6000, 8])
+    x = torch.zeros((10, 6000), device=dev)
     before = kernels.LAUNCHES["siren_mlp"]
     with pytest.raises(ValueError, match="shared memory"):
         siren_kernel.siren_mlp(x, ws, bs)
@@ -1132,3 +1135,104 @@ def test_siren_mlp_at_the_ours44_training_step(dev):
     want = _grads(run(siren_kernel.siren_mlp_plain), (x, *ws, *bs), cot)
     for k, (a, c) in enumerate(zip(got, want)):
         _grad_close(a, c, k)
+
+
+# ---------------------------------------------------------------------------
+# The baselines: the float32 SIREN cut into launches at VideoINR's widths,
+# the DCN at EDVR's 16 channels a group, one forward of each family.
+# ---------------------------------------------------------------------------
+
+VIDEOINR_MLPS = [[201, 64, 64, 256, 64], [263, 64, 64, 256, 4],
+                 [525, 64, 64, 256, 256, 3]]
+
+
+@pytest.mark.parametrize("dims", VIDEOINR_MLPS,
+                         ids=lambda d: "-".join(map(str, d)))
+@pytest.mark.parametrize("sine_last", [False, True])
+def test_siren_mlp_videoinr_widths(dev, dims, sine_last):
+    """VideoINR's SIRENs, two of them larger than one block's shared
+    memory, over a token count that is not a tile multiple: one launch per
+    entry of `segments`, each counted; the result within 1e-5 of the
+    plain version (the cut keeps every output's k order)."""
+    ws, bs, g = _siren(dev, dims)
+    x = torch.rand((5001, dims[0]), device=dev, generator=g) * 2 - 1
+    got, n = _launches("siren_mlp", lambda: siren_kernel.siren_mlp(
+        x, ws, bs, 30.0, sine_last))
+    assert n == len(siren_kernel.segments(dims))
+    want = siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, sine_last)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_siren_mlp_cut_replays_from_a_cuda_graph(dev):
+    """encode_imnet's five launches captured and replayed on new tokens."""
+    dims = VIDEOINR_MLPS[2]
+    ws, bs, g = _siren(dev, dims)
+    x = torch.rand((3000, dims[0]), device=dev, generator=g) * 2 - 1
+    packed = siren_kernel.pack(ws, bs)
+    new = [torch.rand(x.shape, device=dev, generator=g) * 2 - 1
+           for _ in range(2)]
+    for out, x_new in zip(_replayed(lambda: siren_kernel.siren_mlp(
+            x, ws, bs, packed=packed), [x], [[t] for t in new]), new):
+        torch.testing.assert_close(
+            out, siren_kernel.siren_mlp_plain(x_new, ws, bs), rtol=0,
+            atol=1e-5)
+
+
+@pytest.mark.parametrize("H,W", [(64, 112), (32, 56), (16, 28)],
+                         ids=["L1", "L2", "L3"])
+def test_dcn_im2col_edvr_groups(dev, H, W):
+    """EDVR's DCNs: nf 128 in 8 groups of 16 channels (the kernel's generic
+    4-wide path), at the PCD's three levels of a 64x112 request's two
+    frames. atol 1e-5."""
+    x, off, mask = _dcn_inputs(dev, 2, H, W, 8, 16, 3, 1, 1, 1, True)
+    got, n = _launches("dcn_im2col", lambda: dcn.dcn_im2col(
+        x, off, mask, 3, 1, 1, 1, 8))
+    assert n == 1
+    torch.testing.assert_close(
+        got, dcn.dcn_im2col_plain(x, off, mask, 3, 1, 1, 1, 8), rtol=0,
+        atol=1e-5)
+
+
+BASELINE_LAUNCHES = {  # one forward on 2 frames of 16x24, 3 times
+    "LIIF": {"dcn_im2col": 42, "siren_mlp": 3 * 8},
+    "ZSM": {"dcn_im2col": 42}, "TMNet": {"dcn_im2col": 44},
+    "EDVR": {"dcn_im2col": 4}, "Super_SloMo": {}}
+
+
+@pytest.mark.parametrize("family", list(BASELINE_LAUNCHES))
+def test_baseline_forward_matches_the_plain_versions(dev, family):
+    """Each baseline at its yml's width (configs/test_vid4_*.yml; 1 / 1
+    residual blocks), DCN offsets perturbed, through Evaluator.infer on 2
+    LQ frames of 16x24 → 3 times at 64x96: its kernels launch as counted,
+    and the frames hold against the plain versions to 1e-5."""
+    from motif_tpu_torch.eval import Evaluator
+    from motif_tpu_torch.models.factory import build_baseline
+    from motif_tpu_torch.models.pcd import DCNSep
+    from motif_tpu_torch.utils import config
+
+    name = {"LIIF": "liif", "ZSM": "zsm", "TMNet": "tmnet", "EDVR": "edvr",
+            "Super_SloMo": "superslomo"}[family]
+    yml = (pathlib.Path(__file__).resolve().parents[1] / "configs"
+           / f"test_vid4_{name}.yml")
+    net = config.parse(str(yml), is_train=False)["network_G"]
+    model = build_baseline(net | {"front_RBs": 1, "back_RBs": 1}, dev)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, DCNSep):
+                w, b = mod.conv_offset_mask.weight, mod.conv_offset_mask.bias
+                w.copy_(torch.randn(w.shape, generator=g) * 0.01)
+                b.copy_(torch.randn(b.shape, generator=g))
+    ev = Evaluator(model, family=family, device=dev)
+    rng = np.random.default_rng(0)
+    lq = rng.random((1, 2, 16, 24, 3), np.float32)
+    times = np.float32([[0.0, 0.5, 1.0]])
+    before = dict(kernels.LAUNCHES)
+    got, stats = ev.infer(lq, times, (64, 96))
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == BASELINE_LAUNCHES[family] and stats is None
+    with _plain_versions():
+        want, _ = ev.infer(lq, times, (64, 96))
+    assert got.shape == (3, 1, 64, 96, 3) and np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 1e-5
