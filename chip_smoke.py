@@ -93,13 +93,27 @@ Phases, each fatal on failure:
      depths (EDVR nf 128), random weights, DCN offsets perturbed: a request
      each (2 LQ frames 64x112 -> 256x448, 3 times) counted alone (the
      family's DCNs; VideoINR's SIRENs, cut into 8 launches a time), held
-     against its plain versions (1e-5), timed and profiled; the eval CLI
+     against its plain versions (1e-5), timed; the eval CLI
      over the family's yml on one Vid4 clip from a reference-format .pth
      against its plain versions (EVAL_GATES fp32); then the DCN at EDVR's
      16 channels a group (L1 - L3) and the float32 SIREN at VideoINR's
      three widths over a request's 114,688 tokens (a cut MLP also launch
-     by launch). Every training gate also prints, ungated, the plain step
-     against itself.
+     by launch).
+Every request goes through Evaluator.infer, which on CUDA replays one
+captured CUDA graph per shape bucket: each request of phases 4, 8 and 9 is
+also held, replayed, against the same request run eagerly (`_infer_eager`,
+at the request's own gate, beside the distance of two eager runs and their
+share of bit-equal frames), timed eager and captured in turns, with the
+device's busy share of a captured request from its graph's replays timed
+by CUDA events (torch.profiler segfaulted on replays), and requests (a)
+and (e) profiled eagerly (device kernels, copies); request (e)
+is replayed once more under torch.cuda.set_sync_debug_mode("error"). The
+eval CLI's round trip: the models root the training CLI of phase 7 wrote,
+its newest step file and the random init, through `--checkpoint`. The
+training gates start from a state reached by a warm-up and three steps on
+the plain versions under torch's deterministic algorithms, the same bit
+for bit in every run (its hash is printed); two plain steps from it must
+be bit-equal, and each gate also prints that.
 Exits non-zero without CUDA or without the package beside it.
 """
 
@@ -107,6 +121,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import faulthandler
+import hashlib
 import json
 import os
 import subprocess
@@ -114,8 +131,12 @@ import sys
 import time
 from unittest import mock
 
-import numpy as np
-import torch
+# cuBLAS is deterministic under torch's deterministic algorithms only with
+# a fixed workspace, set before CUDA starts (the training gates' state)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 (non-tensor),
 # dense bf16 on the tensor cores
@@ -867,15 +888,112 @@ def build_request(dev, **knobs):
     return model, n_dcn, ev, rng, lq_a, t3
 
 
-def time_request(ev, lq, times, n, out_hw=(256, 448)):
-    """Wall milliseconds of n runs of one request, each ending in the
-    frames' copy to the host."""
+def time_request(infer, lq, times, n, out_hw=(256, 448)):
+    """Wall milliseconds of n runs of one request through `infer` (an
+    Evaluator's `infer`, or `eager(ev)`), each ending in the frames' copy
+    to the host."""
     ts = []
     for _ in range(n):
         t = time.perf_counter()
-        ev.infer(lq, times, out_hw)
+        infer(lq, times, out_hw)
         ts.append((time.perf_counter() - t) * 1e3)
     return ts
+
+
+def eager(ev):
+    """The Evaluator's eager request (`_infer_eager`: every chunk's forward
+    run eagerly, no bucket), the reference of the captured one, which the
+    plain versions, hooks and spies need (a replay runs none of them); an
+    older checkout's `infer`, which is eager."""
+    return getattr(ev, "_infer_eager", ev.infer)
+
+
+def pool_bytes(ev):
+    """The bytes the Evaluator's buckets hold in their shared CUDA-graph
+    memory pool (its segments' size), or None without a pool."""
+    pool = getattr(ev, "_pool", None)
+    if pool is None:
+        return None
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def graph_ms(ev, lq, times, out_hw, reps=5):
+    """Device ms of one replay of the graph of the request's bucket, by
+    CUDA events over `reps` replays back to back (a replay's kernels run
+    with no host gap between them), and the request's chunks. torch.profiler
+    is not used on replays: CUPTI segfaulted the process in them (PERF.md
+    §7)."""
+    lq_p, chunks, _, hw = ev._plan(lq, times)
+    graph = ev._buckets[ev._key(lq_p.shape, chunks[0].shape, hw)].graph
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, len(chunks)
+
+
+def hold_replay(ev, lq, times, name, tol, stats_rtol, card,
+                out_hw=(256, 448), n=5):
+    """Request `name` replayed from its bucket's graph against the same
+    request run eagerly: the frames within `tol` and the flow statistics
+    within `stats_rtol` (the request's own gates), beside the distance of
+    two eager runs and the share of frames bit-equal to the first eager
+    run's; then eager and captured timed in turns (n each, twice), and the
+    device's busy share of a captured request: its chunks' graph replays
+    (`graph_ms`) over its median wall time. Returns the line it prints."""
+    first, _ = ev.infer(lq, times, out_hw)       # captures a new bucket
+    got, stats = ev.infer(lq, times, out_hw)
+    ref, stats_ref = eager(ev)(lq, times, out_hw)
+    ref2, _ = eager(ev)(lq, times, out_hw)
+
+    def dist(a):
+        return float(np.abs(a - ref).max())
+
+    def bit_equal(a):
+        return float(np.mean([np.array_equal(x, y) for x, y in zip(
+            a.reshape(-1, *a.shape[2:]), ref.reshape(-1, *ref.shape[2:]))]))
+    stats_err = None if stats is None else max(
+        abs(a - b) / abs(b) for a, b in zip(stats, stats_ref))
+    e1 = time_request(eager(ev), lq, times, n, out_hw)
+    c1 = time_request(ev.infer, lq, times, n, out_hw)
+    c2 = time_request(ev.infer, lq, times, n, out_hw)
+    e2 = time_request(eager(ev), lq, times, n, out_hw)
+    g_ms, chunks = graph_ms(ev, lq, times, out_hw)
+    captured = float(np.median(c1 + c2))
+    line = {"phase": "replay", "request": name, "card": card,
+            "max_abs_err": dist(got), "tol": tol,
+            "first_request_max_abs_err": dist(first),
+            "eager_twice_max_abs_err": dist(ref2),
+            "bit_equal_frames": bit_equal(got),
+            "eager_twice_bit_equal_frames": bit_equal(ref2),
+            "flow_stats_max_rel_err": stats_err,
+            "flow_stats_rtol": stats_rtol,
+            "eager_ms_median": float(np.median(e1 + e2)),
+            "eager_ms_range": [min(e1 + e2), max(e1 + e2)],
+            "captured_ms_median": captured,
+            "captured_ms_range": [min(c1 + c2), max(c1 + c2)],
+            "eager_ms": e1 + e2, "captured_ms": c1 + c2,
+            "graph_device_ms": g_ms, "chunks": chunks,
+            "device_busy_ms": chunks * g_ms,
+            "device_busy_share": chunks * g_ms / captured,
+            "buckets": len(getattr(ev, "_buckets", {})),
+            "pool_bytes": pool_bytes(ev),
+            "note": "Evaluator.infer wall ms incl. the frames' copy to the "
+                    "host, eager and captured in turns: e, c, c, e; busy = "
+                    "chunks x graph_device_ms (CUDA events) / captured "
+                    "median"}
+    emit(line)
+    if not (dist(got) <= tol and dist(first) <= tol
+            and (stats is None or stats_err <= stats_rtol)):
+        raise AssertionError(f"request ({name}) replayed against eager: "
+                             f"{dist(got)}, first {dist(first)} (tol {tol}); "
+                             f"flow stats rel {stats_err} (rtol {stats_rtol})")
+    return line
 
 
 def psnr(a, b) -> float:
@@ -897,18 +1015,18 @@ def hold_against(name, frames, ref, tol, min_psnr=None):
 
 
 def slice_vs_plain(ev, model, lq, times, name, tol, stats_rtol, mods):
-    """One request against the same forward with the plain versions: the
-    frames, the synthesis output before the clip (most frames clip with
-    random weights; every forward of the request) and the flow
-    statistics."""
+    """One request against the same forward with the plain versions, both
+    run eagerly: the frames, the synthesis output before the clip (most
+    frames clip with random weights; every forward of the request) and the
+    flow statistics."""
     softsplat, dcn, siren_kernel, kernels = mods
     pre_clip = []
     hook = model.synth_net.register_forward_hook(
         lambda mod, inp, out: pre_clip.append(out.double().cpu()))
-    f_k, stats_k = ev.infer(lq, times, (256, 448))   # kernels, hooked
+    f_k, stats_k = eager(ev)(lq, times, (256, 448))   # kernels, hooked
     with plain_versions(softsplat, dcn, siren_kernel):
         kernels.reset_launches()
-        f_plain, stats_plain = ev.infer(lq, times, (256, 448))
+        f_plain, stats_plain = eager(ev)(lq, times, (256, 448))
         if any(kernels.LAUNCHES.values()):
             raise AssertionError("the plain forward launched a kernel")
     hook.remove()
@@ -943,7 +1061,7 @@ def capture_splat(ev, softsplat, lq, times):
                          scatter_dtype))
         return splat(img, flow, z, z_nonpositive, scatter_dtype)
     with mock.patch.object(softsplat, "splat_fused", spy):
-        ev.infer(lq, times, (256, 448))
+        eager(ev)(lq, times, (256, 448))
     return captured[0]
 
 
@@ -1073,35 +1191,64 @@ def run_slice(dev, args, card):
     check_splat_request(softsplat, kernels,
                         capture_splat(ev_s, softsplat, lq_a, t3), "e")
 
-    # ---- time requests (a) and (e), in turns, and (a)'s plain forward ----
-    a1 = time_request(ev, lq_a, t3, 5)
-    e1 = time_request(ev_s, lq_a, t3, 5)
+    # ---- every request replayed against eager, timed in turns, and one
+    # captured request of each profiled; the fp32 ones at (a)'s gate, the
+    # bfloat16 ones at (e)'s ----
+    fp32, low = (1e-5, 1e-5), (6e-2, 1e-2)
+    # (b)-(d) and the knob requests (e3), (f), (g): timed 2 + 2 a way (the
+    # smoke's time)
+    replay = {"a": hold_replay(ev, lq_a, t3, "a", *fp32, card)}
+    hold_replay(ev, lq_a, t7, "b", *fp32, card, n=2)
+    hold_replay(ev, lq_c, t3, "c", *fp32, card, (248, 440), n=2)
+    with torch.no_grad():
+        model.alpha.fill_(0.05)
+    hold_replay(ev, lq_a, t3, "d", *fp32, card, n=2)
+    with torch.no_grad():
+        model.alpha.fill_(-20.0)
+    replay["e"] = hold_replay(ev_s, lq_a, t3, "e", *low, card)
+    # request (e) replayed with every synchronising call an error: only
+    # the final event's wait may block
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev_s.infer(lq_a, t3, (256, 448))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    emit({"phase": "sync_debug", "request": "e", "mode": "error",
+          "raised": False})
+    for name, knobs, gate in (("e3", dict(SERVING, decode_chunks=3), low),
+                              ("f", dict(fused_decode=True), fp32),
+                              ("g", dict(compute_dtype="bfloat16"), low)):
+        model_s.configure(**knobs)
+        hold_replay(ev_s, lq_a, t3, name, *gate, card, n=2)
+    model_s.configure(**SERVING)
+
+    # ---- (a)'s plain forward, timed eagerly; the requests' eager
+    # profiles beside the captured ones ----
     with plain_versions(softsplat, dcn, siren_kernel):
-        p1 = time_request(ev, lq_a, t3, 3)
-    e2 = time_request(ev_s, lq_a, t3, 5)
-    a2 = time_request(ev, lq_a, t3, 5)
-    with plain_versions(softsplat, dcn, siren_kernel):
-        p2 = time_request(ev, lq_a, t3, 3)
-    fwd_ms = float(np.median(a1 + a2))
-    plain_ms = float(np.median(p1 + p2))
-    emit({"phase": "request_a_time", "card": card,
-          "forward_ms_median": fwd_ms, "hr_frames_per_s": 3e3 / fwd_ms,
-          "forward_ms": a1 + a2, "plain_forward_ms_median": plain_ms,
-          "plain_forward_ms": p1 + p2,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "note": "Evaluator.infer wall time incl. host copy-out, fp32, "
-                  "TF32 off, iters=4, LQ 64x112 -> HR 256x448, 3 times"})
-    e_ms = float(np.median(e1 + e2))
-    emit({"phase": "request_e_time", "card": card,
-          "forward_ms_median": e_ms, "hr_frames_per_s": 3e3 / e_ms,
-          "forward_ms": e1 + e2, "request_a_forward_ms_median": fwd_ms,
-          "knobs": SERVING,
-          "note": "request (a)'s inputs through the serving configuration, "
-                  "timed in turns with request (a): a, e, e, a"})
+        p1 = time_request(eager(ev), lq_a, t3, 3)
+        p2 = time_request(eager(ev), lq_a, t3, 3)
+    for name, r in replay.items():
+        ms = r["captured_ms_median"]
+        emit({"phase": f"request_{name}_time", "card": card,
+              "forward_ms_median": ms, "hr_frames_per_s": 3e3 / ms,
+              "forward_ms": r["captured_ms"],
+              "eager_ms_median": r["eager_ms_median"],
+              "eager_hr_frames_per_s": 3e3 / r["eager_ms_median"],
+              "plain_forward_ms_median": (float(np.median(p1 + p2))
+                                          if name == "a" else None),
+              "plain_forward_ms": p1 + p2 if name == "a" else None,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "knobs": SERVING if name == "e" else {},
+              "device_busy_share": r["device_busy_share"],
+              "profile_eager": profile_request(
+                  eager(ev if name == "a" else ev_s), lq_a, t3, args.profile,
+                  f"{name}_eager"),
+              "note": "Evaluator.infer wall time incl. host copy-out, TF32 "
+                      "off, iters=4, LQ 64x112 -> HR 256x448, 3 times; "
+                      "captured and eager (`replay` line), plain eagerly"})
 
     if args.profile:
-        profile_request(ev, lq_a, t3, args.profile, "a")
-        profile_request(ev_s, lq_a, t3, args.profile, "e")
         sass_counts(kernels, args.profile)
     return launches, entry_launches, per_request, entries
 
@@ -1396,7 +1543,8 @@ def eval_bench_shape(dev, card, pth, mods):
         emit({"phase": "eval_bench_shape", "config": config, "card": card,
               "clips": len(clips), "summary": s,
               "clip_infer_s": infer_s, "clip_metrics_s": metrics_s,
-              "launches": launches,
+              "launches": launches, "buckets": len(ev._buckets),
+              "pool_bytes": pool_bytes(ev),
               "note": f"Evaluator.run, LQ 1x4x{h}x{w} -> GT 1x5x{4 * h}x"
                       f"{4 * w}, 3 times, iters 4; host clock; metrics = from "
                       "infer's return to the next clip (L1, Y-PSNR, 3 SSIMs)"})
@@ -1680,39 +1828,133 @@ def train_steps_by_part(dev, opt, card, tag, ds_extra=None):
     return tr, model, batches
 
 
-def train_gates(tr, model, batch, mods, card, tag):
-    """A step of the kernels against the same step with the plain
-    versions, same weights and batch, for use_gt True and False (the loss
-    and every gradient, TRAIN_GATES), every kernel's upstream parameters
-    with a non-zero gradient. Returns the plain use_gt=False gradients."""
+def checkpoint_round_trip(tmp, models, card):
+    """The eval CLI (test.yml, fp32, one Vid4 clip) through `--checkpoint`
+    on the models root the training CLI wrote (read at its newest step), on
+    that step's file and on a path that does not exist (the random init
+    from seed 0, the weights the training started from): the root and the
+    file give the same frames (EVAL_GATES fp32), the init other frames."""
+    from motif_tpu_torch import checkpoint
+
+    ymls, _ = eval_ymls(tmp)
+    step = checkpoint.latest_step(models)
+    frames, summaries = {}, {}
+    for what, path in (("root", models),
+                       ("step", os.path.join(models, f"step_{step}")),
+                       ("init", os.path.join(tmp, "absent.pth"))):
+        summaries[what], clock = cli_run(tmp, ymls["fp32"], path, clips=1)
+        frames[what] = clock.frames[0]
+    same = float(np.abs(frames["root"] - frames["step"]).max())
+    moved = float(np.abs(frames["root"] - frames["init"]).max())
+    emit({"phase": "checkpoint_round_trip", "card": card, "step": step,
+          "root_vs_step_max_abs_err": same,
+          "tol": EVAL_GATES["fp32"]["frames"],
+          "trained_vs_init_max_abs": moved, "min_trained_vs_init": 1e-3,
+          "psnr": {k: v["psnr"] for k, v in summaries.items()}})
+    if not (same <= EVAL_GATES["fp32"]["frames"] and moved > 1e-3):
+        raise AssertionError(f"eval CLI --checkpoint: the models root against "
+                             f"its step file {same}, the trained frames "
+                             f"against the init's {moved}")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms and cuDNN's, as the training gates'
+    state needs them: an op without a deterministic CUDA path raises."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(
+            torch.uint8).numpy())
+    return h.hexdigest()[:16]
+
+
+def gate_state(dev, opt, mods, ds_extra=None):
+    """The state the training gates start from, the same bit for bit in
+    every run: the yml's model from seed 0, a Trainer from seed 0, the
+    loader's order and the dataset's augmentation draws from seed 0, a
+    warm-up step and three steps on the plain versions under
+    `deterministic()`. Returns (trainer, model, the next batch, the hashes
+    of the parameters and of that batch)."""
+    from motif_tpu_torch.data import BatchLoader, create_dataset, \
+        device_prefetch
+    from motif_tpu_torch.models.factory import define_g
+    from motif_tpu_torch.trainer import Trainer
+    from motif_tpu_torch.utils import config as cfg
+
     softsplat, dcn, siren_kernel, _ = mods
+    net = opt["network_G"]
+    model = define_g(net, device=dev)
+    ds_opt = {**opt["datasets"]["train"], **(ds_extra or {})}
+    gt = ds_opt["GT_size"]
+    ds = dataclasses.replace(create_dataset(ds_opt), seed=0)
+    loader = BatchLoader(ds, batch_size=ds_opt["batch_size"], shuffle=True,
+                         seed=0, epoch_ratio=opt["dataset_ratio"])
+    batches = device_prefetch(loader.epoch(0), dev)
+    tr = Trainer(model, cfg.trainer_config_from_opt(opt), (gt, gt),
+                 iters=net["iters"], seed=0, family=net["which_model_G"])
+    with plain_versions(softsplat, dcn, siren_kernel), deterministic():
+        for _ in range(4):
+            tr.step(next(batches))
+    batch = next(batches)
+    batches.close()
+    arrays = [torch.as_tensor(v) for _, v in sorted(batch.items())
+              if isinstance(v, (torch.Tensor, np.ndarray))]
+    return tr, model, batch, {"params": digest(tr.params),
+                              "batch": digest(arrays)}
+
+
+def train_gates(dev, opt, mods, card, tag, ds_extra=None):
+    """At `gate_state`'s state (its hashes printed), a step of the kernels
+    against the same step with the plain versions, same weights and batch,
+    for use_gt True and False (the loss and every gradient, TRAIN_GATES),
+    every kernel's upstream parameters with a non-zero gradient; all under
+    `deterministic()`, where two plain steps must be bit-equal. Returns
+    the trainer, model and batch, the plain use_gt=False gradients and
+    aux."""
+    softsplat, dcn, siren_kernel, _ = mods
+    t0 = time.perf_counter()
+    tr, model, batch, hashes = gate_state(dev, opt, mods, ds_extra)
+    state_s = time.perf_counter() - t0
     for use_gt in (True, False):
-        aux = tr.compute_grads(batch, use_gt)
-        got = [p.grad.clone() for p in tr.params]
-        nonzero = upstream_nonzero(model)
-        with plain_versions(softsplat, dcn, siren_kernel):
-            again = tr.compute_grads(batch, use_gt)
-            twice = [p.grad.clone() for p in tr.params]
-            plain = tr.compute_grads(batch, use_gt)
-        want = [p.grad.clone() for p in tr.params]
+        with deterministic():
+            aux = tr.compute_grads(batch, use_gt)
+            got = [p.grad.clone() for p in tr.params]
+            nonzero = upstream_nonzero(model)
+            with plain_versions(softsplat, dcn, siren_kernel):
+                again = tr.compute_grads(batch, use_gt)
+                twice = [p.grad.clone() for p in tr.params]
+                plain = tr.compute_grads(batch, use_gt)
+            want = [p.grad.clone() for p in tr.params]
         gate = grad_gate(model, got, want, float(aux["loss"]),
                          float(plain["loss"]))
-        # read, not gated: the plain step against itself (the backward's
-        # own run-to-run distance, ROADMAP.md §C.10)
-        self_gate = grad_gate(model, twice, want, float(again["loss"]),
-                              float(plain["loss"]))
+        bit_equal = float(again["loss"]) == float(plain["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(twice, want))
         emit({"phase": f"{tag}_gate", "use_gt": use_gt, "card": card,
-              "loss": float(aux["loss"]), "plain_loss": float(plain["loss"]),
-              "gates": TRAIN_GATES, "upstream_nonzero": nonzero, **gate,
-              "plain_twice_grad_rel": self_gate["grad_rel"],
-              "plain_twice_grad_rel_at": self_gate["grad_rel_at"]})
+              "state_sha256": hashes, "state_seconds": state_s,
+              "loss": float(aux["loss"]),
+              "plain_loss": float(plain["loss"]), "gates": TRAIN_GATES,
+              "upstream_nonzero": nonzero, **gate,
+              "plain_twice_bit_equal": bit_equal})
+        if not bit_equal:
+            raise AssertionError(f"{tag}: two plain steps with use_gt="
+                                 f"{use_gt} from the gate's state differ")
         if not gate["ok"]:
             raise AssertionError(f"{tag}: the step with use_gt={use_gt} "
                                  f"fails its gate {gate}")
         if not all(nonzero.values()):
             raise AssertionError(f"{tag}: a kernel cut the gradient "
                                  f"{nonzero}")
-    return want, plain
+    return tr, model, batch, want, plain
 
 
 def run_train(dev, card, args, mods):
@@ -1721,7 +1963,8 @@ def run_train(dev, card, args, mods):
     them; a Trainer's step split by part, peak memory and HR frames/s; one
     profiled step; the gradient gate against the plain versions for both
     teacher-forcing branches, refusing a splat backward that drops the
-    flow gradient."""
+    flow gradient; the eval CLI on the models the training CLI wrote
+    (`checkpoint_round_trip`)."""
     import tempfile
 
     from motif_tpu_torch.utils import config as cfg
@@ -1742,11 +1985,14 @@ def run_train(dev, card, args, mods):
         emit({"phase": "train_profile", "card": card,
               "plain_backward": back, "profiled_step": prof_stats})
 
+        batches.close()
+        del tr, model
+
         # ---- the gradient gate, and a planted fault: a splat backward
         # that drops the flow gradient ----
-        batch = next(batches)
-        want, plain = train_gates(tr, model, batch, mods, card, "train")
-        with _drop_flow_grad(softsplat):
+        tr, model, batch, want, plain = train_gates(dev, opt, mods, card,
+                                                    "train")
+        with _drop_flow_grad(softsplat), deterministic():
             aux = tr.compute_grads(batch, False)
         fault = grad_gate(model, [p.grad.clone() for p in tr.params], want,
                           float(aux["loss"]), float(plain["loss"]))
@@ -1755,8 +2001,8 @@ def run_train(dev, card, args, mods):
         if fault["ok"]:
             raise AssertionError("train: the gate passed a splat backward "
                                  "that drops the flow gradient")
-        batches.close()
         del tr, model
+        checkpoint_round_trip(tmp, opt["path"]["models"], card)
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t0
     emit({"phase": "train", "seconds": seconds})
@@ -1816,13 +2062,13 @@ def raft_counter(model):
     return calls, hook
 
 
-def run_requests44(dev, card, mods, profile=None):
+def run_requests44(dev, card, mods):
     """Requests (h) (fp32) and (i) (the serving knobs): four LQ frames of
     64x112 -> 256x448, 3 times, iters 4, each time its own forward with
     RAFT on the 12 cross pairs. Each counted alone; (i) against (h), each
-    against its plain versions; both timed in turns; profiled into the
-    directory `profile` when given. Returns the entries each launched and
-    the DCNs of one forward."""
+    against its plain versions; each replayed against eager and timed
+    eager and captured in turns. Returns the entries each launched and the
+    DCNs of one forward."""
     softsplat, dcn, siren_kernel, kernels = mods
     t0 = time.perf_counter()
     model_h, ev_h = build_request44(dev)
@@ -1831,13 +2077,15 @@ def run_requests44(dev, card, mods, profile=None):
     t3 = np.linspace(0, 1, 3, dtype=np.float32)[None]
     entries, rafts, frames = {}, {}, {}
     for name, model, ev in (("h", model_h, ev_h), ("i", model_i, ev_i)):
-        calls, hook = raft_counter(model)
         kernels.reset_launches()
         frames[name], _ = ev.infer(lq, t3, (256, 448))
         entries[name] = dict(kernels.ENTRY_LAUNCHES)
+        check_frames(name, frames[name], (3, 1, 256, 448, 3))
+        # RAFT's batches, on an eager request (a replay runs no hook)
+        calls, hook = raft_counter(model)
+        eager(ev)(lq, t3, (256, 448))
         hook.remove()
         rafts[name] = calls
-        check_frames(name, frames[name], (3, 1, 256, 448, 3))
     dcns = entries["h"].get("dcn_im2col/float32", 0) // 3
     want = {"h": times_n(per_forward(dcns, "fp32"), 3),
             "i": times_n(per_forward(dcns, "serving"), 3)}
@@ -1856,23 +2104,21 @@ def run_requests44(dev, card, mods, profile=None):
     check_splat_request(softsplat, kernels,
                         capture_splat(ev_i, softsplat, lq, t3), "i")
 
-    h1 = time_request(ev_h, lq, t3, 5)
-    i1 = time_request(ev_i, lq, t3, 5)
-    i2 = time_request(ev_i, lq, t3, 5)
-    h2 = time_request(ev_h, lq, t3, 5)
-    h_ms = float(np.median(h1 + h2))
-    for name, runs, knobs in (("h", h1 + h2, {}), ("i", i1 + i2, SERVING)):
-        ms = float(np.median(runs))
+    replay = {"h": hold_replay(ev_h, lq, t3, "h", 1e-5, 1e-5, card),
+              "i": hold_replay(ev_i, lq, t3, "i", 6e-2, 1e-2, card)}
+    for name, knobs in (("h", {}), ("i", SERVING)):
+        r = replay[name]
+        ms = r["captured_ms_median"]
         emit({"phase": f"request_{name}_time", "card": card, "model": FOUR,
               "forward_ms_median": ms, "hr_frames_per_s": 3e3 / ms,
-              "forward_ms": runs, "request_h_forward_ms_median": h_ms,
+              "forward_ms": r["captured_ms"],
+              "eager_ms_median": r["eager_ms_median"],
+              "eager_hr_frames_per_s": 3e3 / r["eager_ms_median"],
               "knobs": knobs, "launches_per_request": entries[name],
+              "device_busy_share": r["device_busy_share"],
               "note": "Evaluator.infer wall time incl. host copy-out, TF32 "
                       "off, iters 4, LQ 4x64x112 -> HR 256x448, 3 times one "
-                      "a forward; timed in turns: h, i, i, h"})
-    if profile:
-        profile_request(ev_h, lq, t3, profile, "h")
-        profile_request(ev_i, lq, t3, profile, "i")
+                      "a forward; captured and eager in turns (`replay`)"})
     del model_h, model_i, ev_h, ev_i
     torch.cuda.empty_cache()
     return entries, dcns
@@ -1972,9 +2218,11 @@ def run_train44(dev, card, mods, dcns, profile=None):
                                                             "ours44"), mods)
             emit({"phase": "train44_profile", "card": card,
                   "plain_backward": back, "profiled_step": prof_stats})
-            batch = next(batches)
+            batches.close()
+            del tr, model
+            tr, model, batch, _, _ = train_gates(
+                dev, opt, mods, card, "train44", {"load_flows": True})
             shapes = {k: list(batch[k].shape) for k in ("flow", "flow_gt")}
-            train_gates(tr, model, batch, mods, card, "train44")
         ds = opt["datasets"]["train"]
         B, N, gt = ds["batch_size"], ds["N_frames"], ds["GT_size"]
         want = {"flow": [B, 16, gt // 4, gt // 4, 2],
@@ -1984,7 +2232,6 @@ def run_train44(dev, card, mods, dcns, profile=None):
         if raft_calls or shapes != want:
             raise AssertionError(f"train44: RAFT ran {len(raft_calls)} "
                                  f"times, batch flows {shapes}")
-        batches.close()
         del tr, model
     torch.cuda.empty_cache()
     emit({"phase": "train44", "seconds": time.perf_counter() - t0})
@@ -2088,7 +2335,7 @@ def run_four_anchor(dev, card, args, mods, Siren):
     launches of each entry on each of its paths and the plain backwards'
     device ms in one Ours_44 step."""
     t0 = time.perf_counter()
-    entries, dcns = run_requests44(dev, card, mods, args.profile)
+    entries, dcns = run_requests44(dev, card, mods)
     eval_entries = run_eval44(dev, card, mods, dcns)
     train_per_step, back = run_train44(dev, card, mods, dcns, args.profile)
     check_shapes44(dev, card, mods, Siren)
@@ -2151,10 +2398,10 @@ def baseline_pth(model, path):
                path)
 
 
-def run_baselines(dev, card, mods, out_dir, tmp):
+def run_baselines(dev, card, mods, tmp):
     """Phase 9, per family: a request (2 LQ frames 64x112 -> 256x448, 3
-    times) counted alone, held against its plain versions (1e-5), timed
-    (median of 10 after it) and profiled; then the CLI over its yml on one
+    times) counted alone, held against its plain versions (1e-5), replayed
+    against eager (1e-5) and timed; then the CLI over its yml on one
     Vid4 clip against its plain versions (EVAL_GATES fp32). Returns each
     family's entry launches (request, CLI)."""
     softsplat, dcn, siren_kernel, kernels = mods
@@ -2175,7 +2422,7 @@ def run_baselines(dev, card, mods, out_dir, tmp):
                                  f"(wanted {want}), flow stats {stats}")
         with plain_versions(softsplat, dcn, siren_kernel):
             kernels.reset_launches()
-            plain, _ = ev.infer(lq, t3, hw)
+            plain, _ = eager(ev)(lq, t3, hw)
             if any(kernels.LAUNCHES.values()):
                 raise AssertionError("the plain forward launched a kernel")
         err = float(np.abs(frames - plain).max())
@@ -2189,17 +2436,19 @@ def run_baselines(dev, card, mods, out_dir, tmp):
             raise AssertionError(f"request ({family}) kernels vs plain: "
                                  f"{err} (tol 1e-5)")
         torch.cuda.reset_peak_memory_stats()
-        runs = time_request(ev, lq, t3, 10, hw)
-        ms = float(np.median(runs))
+        r = hold_replay(ev, lq, t3, family, 1e-5, None, card, hw)
+        ms = r["captured_ms_median"]
         emit({"phase": "baseline_request_time", "model": family, "card": card,
               "forward_ms_median": ms, "hr_frames_per_s": 3e3 / ms,
-              "forward_ms": runs,
+              "forward_ms": r["captured_ms"],
+              "eager_ms_median": r["eager_ms_median"],
+              "eager_hr_frames_per_s": 3e3 / r["eager_ms_median"],
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "device_busy_share": r["device_busy_share"],
               "note": "Evaluator.infer wall time incl. host copy-out, fp32, "
                       "TF32 off, LQ 2x64x112 -> HR 256x448, 3 times, median "
-                      "of 10 after the counted and the plain request; peak "
-                      "memory over the 10"})
-        profile_request(ev, lq, t3, out_dir, family, hw)
+                      "of 10 captured, in turns with 10 eager (`replay`); "
+                      "peak memory over them"})
         pth = os.path.join(tmp, f"{family}.pth")
         baseline_pth(model, pth)
         cli, _ = eval_cli(tmp, "fp32", yml, stem, pth, mods, per_clip=want,
@@ -2221,7 +2470,7 @@ def run_baseline_phase(dev, card, args, mods, Siren):
     _, dcn, siren_kernel, kernels = mods
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        launches = run_baselines(dev, card, mods, args.profile or tmp, tmp)
+        launches = run_baselines(dev, card, mods, tmp)
     dcn16 = check_dcn(dev, dcn, kernels, shapes=EDVR_DCN, cg=16)
     sirens = {name: check_siren(dev, siren_kernel, Siren, kernels,
                                 mlps={name: shape})
@@ -2230,33 +2479,45 @@ def run_baseline_phase(dev, card, args, mods, Siren):
     return launches, dcn16, sirens
 
 
-def profile_request(ev, lq, times, out_dir, name, out_hw=(256, 448)):
-    """One request under torch.profiler: the table goes to `out_dir`; the
-    device busy time (kernels and copies only, not the host-side ops that
-    enclose them) against the request's wall time."""
+def profile_request(infer, lq, times, out_dir, name, out_hw=(256, 448)):
+    """One request through `infer` under torch.profiler: the table goes to
+    `out_dir` when given; the device busy time (kernels and copies only,
+    not the host-side ops that enclose them) against the request's wall
+    time, the device kernels and the copies by direction. Returns (and
+    prints) the line."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t = time.perf_counter()
-        ev.infer(lq, times, out_hw)
+        infer(lq, times, out_hw)
         wall_ms = (time.perf_counter() - t) * 1e3
     events = p.key_averages()
-    with open(os.path.join(out_dir, f"profile_request_{name}.txt"), "w") as f:
-        f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"profile_request_{name}.txt"),
+                  "w") as f:
+            f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)
     copies = sum(e.count for e in device if e.key.startswith(("Memcpy",
                                                               "Memset")))
-    emit({"phase": "profile", "request": name,
-          "request_wall_ms_profiled": wall_ms,
-          "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
-          "device_kernel_launches": sum(e.count for e in device) - copies,
-          "device_copies": copies,
-          "top_device": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                         for e in top[:25]]})
+    by_kind = {kind: sum(e.count for e in device if e.key.startswith(
+        f"Memcpy {kind}")) for kind in ("HtoD", "DtoH", "DtoD")}
+    by_kind["keys"] = {e.key: e.count for e in device
+                       if e.key.startswith(("Memcpy", "Memset"))}
+    line = {"phase": "profile", "request": name,
+            "request_wall_ms_profiled": wall_ms,
+            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+            "device_kernel_launches": sum(e.count for e in device) - copies,
+            "device_copies": copies, "copies": by_kind,
+            "top_device": [[e.key[:70], e.self_device_time_total / 1e3,
+                            e.count] for e in top[:25]]}
+    emit(line)
+    return {k: line[k] for k in ("device_busy_share", "device_busy_ms",
+                                 "request_wall_ms_profiled",
+                                 "device_kernel_launches", "copies")}
 
 
 def sass_counts(kernels, out_dir, source="siren_mlp_bf16"):
@@ -2359,11 +2620,11 @@ def compare_only(dev, card, out_dir):
         runs.append(("e", SERVING))
     for name, knobs in runs:
         _, _, ev, _, lq_a, t3 = build_request(dev, **knobs)
-        time_request(ev, lq_a, t3, 2)                        # warm-up
-        ts = time_request(ev, lq_a, t3, 10)
+        time_request(ev.infer, lq_a, t3, 2)                  # warm-up
+        ts = time_request(ev.infer, lq_a, t3, 10)
         emit({"phase": f"compare_request_{name}", "card": card,
               "forward_ms_median": float(np.median(ts)), "forward_ms": ts})
-        profile_request(ev, lq_a, t3, out_dir, name)
+        profile_request(eager(ev), lq_a, t3, out_dir, name)
         if name == "e":
             img, flow, z, nonpos, sdt = capture_splat(ev, softsplat, lq_a, t3)
 
@@ -2410,6 +2671,7 @@ def main() -> int:
                          "older checkouts share (run one with `python3 -P` "
                          "and its tree first on PYTHONPATH)")
     args = ap.parse_args()
+    faulthandler.enable()            # a crash prints where it happened
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "

@@ -18,7 +18,8 @@ walks the port's own keys and maps each to its flax path:
     package), is not produced.
 
 `load_reference_checkpoint` loads a reference-format `.pth` into a port
-model, strictly.
+model, strictly; `load_checkpoint` takes that, a train state of this
+package or a directory of them, as the eval CLI's `--checkpoint` does.
 
 The train state (`save_train_state`, `restore_train_state`, `restore_meta`,
 `latest_step`) is the counterpart of motif_tpu/checkpoint.py:236-276 in
@@ -138,6 +139,45 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
     itself. (The JAX package merges a checkpoint over its init and keeps
     what the file lacks.)"""
     model.load_state_dict(reference_state_dict(path), strict=True)
+
+
+def load_checkpoint(model: torch.nn.Module, path: str) -> str:
+    """Load into `model`, strictly, whichever of these `path` is, and
+    return the file it read:
+
+      * a reference-format `.pth` / `.pt` (`load_reference_checkpoint`);
+      * a models root (`experiments/<name>/models`): its newest `step_<n>`
+        (`latest_step`), as the JAX package's test.py resolves a checkpoint
+        root (motif_tpu/checkpoint.py:196-203);
+      * a `step_<n>` file of `save_train_state`: its `model` entry.
+
+    A missing or unexpected key, or a shape that differs, raises naming
+    the keys at fault; so does a file that is not such a train state, or a
+    models root without one. An orbax directory of the JAX package raises
+    NotImplementedError (ROADMAP.md §A.5)."""
+    if path.endswith((".pth", ".pt")):
+        load_reference_checkpoint(model, path)
+        return path
+    if os.path.isdir(path) and not re.fullmatch(r"step_\d+",
+                                                os.path.basename(path)):
+        step = latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"{path}: no step_<n> train state in "
+                                    "this directory")
+        path = _step_path(path, step)
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path}: an orbax train-state directory of the JAX package; the "
+            "port loads its own torch train states only (ROADMAP.md §A.5)")
+    state = torch.load(path, map_location="cpu")
+    if not isinstance(state, dict) or "model" not in state:
+        raise ValueError(f"{path}: not a train state of this package (no "
+                         "'model' entry) nor a reference .pth / .pt")
+    try:
+        model.load_state_dict(state["model"], strict=True)
+    except RuntimeError as e:
+        raise RuntimeError(f"{path}: {e}") from e
+    return path
 
 
 def _step_path(ckpt_dir: str, step: int) -> str:

@@ -14,6 +14,8 @@ has a kernel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -95,12 +97,11 @@ class TMNet(_ZSMHead):
         _, T, H, W, C = dnc.shape
 
         # the comparison stage over every frame at once: its neighbours
-        # clamped at the ends
-        prev = [max(i - 1, 0) for i in range(T)]
-        nxt = [min(i + 1, T - 1) for i in range(T)]
-        f0 = dnc[:, prev].reshape(B * T, H, W, C)
+        # clamped at the ends (slices, not a host index: a captured forward
+        # may not upload one)
+        f0 = torch.cat([dnc[:, :1], dnc[:, :-1]], 1).reshape(B * T, H, W, C)
         f1 = dnc.reshape(B * T, H, W, C)
-        f2 = dnc[:, nxt].reshape(B * T, H, W, C)
+        f2 = torch.cat([dnc[:, 1:], dnc[:, -1:]], 1).reshape(B * T, H, W, C)
         f0a = lrelu(self.layersAtB(f0, self.layersAtBOffset(
             torch.cat([f0, f1], -1))))
         f2a = lrelu(self.layersCtB(f2, self.layersCtBOffset(
@@ -328,6 +329,15 @@ class UNet(nn.Module):
         return lrelu(self.conv3(x))
 
 
+@functools.lru_cache(maxsize=None)
+def _sslomo_mean(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Super-SloMo's channel mean, made once per dtype and device and kept
+    (a forward captured into a CUDA graph may not upload, and reads it
+    where it lies). Read only."""
+    with torch.inference_mode(False):
+        return torch.tensor([0.429, 0.431, 0.397], dtype=dtype, device=device)
+
+
 def _sslomo_backwarp(img, flow):
     """Super-SloMo's backWarp: x normalised by W (not W - 1), grid_sample's
     defaults (bilinear, zeros, align_corners=False)."""
@@ -355,8 +365,7 @@ class SuperSloMo(nn.Module):
     def forward(self, frames, factor: int, out_hw):
         h0, w0 = out_hw
         h, w = (h0 // 32) * 32, (w0 // 32) * 32
-        norm = torch.tensor([0.429, 0.431, 0.397], dtype=frames.dtype,
-                            device=frames.device)
+        norm = _sslomo_mean(frames.dtype, frames.device)
         i0 = interpolate_bilinear(frames[:, 0] - norm, (h, w))
         i1 = interpolate_bilinear(frames[:, 1] - norm, (h, w))
         flow_out = self.flow(torch.cat([i0, i1], -1))

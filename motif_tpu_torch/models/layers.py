@@ -77,6 +77,24 @@ def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
+def _reflect_index(n: int, p: int, device) -> torch.Tensor:
+    i = torch.arange(-p, n + p, device=device).abs()
+    return torch.where(i > n - 1, 2 * (n - 1) - i, i)
+
+
+def reflect_pad(y: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """F.pad(y, (pw, pw, ph, ph), mode="reflect") of an NCHW tensor, the
+    same values, as two `index_select`s: their backward (an `index_add`)
+    has a deterministic CUDA path under
+    `torch.use_deterministic_algorithms`, the reflection pad's has none."""
+    H, W = y.shape[2], y.shape[3]
+    if ph:
+        y = y.index_select(2, _reflect_index(H, ph, y.device))
+    if pw:
+        y = y.index_select(3, _reflect_index(W, pw, y.device))
+    return y
+
+
 class Conv2d(nn.Module):
     """torch nn.Conv2d on NHWC tensors, with zero or reflect padding and
     groups. Parameters `weight` (O, I/groups, kh, kw) and `bias` (O,).
@@ -131,7 +149,7 @@ class Conv2d(nn.Module):
         ph, pw = self.padding
         pad = self.padding
         if self.padding_mode == "reflect" and (ph or pw):
-            y = F.pad(y, (pw, pw, ph, ph), mode="reflect")
+            y = reflect_pad(y, ph, pw)
             pad = (0, 0)
         y = F.conv2d(y, cast_param(self, "weight", x.dtype),
                      cast_param(self, "bias", x.dtype), self.stride, pad,

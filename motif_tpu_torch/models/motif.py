@@ -187,8 +187,10 @@ class MoTIF(nn.Module):
         device) and kept on the device: the LIIF nearest indices and the
         relative coordinates (in the compute dtype), the anchor-position
         rows of the flow-context input and the flow rescale of a reduced
-        RAFT grid. Made outside inference mode: tables first made by an eval
-        serve a training step too (autograd saves them)."""
+        RAFT grid. Kept for the model's life (a server sees few shapes): a
+        forward captured into a CUDA graph reads them where they lie. Made
+        outside inference mode: tables first made by an eval serve a
+        training step too (autograd saves them)."""
         key = (H, W, HH, WW, RH, RW, dtype, cdt, device)
         hit = self._tables.get(key)
         if hit is None:
@@ -209,8 +211,6 @@ class MoTIF(nn.Module):
                 rel=rel if cdt is None else rel.to(cdt), r22=r22,
                 flow_scale=torch.tensor([W / RW, H / RH], dtype=dtype,
                                         device=device))
-            if len(self._tables) >= 8:          # a server sees few shapes
-                self._tables.pop(next(iter(self._tables)))
             self._tables[key] = hit
         return hit
 

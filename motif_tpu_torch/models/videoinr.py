@@ -14,6 +14,8 @@ at two LQ frames and nf 64 they are 201→64→64→256→64, 263→64→64→25
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -24,14 +26,47 @@ from motif_tpu_torch.models.siren import Siren
 from motif_tpu_torch.ops.warp import grid_sample
 
 
+@functools.lru_cache(maxsize=None)
+def _linspace(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """np.linspace(-1, 1, n) as a tensor of `dtype` on `device`, uploaded
+    once per (n, dtype, device) and not on every call (a forward captured
+    into a CUDA graph may not upload, and reads it where it lies: kept for
+    the process's life). Read only; made outside inference mode, as
+    `ops/resize.py::_matrix_on`."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.linspace(-1.0, 1.0, n), dtype=dtype,
+                               device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _liif_tables(H: int, W: int, HH: int, WW: int, dtype: torch.dtype,
+                 device: torch.device):
+    """The LIIF nearest indices, the rel coords (float32, clamped HR cell
+    centres, no eps shift, then `dtype`) and the bilinear grid of the HR
+    cell centres (float32), as the JAX package builds them; built and
+    uploaded once per shapes, dtype and device, as `_linspace`. Read
+    only."""
+    iy, _ = liif_nearest_axis(H, HH, 0.0)
+    ix, _ = liif_nearest_axis(W, WW, 0.0)
+    hy = np.clip(make_coord_1d(HH), -1 + 1e-6, 1 - 1e-6)
+    hx = np.clip(make_coord_1d(WW), -1 + 1e-6, 1 - 1e-6)
+    rel_y = ((hy - make_coord_1d(H)[iy]) * H).astype(np.float32)
+    rel_x = ((hx - make_coord_1d(W)[ix]) * W).astype(np.float32)
+    rel = np.stack(np.meshgrid(rel_y, rel_x, indexing="ij"), -1)
+    grid = np.stack(np.meshgrid(hx, hy, indexing="xy"), -1)
+    with torch.inference_mode(False):
+        return (torch.as_tensor(iy, device=device),
+                torch.as_tensor(ix, device=device),
+                torch.as_tensor(rel, device=device).to(dtype),
+                torch.as_tensor(grid, dtype=torch.float32, device=device))
+
+
 def _warpgrid(flow: torch.Tensor) -> torch.Tensor:
     """The reference warplayer.warpgrid: the normalised backward grid, base
     plus flow / ((size - 1) / 2), channels (x, y). flow (B, HH, WW, 2)."""
     B, H, W, _ = flow.shape
-    lin = lambda n: torch.as_tensor(np.linspace(-1.0, 1.0, n),  # noqa: E731
-                                    dtype=flow.dtype, device=flow.device)
-    gx = lin(W)[None, None, :].expand(B, H, W)
-    gy = lin(H)[None, :, None].expand(B, H, W)
+    gx = _linspace(W, flow.dtype, flow.device)[None, None, :].expand(B, H, W)
+    gy = _linspace(H, flow.dtype, flow.device)[None, :, None].expand(B, H, W)
     u = flow[..., 0] / ((W - 1.0) / 2.0)
     v = flow[..., 1] / ((H - 1.0) / 2.0)
     return torch.stack([gx + u, gy + v], dim=-1)
@@ -58,23 +93,6 @@ class VideoINR(ZSMEncoder):
         self.encode_imnet = Siren(2 * 64 + 2 * T * nf + 2 * c_inp + 1,
                                   [64, 64, 256, 256], 3, 3)
 
-    def _tables(self, H, W, HH, WW, dtype, device):
-        """The LIIF nearest indices, the rel coords (float32, clamped HR
-        cell centres, no eps shift) and the bilinear grid of the HR cell
-        centres (float32), as the JAX package builds them."""
-        iy, _ = liif_nearest_axis(H, HH, 0.0)
-        ix, _ = liif_nearest_axis(W, WW, 0.0)
-        hy = np.clip(make_coord_1d(HH), -1 + 1e-6, 1 - 1e-6)
-        hx = np.clip(make_coord_1d(WW), -1 + 1e-6, 1 - 1e-6)
-        rel_y = ((hy - make_coord_1d(H)[iy]) * H).astype(np.float32)
-        rel_x = ((hx - make_coord_1d(W)[ix]) * W).astype(np.float32)
-        rel = np.stack(np.meshgrid(rel_y, rel_x, indexing="ij"), -1)
-        grid = np.stack(np.meshgrid(hx, hy, indexing="xy"), -1)
-        return (torch.as_tensor(iy, device=device),
-                torch.as_tensor(ix, device=device),
-                torch.as_tensor(rel, device=device).to(dtype),
-                torch.as_tensor(grid, dtype=torch.float32, device=device))
-
     def forward(self, x: torch.Tensor, times: torch.Tensor, out_hw):
         B, N, H, W, C = x.shape
         if N != self.n_frames:
@@ -87,7 +105,7 @@ class VideoINR(ZSMEncoder):
         inp = x.reshape(B, H, W, N * C)   # the frames' memory, as the JAX
         #                                   package reads it
 
-        iy, ix, rel, grid = self._tables(H, W, HH, WW, x.dtype, x.device)
+        iy, ix, rel, grid = _liif_tables(H, W, HH, WW, x.dtype, x.device)
         rel = rel[None].expand(B, HH, WW, 2)
         grid = grid[None].expand(B, HH, WW, 2)
 

@@ -13,11 +13,15 @@ Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` raises when that is not 0. `LAUNCHES` counts
 kernel launches per kernel and `ENTRY_LAUNCHES` per entry of a kernel (its
 element type and variant, such as "siren_mlp/bfloat16/skip_first"); a
-wrapper calls `count` where it launches its kernel and nowhere else.
+wrapper calls `count` where it launches its kernel and nowhere else. A
+CUDA-graph capture records launches without making them: inside
+`recording()` each `count` goes to a tape, and `count_replay(tape)` counts
+the tape's launches once per replay of the graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -49,10 +53,37 @@ def reset_launches() -> None:
 
 
 def count(name: str, entry: str) -> None:
-    """One launch of kernel `name` through its entry `entry`."""
-    LAUNCHES[name] += 1
+    """One launch of kernel `name` through its entry `entry` (on the tape
+    of `recording`, inside one)."""
     key = f"{name}/{entry}"
+    if _TAPE is not None:
+        _TAPE[key] = _TAPE.get(key, 0) + 1
+        return
+    LAUNCHES[name] += 1
     ENTRY_LAUNCHES[key] = ENTRY_LAUNCHES.get(key, 0) + 1
+
+
+_TAPE: dict | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Around a CUDA-graph capture: yields a tape ({name/entry: launches})
+    that every `count` inside adds to, instead of the counters."""
+    global _TAPE
+    outer, _TAPE = _TAPE, {}
+    try:
+        yield _TAPE
+    finally:
+        _TAPE = outer
+
+
+def count_replay(tape: dict) -> None:
+    """One replay of a graph whose capture recorded `tape`: each launch on
+    it counted once."""
+    for key, n in tape.items():
+        LAUNCHES[key.split("/", 1)[0]] += n
+        ENTRY_LAUNCHES[key] = ENTRY_LAUNCHES.get(key, 0) + n
 
 
 def _nvcc() -> str:

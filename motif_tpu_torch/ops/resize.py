@@ -40,12 +40,14 @@ def resize_matrix_linear(in_size: int, out_size: int,
     return m
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=None)
 def _matrix_on(in_size: int, out_size: int, align_corners: bool,
                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """`resize_matrix_linear` as a tensor of `dtype` on `device`, kept so
     that a forward (which resizes some hundred times, at a handful of
-    sizes) uploads each matrix once and not on every call. Read only. Made
+    sizes) uploads each matrix once and not on every call; kept for the
+    process's life, since a forward captured into a CUDA graph reads it
+    where it lies. Read only. Made
     outside inference mode, so that a matrix first made by an eval serves
     a training step too (autograd saves it)."""
     with torch.inference_mode(False):

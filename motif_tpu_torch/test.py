@@ -4,9 +4,12 @@
     python -m motif_tpu_torch.test -opt test.yml [--checkpoint P]
         [--max_clips N] [--device cpu]
 
-It builds the yml's `network_G` (`define_g`), loads a reference `.pth`
-(`--checkpoint`, else the yml's `path.pretrain_model_G`; a missing file
-leaves the random init from seed 0, with a warning), evaluates the
+It builds the yml's `network_G` (`define_g`), loads `--checkpoint` (else
+the yml's `path.pretrain_model_G`): a reference `.pth`, a `step_<n>` train
+state of `python -m motif_tpu_torch.train` or its models root
+(`experiments/<name>/models`, read at its newest step), strictly
+(`checkpoint.load_checkpoint`; a path that does not exist leaves the
+random init from seed 0, with a warning), evaluates the
 `datasets.train` section clip by clip and writes the per-clip PSNRs and
 SSIMs to ./psnrs/<name>.npy and ./psnrs/<name>_ssim.npy. It prints and
 returns `EvalResults.summary()`. The model runs on CUDA unless `--device`
@@ -33,13 +36,14 @@ def main(argv: list[str] | None = None, overrides: dict | None = None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("-opt", type=str, default="test.yml")
     parser.add_argument("--checkpoint", type=str, default=None,
-                        help="reference .pth to load")
+                        help="reference .pth, step_<n> train state or "
+                             "models root to load")
     parser.add_argument("--max_clips", type=int, default=None)
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: CUDA)")
     args, _ = parser.parse_known_args(argv)
 
-    from motif_tpu_torch.checkpoint import load_reference_checkpoint
+    from motif_tpu_torch.checkpoint import load_checkpoint
     from motif_tpu_torch.data import BatchLoader, create_dataset
     from motif_tpu_torch.data.datasets import SEPTUPLET_LQ
     from motif_tpu_torch.eval import Evaluator
@@ -75,8 +79,7 @@ def main(argv: list[str] | None = None, overrides: dict | None = None):
     ckpt = args.checkpoint or opt["path"].get("pretrain_model_G")
     if ckpt:
         if os.path.exists(ckpt):
-            load_reference_checkpoint(model, ckpt)
-            logger.info("loaded reference checkpoint %s", ckpt)
+            logger.info("loaded checkpoint %s", load_checkpoint(model, ckpt))
         else:
             logger.warning("checkpoint %s not found — evaluating random init", ckpt)
 

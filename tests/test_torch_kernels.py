@@ -13,7 +13,8 @@ and the SIREN, the SIREN whole and from its first layer's pre-activation,
 the splat with float32 and float16 sums at its compiled widths (130, 64)
 and a generic one; each also replayed from a CUDA graph. The eval harness
 (Evaluator.run on a data/Vid4 clip) is held against its plain versions on
-the card and against the CPU.
+the card and against the CPU; Evaluator.infer's captured graphs against
+the eager forward, and a replayed request under the sync debug mode.
 """
 
 import contextlib
@@ -805,8 +806,8 @@ def test_evaluator_run_on_a_vid4_clip(dev):
     card = ev.run(clip).summary()
     launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
     assert launched == {"splat_fused": 1, "dcn_im2col": 42, "siren_mlp": 3}
-    with _plain_versions():
-        plain = ev.run(clip).summary()
+    with _plain_versions():         # a new Evaluator: its graph captures
+        plain = Evaluator(model, device=dev).run(clip).summary()  # these
     assert kernels.LAUNCHES == {k: before[k] + v for k, v in launched.items()}
     assert card["n_clips"] == 1 and all(np.isfinite(v) for v in card.values())
     _hold_summary(card, plain, RUN_GATES["plain"])
@@ -1004,11 +1005,11 @@ def test_trainer_step_matches_the_plain_versions(dev):
 # ---------------------------------------------------------------------------
 
 
-def _four_anchor_model(dev):
+def _four_anchor_model(dev, n_anchors=4):
     from motif_tpu_torch.models.motif import build_motif
     from motif_tpu_torch.models.pcd import DCNSep
 
-    model = build_motif(16, 1, 2, device=dev, seed=0, n_anchors=4)
+    model = build_motif(16, 1, 2, device=dev, seed=0, n_anchors=n_anchors)
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for mod in model.modules():
@@ -1040,8 +1041,8 @@ def test_ours44_request_matches_the_plain_versions(dev):
     assert launched == {"dcn_im2col/float32": 3 * 90,
                         "siren_mlp/float32/whole": 9,
                         "splat_fused/float32/generic": 3}
-    with _plain_versions():
-        want, want_stats = ev.infer(lq, times, (64, 64))
+    with _plain_versions():        # eagerly: a replay runs the kernels
+        want, want_stats = ev._infer_eager(lq, times, (64, 64))
     assert got.shape == (3, 1, 64, 64, 3) and np.isfinite(got).all()
     assert float(np.abs(got - want).max()) <= 1e-5
     for a, b in zip(stats, want_stats):
@@ -1232,7 +1233,84 @@ def test_baseline_forward_matches_the_plain_versions(dev, family):
     launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
                 if v != before[k]}
     assert launched == BASELINE_LAUNCHES[family] and stats is None
-    with _plain_versions():
-        want, _ = ev.infer(lq, times, (64, 96))
+    with _plain_versions():        # eagerly: a replay runs the kernels
+        want, _ = ev._infer_eager(lq, times, (64, 96))
     assert got.shape == (3, 1, 64, 96, 3) and np.isfinite(got).all()
     assert float(np.abs(got - want).max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Evaluator.infer's captured graph per shape bucket, and the deterministic
+# plain DCN backward the training gates' state is reached with
+# ---------------------------------------------------------------------------
+
+def test_captured_infer_matches_eager_in_two_buckets(dev):
+    """MoTIF at channel 16 (1 / 2 blocks, DCN offsets perturbed) through
+    Evaluator.infer on two LQ shapes, two buckets: each request, captured
+    and then replayed, against `_forward` run eagerly (`_infer_eager`),
+    frames within 1e-5 and the flow statistics within 1e-5 relative (the
+    splat sums in a varying order); a replay launches one forward's
+    kernels, counted from the capture's tape."""
+    from motif_tpu_torch.eval import Evaluator
+
+    ev = Evaluator(_four_anchor_model(dev, 2), iters=2, device=dev)
+    rng = np.random.default_rng(0)
+    times = np.float32([[0.0, 0.4, 1.0]])
+    for h, w in ((16, 24), (20, 28)):
+        lq = rng.random((1, 4, h, w, 3), np.float32)
+        first, _ = ev.infer(lq, times, (4 * h, 4 * w))
+        before = dict(kernels.ENTRY_LAUNCHES)
+        got, stats = ev.infer(lq, times, (4 * h, 4 * w))
+        launched = {k: v - before.get(k, 0)
+                    for k, v in kernels.ENTRY_LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        assert launched == {"dcn_im2col/float32": 42,
+                            "siren_mlp/float32/whole": 3,
+                            "splat_fused/float32/generic": 1}
+        want, want_stats = ev._infer_eager(lq, times, (4 * h, 4 * w))
+        assert got.shape == (3, 1, 4 * h, 4 * w, 3) and np.isfinite(got).all()
+        for frames in (first, got):
+            assert float(np.abs(frames - want).max()) <= 1e-5
+        for a, b in zip(stats, want_stats):
+            assert abs(a - b) <= 1e-5 * abs(b)
+    assert len(ev._buckets) == 2
+
+
+def test_a_replayed_request_does_not_synchronise(dev):
+    """A request replayed from its bucket under
+    torch.cuda.set_sync_debug_mode("error"): nothing on the way reads the
+    device (no .item(), no pageable copy); only the final event's wait,
+    which the mode lets through, blocks."""
+    from motif_tpu_torch.eval import Evaluator
+
+    ev = Evaluator(_four_anchor_model(dev, 2), iters=2, device=dev)
+    lq = np.random.default_rng(0).random((1, 4, 16, 24, 3), np.float32)
+    times = np.float32([[0.0, 0.5, 1.0, 0.25]])      # two chunks
+    want, want_stats = ev.infer(lq, times, (64, 96))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, stats = ev.infer(lq, times, (64, 96))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.shape == (4, 1, 64, 96, 3)
+    assert float(np.abs(got - want).max()) <= 1e-5
+    for a, b in zip(stats, want_stats):
+        assert abs(a - b) <= 1e-5 * abs(b)
+
+
+def test_deterministic_plain_dcn_backward_is_bit_equal(dev):
+    """The plain DCN backward at the PCD's L1 (2 x 64 x 112, 8 groups of
+    8), under torch.use_deterministic_algorithms: two runs bit-equal (its
+    scatter_add_ sums in a fixed order there)."""
+    x, off, mask = _dcn_inputs(dev, 2, 64, 112, 8, 8, 3, 1, 1, 1, True)
+    g = torch.Generator(device=dev).manual_seed(2)
+    g_cols = torch.randn((2 * 64 * 112, 8 * 9 * 8), device=dev, generator=g)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = [dcn.dcn_im2col_backward_plain(x, off, mask, g_cols, 3, 1, 1,
+                                              1, 8) for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
