@@ -53,11 +53,14 @@ Phases, each fatal on failure:
      of four wrong kernel outputs planted, printing which the serving gate
      refuses: it must refuse the splat's targets half a pixel off;
   6. a {"kernels": [...]} line, the card line, and the result line, printed
-     last, after phases 7, 8 and 9; each kernel row also carries its
+     last, after phases 7 to 10; each kernel row also carries its
      launches on every path (requests, eval CLIs, training steps of both
-     models, the baselines) and its plain backward's device ms in one
-     two-anchor step; two more rows hold the entries at the baselines'
-     shapes (the DCN at cg 16, VideoINR's three SIRENs);
+     models, the baselines, the recipes of phase 10) and its plain
+     backward's device ms in one two-anchor step; more rows hold the
+     entries at the baselines' shapes (the DCN at cg 16, VideoINR's three
+     SIRENs) and at phase 10's (the float16-sum splat at C = 130, the
+     SIREN of setting 6's synthesis net cut into two launches in either
+     type);
   7. training the two-anchor Ours (run before phase 6's lines): the CLI
      (motif_tpu_torch.train.main) on configs/train_smoke.yml with the
      shapes of the reference recipe train_Ours_vimeo.yml (nf 64, 5 + 40
@@ -98,7 +101,24 @@ Phases, each fatal on failure:
      against its plain versions (EVAL_GATES fp32); then the DCN at EDVR's
      16 channels a group (L1 - L3) and the float32 SIREN at VideoINR's
      three widths over a request's 114,688 tokens (a cut MLP also launch
-     by launch).
+     by launch);
+ 10. the Adobe and arbitrary-scale recipes, the MoTIF settings, Ours_7 and
+     Ours_flow (before phase 6's lines): an Adobe240-shaped tree (data/Vid4's
+     clips ping-ponged to 32 frames, resized to 256x448, LR by MATLAB
+     bicubic, the Adobe_flow arrays from --seed) and data/vimeo's clips at
+     256x448 under build/; the training CLI on copies of seven
+     configs/grid/ ymls (RECIPES: Adobe, Adobe_a, Adobe_flow, vimeo_a with
+     Ours_44, setting 2, setting 6, Ours_7) at full width, each counted
+     alone for RECIPE_CLI_STEPS steps (the `_a` ones at LQ_size 64), then
+     each recipe's steps by part with peak memory, HR frames/s, the host's
+     ms per batch and, for `_a`, the first step of a new size bucket
+     against a steady one; the gradient gate of three recipes (Adobe_a in
+     a bucket of 72 px, setting 6, Ours_7) at GATE_BATCH; requests at
+     bench.py's shape for setting 2, setting 6 and Ours_7 (fp32) and
+     setting 6 under the serving knobs, each against its plain versions,
+     replayed against eager and timed; Ours_flow against itself on the
+     CPU in float64; the SIREN of setting 6's synthesis net in both
+     types.
 Every request goes through Evaluator.infer, which on CUDA replays one
 captured CUDA graph per shape bucket: each request of phases 4, 8 and 9 is
 also held, replayed, against the same request run eagerly (`_infer_eager`,
@@ -121,11 +141,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import faulthandler
 import hashlib
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -447,26 +467,29 @@ def index_add_ms(softsplat, img, flow, z, sdt=None, reps=10):
 def check_splat_request(softsplat, kernels, inputs, request):
     """The kernel on a request's own splat inputs (the forward's feat_hr,
     flow_hr and z, and its sums' type): held against the plain version and
-    timed, by phase too, with its tile lists."""
+    timed, by phase too, with its tile lists. Returns its numbers."""
     img, flow, z, nonpos, sdt = inputs
     held = hold_splat(softsplat, kernels, img, flow, z, nonpos,
                       1e-4 if sdt is None else 4, sdt)
     B, H, W, C = img.shape
-    b_ms, _ = splat_bound(B, H, W, C, nonpos)
+    b_ms, b_by = splat_bound(B, H, W, C, nonpos)
     tile = list(softsplat.plan(C, 4 if sdt is None else 2))
 
     def run():
         return softsplat.splat_fused(img, flow, z, nonpos, scatter_dtype=sdt)
     ms = device_ms(run)
+    line = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": index_add_ms(softsplat, img, flow, z, sdt),
+            "eager_ms": cuda_ms(run), "max_abs_err": held["max_abs_err"]}
     emit({"check": "splat_fused", "case": "request_" + request,
           "sums": dname(sdt or torch.float32), "shape": [B, H, W, C],
-          "z_nonpositive": nonpos, "tile": tile, **held, "ms": ms,
-          "bound_ms": b_ms, "fraction_of_bound": b_ms / ms,
-          "library_ms": index_add_ms(softsplat, img, flow, z, sdt),
+          "z_nonpositive": nonpos, "tile": tile, **held, **line,
+          "fraction_of_bound": b_ms / ms,
           "library": f"{dname(sdt or torch.float32)} index_add_",
-          "eager_ms": cuda_ms(run), "phases_ms": splat_phases(run),
+          "phases_ms": splat_phases(run),
           "flow_abs_max": float(flow.abs().max()),
           "lists": tile_lists(flow, tile)})
+    return line
 
 
 def cold_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
@@ -744,7 +767,7 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
               **({"accuracy_vs_float64": held} if bf else {}),
               **({"by_launch": siren_launch_ms(siren_kernel, x, ws, bs,
                                                skip_first)}
-                 if launches > 1 else {})})
+                 if launches > 1 and not bf else {})})
         first = first or line
     return dict(max_abs_err=worst, **first)
 
@@ -1654,20 +1677,24 @@ def upstream_nonzero(model) -> dict:
     """Whether the parameters upstream of each kernel took a gradient: the
     splat's payload (imnet) and flow (flow_imnet), every DCN's offset and
     mask conv, every SIREN's layers and the flow-context convs before the
-    first. A gradient cut at a kernel leaves its group at zero."""
+    first. A gradient cut at a kernel leaves its group at zero. Ours_7
+    (`linear_motion`) runs neither the STINF nor the flow-context convs,
+    and its motion takes no gradient."""
     from motif_tpu_torch.models.pcd import DCNSep
 
     def nz(params):
         return all(float(p.grad.abs().max()) > 0 for p in params)
+    linear = getattr(model, "linear_motion", False)
     dcns = [m for m in model.modules() if isinstance(m, DCNSep)]
+    sirens = (model.imnet, model.synth_net) + (
+        () if linear else (model.flow_imnet,))
     return {
         "splat_fused": nz(model.imnet.parameters())
-        and nz(model.flow_imnet.parameters()),
+        and (linear or nz(model.flow_imnet.parameters())),
         "dcn_im2col": len(dcns) > 0 and all(
             nz(m.conv_offset_mask.parameters()) for m in dcns),
-        "siren_mlp": all(nz(net.parameters()) for net in (
-            model.flow_imnet, model.imnet, model.synth_net))
-        and nz(model.flow_process.parameters()),
+        "siren_mlp": all(nz(net.parameters()) for net in sirens)
+        and (linear or nz(model.flow_process.parameters())),
     }
 
 
@@ -1746,12 +1773,12 @@ def train_cli(yml, opt, kernels, entries, card, tag, steps=None,
               resume_steps=None):
     """The training CLI on `yml` (its `niter` steps), the launch counters
     set to 0 just before and read just after: `entries` a step and no
-    other entry; then a resume for `resume_steps` more. Returns the
-    launches per step of every entry."""
+    other entry; then a resume for `resume_steps` more (0: none). Returns
+    the launches per step of every entry."""
     from motif_tpu_torch import checkpoint, train
 
     steps = steps or TRAIN_STEPS
-    resume_steps = resume_steps or RESUME_STEPS
+    resume_steps = RESUME_STEPS if resume_steps is None else resume_steps
     models = opt["path"]["models"]
     log_path = os.path.join(opt["path"]["experiments_root"], "train_log.jsonl")
     kernels.reset_launches()
@@ -1766,7 +1793,8 @@ def train_cli(yml, opt, kernels, entries, card, tag, steps=None,
             {ln["use_gt"] for ln in log} != {True, False} or \
             not all(np.isfinite(ln["loss"]) for ln in log):
         raise AssertionError(f"{tag}: log {log}")
-    per_step = {k: launches.get(k, 0) / steps for k in ENTRIES}
+    per_step = {k: launches.get(k, 0) / steps
+                for k in {*ENTRIES, *launches, *entries}}
     for entry, n in entries.items():
         if per_step[entry] != n:
             raise AssertionError(f"{tag}: {entry} launched {per_step[entry]} "
@@ -1774,7 +1802,8 @@ def train_cli(yml, opt, kernels, entries, card, tag, steps=None,
     if sum(launches.values()) != steps * sum(entries.values()):
         raise AssertionError(f"{tag}: other entries ran {launches}")
     t1 = time.perf_counter()
-    train.main(["-opt", yml, "--max_steps", str(steps + resume_steps)])
+    if resume_steps:
+        train.main(["-opt", yml, "--max_steps", str(steps + resume_steps)])
     resume_s = time.perf_counter() - t1
     log2 = [json.loads(ln) for ln in open(log_path)]
     if [ln["step"] for ln in log2[steps:]] != list(
@@ -1785,33 +1814,26 @@ def train_cli(yml, opt, kernels, entries, card, tag, steps=None,
           "seconds": cli_s, "resume_steps": resume_steps,
           "resume_seconds": resume_s,
           "losses": [ln["loss"] for ln in log2],
+          "s_per_it": [ln["s_per_it"] for ln in log2],
           "use_gt": [ln["use_gt"] for ln in log2],
           "lr": [ln["lr"] for ln in log2],
           "launches": launches, "launches_per_step": per_step})
     return per_step
 
 
-def train_steps_by_part(dev, opt, card, tag, ds_extra=None):
-    """A Trainer on the yml's model and data: a warm-up step, then three
-    steps split into forward, backward and optimiser, their peak memory
-    and HR frames/s. Returns (trainer, model, the batch iterator)."""
-    from motif_tpu_torch.data import BatchLoader, create_dataset, \
-        device_prefetch
-    from motif_tpu_torch.models.factory import define_g
-    from motif_tpu_torch.trainer import Trainer
-    from motif_tpu_torch.utils import config as cfg
+def train_steps_by_part(dev, opt, card, tag):
+    """A Trainer on the yml's model and data (`train.setup`): a warm-up
+    step, then three steps split into forward, backward and optimiser,
+    their peak memory and HR frames/s. Returns (trainer, model, the batch
+    iterator)."""
+    from motif_tpu_torch import train
+    from motif_tpu_torch.data import device_prefetch
 
     net = opt["network_G"]
-    model = define_g(net, device=dev)
-    ds_opt = {**opt["datasets"]["train"], **(ds_extra or {})}
+    model, loader, tr = train.setup(opt, dev)
+    ds_opt = opt["datasets"]["train"]
     B, N, gt = ds_opt["batch_size"], ds_opt["N_frames"], ds_opt["GT_size"]
-    loader = BatchLoader(create_dataset(ds_opt), batch_size=B,
-                         shuffle=True, seed=0,
-                         epoch_ratio=opt["dataset_ratio"])
     batches = device_prefetch(loader.epoch(0), dev)
-    tr = Trainer(model, cfg.trainer_config_from_opt(opt), (gt, gt),
-                 iters=net["iters"], seed=0,
-                 family=net["which_model_G"])
     tr.step(next(batches))                       # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1878,30 +1900,20 @@ def digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def gate_state(dev, opt, mods, ds_extra=None):
+def gate_state(dev, opt, mods, rng=None):
     """The state the training gates start from, the same bit for bit in
-    every run: the yml's model from seed 0, a Trainer from seed 0, the
-    loader's order and the dataset's augmentation draws from seed 0, a
-    warm-up step and three steps on the plain versions under
-    `deterministic()`. Returns (trainer, model, the next batch, the hashes
-    of the parameters and of that batch)."""
-    from motif_tpu_torch.data import BatchLoader, create_dataset, \
-        device_prefetch
-    from motif_tpu_torch.models.factory import define_g
-    from motif_tpu_torch.trainer import Trainer
-    from motif_tpu_torch.utils import config as cfg
+    every run: the yml's model from seed 0, a Trainer from the yml's seed
+    (0), the loader's order and the dataset's draws from seed 0 (an
+    arbitrary-scale collate's from `rng`), a warm-up step and three steps
+    on the plain versions under `deterministic()` (`train.setup`).
+    Returns (trainer, model, the next batch, the hashes of the parameters
+    and of that batch)."""
+    from motif_tpu_torch import train
+    from motif_tpu_torch.data import device_prefetch
 
     softsplat, dcn, siren_kernel, _ = mods
-    net = opt["network_G"]
-    model = define_g(net, device=dev)
-    ds_opt = {**opt["datasets"]["train"], **(ds_extra or {})}
-    gt = ds_opt["GT_size"]
-    ds = dataclasses.replace(create_dataset(ds_opt), seed=0)
-    loader = BatchLoader(ds, batch_size=ds_opt["batch_size"], shuffle=True,
-                         seed=0, epoch_ratio=opt["dataset_ratio"])
+    model, loader, tr = train.setup(opt, dev, rng=rng, dataset_seed=0)
     batches = device_prefetch(loader.epoch(0), dev)
-    tr = Trainer(model, cfg.trainer_config_from_opt(opt), (gt, gt),
-                 iters=net["iters"], seed=0, family=net["which_model_G"])
     with plain_versions(softsplat, dcn, siren_kernel), deterministic():
         for _ in range(4):
             tr.step(next(batches))
@@ -1913,17 +1925,18 @@ def gate_state(dev, opt, mods, ds_extra=None):
                               "batch": digest(arrays)}
 
 
-def train_gates(dev, opt, mods, card, tag, ds_extra=None):
+def train_gates(dev, opt, mods, card, tag, rng=None, upstream_all=True):
     """At `gate_state`'s state (its hashes printed), a step of the kernels
     against the same step with the plain versions, same weights and batch,
     for use_gt True and False (the loss and every gradient, TRAIN_GATES),
-    every kernel's upstream parameters with a non-zero gradient; all under
-    `deterministic()`, where two plain steps must be bit-equal. Returns
-    the trainer, model and batch, the plain use_gt=False gradients and
-    aux."""
+    every kernel's upstream parameters with a non-zero gradient wherever
+    the plain step gives them one, and everywhere with `upstream_all`;
+    all under `deterministic()`, where two plain steps must be bit-equal.
+    Returns the trainer, model and batch, the plain use_gt=False gradients
+    and aux."""
     softsplat, dcn, siren_kernel, _ = mods
     t0 = time.perf_counter()
-    tr, model, batch, hashes = gate_state(dev, opt, mods, ds_extra)
+    tr, model, batch, hashes = gate_state(dev, opt, mods, rng)
     state_s = time.perf_counter() - t0
     for use_gt in (True, False):
         with deterministic():
@@ -1935,6 +1948,7 @@ def train_gates(dev, opt, mods, card, tag, ds_extra=None):
                 twice = [p.grad.clone() for p in tr.params]
                 plain = tr.compute_grads(batch, use_gt)
             want = [p.grad.clone() for p in tr.params]
+            plain_nonzero = upstream_nonzero(model)
         gate = grad_gate(model, got, want, float(aux["loss"]),
                          float(plain["loss"]))
         bit_equal = float(again["loss"]) == float(plain["loss"]) and all(
@@ -1943,7 +1957,8 @@ def train_gates(dev, opt, mods, card, tag, ds_extra=None):
               "state_sha256": hashes, "state_seconds": state_s,
               "loss": float(aux["loss"]),
               "plain_loss": float(plain["loss"]), "gates": TRAIN_GATES,
-              "upstream_nonzero": nonzero, **gate,
+              "upstream_nonzero": nonzero,
+              "upstream_nonzero_plain": plain_nonzero, **gate,
               "plain_twice_bit_equal": bit_equal})
         if not bit_equal:
             raise AssertionError(f"{tag}: two plain steps with use_gt="
@@ -1951,9 +1966,10 @@ def train_gates(dev, opt, mods, card, tag, ds_extra=None):
         if not gate["ok"]:
             raise AssertionError(f"{tag}: the step with use_gt={use_gt} "
                                  f"fails its gate {gate}")
-        if not all(nonzero.values()):
+        if any(plain_nonzero[k] and not nonzero[k] for k in nonzero) or (
+                upstream_all and not all(nonzero.values())):
             raise AssertionError(f"{tag}: a kernel cut the gradient "
-                                 f"{nonzero}")
+                                 f"{nonzero} (plain {plain_nonzero})")
     return tr, model, batch, want, plain
 
 
@@ -2211,8 +2227,8 @@ def run_train44(dev, card, mods, dcns, profile=None):
             per_step = train_cli(yml, opt, kernels, per_forward(dcns, "fp32"),
                                  card, "train44", TRAIN44_STEPS,
                                  RESUME44_STEPS)
-            tr, model, batches = train_steps_by_part(
-                dev, opt, card, "train44", {"load_flows": True})
+            tr, model, batches = train_steps_by_part(dev, opt, card,
+                                                     "train44")
             back, prof_stats = profile_train_step(
                 tr, next(batches), profile and os.path.join(profile,
                                                             "ours44"), mods)
@@ -2220,8 +2236,8 @@ def run_train44(dev, card, mods, dcns, profile=None):
                   "plain_backward": back, "profiled_step": prof_stats})
             batches.close()
             del tr, model
-            tr, model, batch, _, _ = train_gates(
-                dev, opt, mods, card, "train44", {"load_flows": True})
+            tr, model, batch, _, _ = train_gates(dev, opt, mods, card,
+                                                 "train44")
             shapes = {k: list(batch[k].shape) for k in ("flow", "flow_gt")}
         ds = opt["datasets"]["train"]
         B, N, gt = ds["batch_size"], ds["N_frames"], ds["GT_size"]
@@ -2479,6 +2495,452 @@ def run_baseline_phase(dev, card, args, mods, Siren):
     return launches, dcn16, sirens
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the Adobe and arbitrary-scale recipes, the MoTIF settings,
+# Ours_7 and Ours_flow
+# ---------------------------------------------------------------------------
+
+# the recipes' data: Adobe240-shaped clips of TREE_FRAMES frames ping-ponged
+# from data/Vid4 (8 frames a clip) and data/vimeo's two clips, their frames
+# resized to TREE_HW (Adobe240's 720x1280 frames cut to what the recipes
+# crop: up to 256 px at LQ_size 64), the Adobe LR frames by MATLAB bicubic
+# at 1/4
+TREE_HW = (256, 448)
+TREE_FRAMES = 32
+# configs/grid/ ymls the smoke trains, and the batch each trains at (the
+# recipes' 24 unless listed with a reason)
+RECIPES = ("train_Ours_adobe.yml", "train_Ours_adobe_a.yml",
+           "train_Ours_adobe_flow.yml", "train_Ours_vimeo_a.yml",
+           "train_Ours_adobe_s2.yml", "train_OursZSM_adobe_a.yml",
+           "train_Ours7_adobe.yml")
+RECIPE_BATCH: dict = {}
+RECIPE_LQ_SIZE = 64         # the `_a` recipes' LQ_size (the grid's 32
+                            # refuses at RAFT's size check, ROADMAP §C)
+RECIPE_CLI_STEPS = 2        # teacher forcing over 1 step: both branches
+# the `_a` timing's buckets, in order (GT crops; outputs half of them):
+# after a warm-up, the first steps of two new buckets and a second (steady)
+# step of the first
+A_BUCKETS = (128, 144, 240, 144)
+# the gates' batch (cut from 24: the gate's state is a warm-up and three
+# plain steps under deterministic algorithms, ~1 s each per 4 clips), and
+# the `_a` gate's bucket: a crop of 144, outputs of 72 (no multiple of 16)
+GATE_BATCH = 4
+GATE_BUCKET = 144
+# requests at bench.py's shape, the same weights per setting
+SETTING_REQUESTS = {"s2": dict(setting=2), "s6": dict(setting=6),
+                    "ours7": dict(setting=3, linear_motion=True),
+                    "s6_serving": dict(setting=6, **SERVING)}
+# the synthesis net of setting 6 (331 inputs at width 64) at a request's
+# tokens: cut into two launches in either type
+SYNTH_S6 = {"synth_s6": (331, [64, 64, 64, 256], 3, 3 * 256 * 448)}
+FLOW_PRECOMPUTE_GATES = dict(flow=1e-2, psies=1e-2)
+
+
+class PinnedScale(random.Random):
+    """The collate's generator with its d_scale draws pinned: the i-th
+    returns crops[i] / lq_size (cycling); every other draw its own."""
+
+    def __init__(self, seed, crops, lq_size):
+        super().__init__(seed)
+        self.crops, self.lq_size, self.i = list(crops), lq_size, 0
+
+    def uniform(self, a, b):
+        super().uniform(a, b)
+        d = self.crops[self.i % len(self.crops)] / self.lq_size
+        self.i += 1
+        return d
+
+
+def recipe_entries(which: str, setting: int) -> dict:
+    """What one training step of a recipe launches: one splat at C = 130,
+    the DCNs of 2 or 4 frames, the SIRENs it runs (setting 6's synthesis
+    net in two launches; Ours_7 has no STINF)."""
+    four = which in ("Ours_44", "Ours_4")
+    sirens = 2 if which == "Ours_7" else 4 if setting >= 6 else 3
+    return {"splat_fused/float32/C=130": 1,
+            "dcn_im2col/float32": 90 if four else 42,
+            "siren_mlp/float32/whole": sirens}
+
+
+def make_trees(tmp: str, seed: int) -> dict:
+    """The recipes' data under `tmp`, as tools/make_synth_eval_data.py lays
+    out its trees: per data/Vid4 clip TREE_FRAMES ping-ponged frame names
+    linked to 8 frames resized to TREE_HW (cv2 bicubic), the LR frames by
+    imresize_matlab_np at 1/4; the Adobe_flow arrays of each window from
+    `seed` in the reference layout (flow (4, 2, h, w), psies (4, 3, h, w),
+    flow_GT (18, 2, H, W)); data/vimeo's clips resized likewise."""
+    import cv2
+
+    from motif_tpu_torch.ops.resize import imresize_matlab_np
+
+    H, W = TREE_HW
+    rng = np.random.default_rng(seed)
+    adobe, vimeo = os.path.join(tmp, "adobe240"), os.path.join(tmp, "vimeo")
+    vid4 = os.path.join(ROOT, "data", "Vid4", "HR")
+    clips = sorted(os.listdir(vid4))
+    for clip in clips:
+        names = sorted(f for f in os.listdir(os.path.join(vid4, clip))
+                       if f.endswith(".png"))
+        cycle = list(range(len(names))) + list(range(len(names) - 2, 0, -1))
+        for res in ("HR", "LR"):
+            os.makedirs(os.path.join(adobe, res, clip))
+            os.makedirs(os.path.join(adobe, "src", res, clip))
+        for k, name in enumerate(names):
+            hr = cv2.resize(cv2.imread(os.path.join(vid4, clip, name)),
+                            (W, H), interpolation=cv2.INTER_CUBIC)
+            lr = imresize_matlab_np(hr.astype(np.float32), 0.25)
+            for res, img in (("HR", hr), ("LR", np.clip(np.round(lr), 0, 255)
+                                          .astype(np.uint8))):
+                cv2.imwrite(os.path.join(adobe, "src", res, clip,
+                                         f"{k}.png"), img)
+        for i in range(TREE_FRAMES):
+            for res in ("HR", "LR"):
+                os.symlink(os.path.join(adobe, "src", res, clip,
+                                        f"{cycle[i % len(cycle)]}.png"),
+                           os.path.join(adobe, res, clip, f"{i:03d}.png"))
+        for start in range(0, TREE_FRAMES - 9, 8):     # the windows
+            base = os.path.join(adobe, "LR", clip,
+                                f"{start:03d}_{start + 2:03d}")
+            f32 = np.float32
+            np.save(base + "_flow.npy", (rng.standard_normal(
+                (4, 2, H // 4, W // 4), f32) * 2))
+            np.save(base + "_psies.npy", np.abs(rng.standard_normal(
+                (4, 3, H // 4, W // 4), f32)) * 0.1)
+            np.save(base + "_flow_GT.npy", rng.standard_normal(
+                (18, 2, H, W), f32) * 2)
+    src = os.path.join(ROOT, "data", "vimeo")
+    with open(os.path.join(src, "keys.txt")) as f:
+        keys = [ln.strip() for ln in f if ln.strip()]
+    for key in keys:
+        os.makedirs(os.path.join(vimeo, "GT", key))
+        for v in range(1, 8):
+            img = cv2.imread(os.path.join(src, "GT", key, f"im{v}.png"))
+            cv2.imwrite(os.path.join(vimeo, "GT", key, f"im{v}.png"),
+                        cv2.resize(img, (W, H), interpolation=cv2.INTER_CUBIC))
+    with open(os.path.join(vimeo, "keys.txt"), "w") as f:
+        f.write("\n".join(keys) + "\n")
+    return {"adobe": adobe, "vimeo": vimeo, "clips": clips, "keys": keys}
+
+
+def recipe_yml(tmp: str, name: str, trees: dict, steps: int,
+               batch: int | None = None) -> str:
+    """A copy of configs/grid/`name` at its full width (nf 64, 5 + 40
+    blocks, iters 12) pointed at the trees: the batch RECIPE_BATCH gives
+    (the recipe's 24 unless listed), an `_a` recipe at LQ_size
+    RECIPE_LQ_SIZE, `steps` steps with teacher forcing decaying over 1
+    step (the first step use_gt True, the next False), a log line a step,
+    under `tmp`/<name>."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", "grid", name)) as f:
+        opt = yaml.safe_load(f)
+    ds = opt["datasets"]["train"]
+    if ds["mode"].startswith("vimeo"):
+        ds.update(dataroot_GT=os.path.join(trees["vimeo"], "GT"),
+                  dataroot_LQ=os.path.join(trees["vimeo"], "GT"),
+                  cache_keys=os.path.join(trees["vimeo"], "keys.txt"))
+    else:
+        ds.update(dataroot_GT=os.path.join(trees["adobe"], "HR"),
+                  dataroot_LQ=os.path.join(trees["adobe"], "LR"))
+    ds["batch_size"] = batch or RECIPE_BATCH.get(name, ds["batch_size"])
+    if ds["mode"].endswith("_a"):
+        ds["LQ_size"] = RECIPE_LQ_SIZE
+    opt["path"] = {"root": os.path.join(tmp, name[:-4])}
+    opt["train"].update(niter=steps, teacher_forcing_steps=1)
+    opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 10 ** 6}
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path
+
+
+class TimedLoads:
+    """A dataset whose items, and a collate whose calls, are timed (ms, on
+    the loader's thread)."""
+
+    def __init__(self, dataset, collate):
+        self.dataset, self.collate = dataset, collate
+        self.items_ms, self.collate_ms = [], []
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        t = time.perf_counter()
+        item = self.dataset[i]
+        self.items_ms.append((time.perf_counter() - t) * 1e3)
+        return item
+
+    def collated(self, items):
+        t = time.perf_counter()
+        out = self.collate(items)
+        self.collate_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+
+def recipe_steps(dev, opt, card, tag):
+    """A Trainer on the recipe (`train.setup`): a warm-up step, then steps
+    split into forward, backward and optimiser, their peak memory, HR
+    frames trained/s, and the host's ms per batch on the loader's thread
+    (reading the items, the collate) beside what each step waited for it;
+    an `_a` recipe steps through A_BUCKETS (d_scale pinned): the first
+    step of each new output size, and a steady (repeated) one, whose
+    parts are the line's."""
+    from motif_tpu_torch import train
+    from motif_tpu_torch.data import device_prefetch
+
+    ds = opt["datasets"]["train"]
+    arbitrary = ds["mode"].endswith("_a")
+    rng = PinnedScale(0, A_BUCKETS, ds["LQ_size"]) if arbitrary else None
+    model, loader, tr = train.setup(opt, dev, rng=rng, dataset_seed=0)
+    timed = TimedLoads(loader.dataset, loader.collate)
+    loader.dataset, loader.collate = timed, timed.collated
+    batches = device_prefetch(loader.epoch(0), dev)
+    tr.step(next(batches))                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for _ in range(len(A_BUCKETS) - 1 if arbitrary else 2):
+        t = time.perf_counter()
+        batch = next(batches)
+        wait = (time.perf_counter() - t) * 1e3
+        ms = tr.step(batch, sync_times=True)["ms"]
+        runs.append({"out_hw": list(batch["gt"].shape[2:4]), "ms": ms,
+                     "step_ms": sum(ms.values()), "loader_wait_ms": wait})
+    peak = torch.cuda.max_memory_allocated(dev)
+    batches.close()
+    B, N = ds["batch_size"], ds["sample_num"]
+    buckets, steady = {}, []
+    for r in runs:
+        b = buckets.setdefault(str(r["out_hw"][0]), {})
+        if "first_ms" in b:
+            b["steady_ms"] = r["step_ms"]
+            steady.append(r)
+        else:
+            b["first_ms"] = r["step_ms"]
+    items = np.asarray(timed.items_ms)
+    host = {"items_ms_per_batch": float(items.sum() / (len(items) / B)),
+            "collate_ms_per_batch": float(np.median(timed.collate_ms)),
+            "loader_wait_ms_median": float(np.median(
+                [r["loader_wait_ms"] for r in runs]))}
+    steady = steady if arbitrary else runs
+    ms = {k: float(np.median([r["ms"][k] for r in steady])) for k in
+          runs[0]["ms"]}
+    step_ms = sum(ms.values())
+    line = {"phase": f"{tag}_step", "card": card, "model":
+            opt["network_G"]["which_model_G"],
+            "setting": model.setting, "mode": ds["mode"], "batch": B,
+            "times": N, "ms_median": ms, "step_ms": step_ms, "runs": runs,
+            "peak_memory_gb": peak / 1e9,
+            "hr_frames_per_s": B * N / (step_ms / 1e3), **host,
+            "note": "device-synchronised ms by part after the batch is on "
+                    "the card; the loader (one thread: the items' PNG "
+                    "decodes, the collate) works ahead of the step, and "
+                    "loader_wait_ms is what the step waited for it"}
+    if arbitrary:
+        line["buckets"] = buckets
+    emit(line)
+    del model, tr
+    torch.cuda.empty_cache()
+    return line
+
+
+def run_recipes(dev, card, mods, tmp, trees):
+    """The main path of phase 10: the training CLI on each recipe (its
+    counters from 0, RECIPE_CLI_STEPS steps, its launches a step against
+    `recipe_entries`; for Adobe_flow RAFT must not run), then each
+    recipe's steps by part. Returns the entry launches a step per
+    recipe."""
+    from motif_tpu_torch.models.raft import RAFT
+    from motif_tpu_torch.utils import config as cfg
+
+    kernels = mods[3]
+    per_step, rafts = {}, {}
+    forward = RAFT.forward
+    for name in RECIPES:
+        t0 = time.perf_counter()
+        yml = recipe_yml(tmp, name, trees, RECIPE_CLI_STEPS)
+        opt = cfg.parse(yml, is_train=True)
+        net = opt["network_G"]
+        calls = []
+
+        def counted(self, *a, **kw):
+            calls.append(int(a[0].shape[0]))
+            return forward(self, *a, **kw)
+        with mock.patch.object(RAFT, "forward", counted):
+            per_step[name] = train_cli(
+                yml, opt, kernels,
+                recipe_entries(net["which_model_G"], int(net.get("setting")
+                                                         or 5)),
+                card, f"recipe_{name[6:-4]}", RECIPE_CLI_STEPS, 0)
+        rafts[name] = calls
+        if name == "train_Ours_adobe_flow.yml" and calls:
+            raise AssertionError(f"{name}: RAFT ran on precomputed flows "
+                                 f"{calls}")
+        recipe_steps(dev, opt, card, f"recipe_{name[6:-4]}")
+        emit({"phase": "recipe", "yml": name, "raft_batches": calls,
+              "seconds": time.perf_counter() - t0})
+    return per_step
+
+
+def recipe_gates(dev, card, mods, tmp, trees):
+    """The gradient gate (`train_gates`, both teacher-forcing branches from
+    a deterministic state) on three recipes at GATE_BATCH: the Adobe_a
+    Ours step in the GATE_BUCKET bucket, setting 6 (Ours_ZSM on Adobe_a,
+    the same bucket) and Ours_7 (Adobe)."""
+    from motif_tpu_torch.utils import config as cfg
+
+    for name, bucket in (("train_Ours_adobe_a.yml", GATE_BUCKET),
+                         ("train_OursZSM_adobe_a.yml", GATE_BUCKET),
+                         ("train_Ours7_adobe.yml", None)):
+        yml = recipe_yml(os.path.join(tmp, "gates"), name, trees, 1,
+                         GATE_BATCH)
+        opt = cfg.parse(yml, is_train=True)
+        rng = PinnedScale(0, [bucket], RECIPE_LQ_SIZE) if bucket else None
+        # Ours_ZSM has no flow loss: under teacher forcing its STINF takes
+        # a gradient through z alone, which a ReLU may zero everywhere
+        tr, model, batch, _, _ = train_gates(
+            dev, opt, mods, card, f"recipe_{name[6:-4]}", rng,
+            upstream_all=name != "train_OursZSM_adobe_a.yml")
+        emit({"phase": "recipe_gate_batch", "yml": name,
+              "gt": list(batch["gt"].shape), "lq": list(batch["lq"].shape)})
+        del tr, model, batch
+        torch.cuda.empty_cache()
+
+
+def setting_entries(name: str) -> dict:
+    """What a request of SETTING_REQUESTS launches (3 times in one
+    forward)."""
+    if name == "s6_serving":      # no fused decode under warp_to_many
+        return {"dcn_im2col/bfloat16": 42, "siren_mlp/bfloat16/whole": 4,
+                "splat_fused/float16/C=130": 1}
+    return recipe_entries("Ours_7" if name == "ours7" else "Ours",
+                          6 if name == "s6" else 2)
+
+
+def run_setting_requests(dev, card, mods):
+    """Requests at bench.py's shape (LQ 64x112 -> 256x448, 3 times, iters
+    4) for setting 2, setting 6, Ours_7 (fp32) and setting 6 under the
+    serving knobs: each counted alone, against its plain versions (fp32
+    1e-5; serving 6e-2 and 35 dB against the fp32 setting 6), replayed
+    against eager and timed; the splat on the serving request's own
+    inputs (float16 sums at C = 130). Returns the entries per request and
+    that splat's row."""
+    from motif_tpu_torch.eval import Evaluator
+    from motif_tpu_torch.models.motif import build_motif
+
+    softsplat, dcn, siren_kernel, kernels = mods
+    lq = np.random.default_rng(0).random((1, 4, 64, 112, 3), dtype=np.float32)
+    t3 = np.linspace(0, 1, 3, dtype=np.float32)[None]
+    entries, frames, row = {}, {}, None
+    for name, kw in SETTING_REQUESTS.items():
+        t0 = time.perf_counter()
+        model = build_motif(channel=64, front_rbs=5, back_rbs=40, device=dev,
+                            seed=0, **kw)
+        perturb_offsets(model, seed=1)
+        ev = Evaluator(model, scale=4, iters=4, chunk=3, device=dev,
+                       family="Ours_7" if name == "ours7" else "Ours")
+        kernels.reset_launches()
+        frames[name], _ = ev.infer(lq, t3, (256, 448))
+        entries[name] = dict(kernels.ENTRY_LAUNCHES)
+        check_frames(name, frames[name], (3, 1, 256, 448, 3))
+        if entries[name] != setting_entries(name):
+            raise AssertionError(f"request ({name}) launched {entries[name]}"
+                                 f" (wanted {setting_entries(name)})")
+        serving = name == "s6_serving"
+        gate = (6e-2, 1e-2) if serving else (1e-5, 1e-5)
+        if serving:
+            hold_against(name, frames[name], frames["s6"], 6e-2, 35.0)
+        slice_vs_plain(ev, model, lq, t3, name, *gate, mods)
+        if serving:
+            inputs = capture_splat(ev, softsplat, lq, t3)
+            row = check_splat_request(softsplat, kernels, inputs, name)
+            img, flow, z, nonpos, sdt = inputs
+            row["plain_ms"] = device_ms(lambda: softsplat.splat_fused_plain(
+                img, flow, z, nonpos, scatter_dtype=sdt), reps=3)
+            del inputs, img, flow, z
+        r = hold_replay(ev, lq, t3, name, *gate, card, n=2)
+        ms = r["captured_ms_median"]
+        emit({"phase": f"request_{name}_time", "card": card,
+              "forward_ms_median": ms, "hr_frames_per_s": 3e3 / ms,
+              "forward_ms": r["captured_ms"],
+              "eager_ms_median": r["eager_ms_median"],
+              "eager_hr_frames_per_s": 3e3 / r["eager_ms_median"],
+              "model": kw, "launches_per_request": entries[name],
+              "device_busy_share": r["device_busy_share"],
+              "seconds": time.perf_counter() - t0,
+              "note": "Evaluator.infer wall time incl. host copy-out, TF32 "
+                      "off, iters 4, LQ 4x64x112 -> HR 256x448, 3 times; "
+                      "captured and eager in turns (`replay`)"})
+        del model, ev
+        torch.cuda.empty_cache()
+    return entries, row
+
+
+def run_flow_precompute(dev, card):
+    """Ours_flow (`define_g`, RAFT from seed 0) on 4 LQ frames of 64x112
+    with 12 iterations on the card, timed; its flows and psies against
+    the same module on the CPU in float64 (FLOW_PRECOMPUTE_GATES, TF32
+    off)."""
+    import copy
+
+    from motif_tpu_torch.models.factory import define_g
+
+    m = define_g({"which_model_G": "Ours_flow"}, device=dev)
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (1, 4, 64, 112, 3), dtype=np.float32))
+    xd = x.to(dev)
+    flow, _, psies = m(xd, iters=12)
+    ms = cuda_ms(lambda: m(xd, iters=12), reps=3, warmup=1)
+    cpu = copy.deepcopy(m).to("cpu").double()
+    t = time.perf_counter()
+    flow64, _, psies64 = cpu(x.double(), iters=12)
+    cpu_s = time.perf_counter() - t
+    errs = {"flow": max_err(flow.cpu(), flow64),
+            "psies": max_err(psies.cpu(), psies64)}
+    emit({"phase": "flow_precompute", "card": card, "ms": ms,
+          "shape": {"flow": list(flow.shape), "psies": list(psies.shape)},
+          "max_abs_err_vs_cpu_float64": errs,
+          "tol": FLOW_PRECOMPUTE_GATES, "cpu_float64_seconds": cpu_s,
+          "flow_abs_max": float(flow64.abs().max()),
+          "psies_abs_max": float(psies64.abs().max())})
+    h, w = x.shape[2:4]
+    if not (flow.shape == (8, h, w, 2) and psies.shape == (8, h, w, 3)
+            and all(errs[k] <= FLOW_PRECOMPUTE_GATES[k] for k in errs)):
+        raise AssertionError(f"Ours_flow: shapes {flow.shape}, "
+                             f"{psies.shape}; against the CPU {errs}")
+    del m, cpu
+    torch.cuda.empty_cache()
+
+
+def run_recipe_phase(dev, card, args, mods, Siren):
+    """Phase 10: the trees, the recipes' CLIs and steps, their gates, the
+    settings' requests, Ours_flow, and the SIREN cut at setting 6's
+    synthesis net in both types. Returns the launches per recipe step and
+    per request, and the rows of the new shapes."""
+    import tempfile
+
+    softsplat, dcn, siren_kernel, kernels = mods
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        trees = make_trees(tmp, args.seed)
+        emit({"phase": "recipe_trees", "clips": trees["clips"],
+              "vimeo_keys": trees["keys"], "hw": TREE_HW,
+              "frames": TREE_FRAMES, "seed": args.seed,
+              "seconds": time.perf_counter() - t0})
+        per_step = run_recipes(dev, card, mods, tmp, trees)
+        recipe_gates(dev, card, mods, tmp, trees)
+    requests, splat_row = run_setting_requests(dev, card, mods)
+    run_flow_precompute(dev, card)
+    sirens = {dname(dt): check_siren(dev, siren_kernel, Siren, kernels, dt,
+                                     mlps=SYNTH_S6)
+              for dt in (torch.float32, torch.bfloat16)}
+    emit({"phase": "recipes", "seconds": time.perf_counter() - t0})
+    return per_step, requests, splat_row, sirens
+
+
 def profile_request(infer, lq, times, out_dir, name, out_hw=(256, 448)):
     """One request through `infer` under torch.profiler: the table goes to
     `out_dir` when given; the device busy time (kernels and copies only,
@@ -2663,6 +3125,9 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="write torch.profiler tables of requests (a) and "
                          "(e) and of one training step to DIR")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the data the smoke makes (the Adobe_flow "
+                         "arrays of phase 10)")
     ap.add_argument("--compare-only", metavar="DIR",
                     help="only time dcn_v2 (float32 at L1, bfloat16 at L1 - "
                          "L3), the bfloat16 siren_mlp entries, the splat and "
@@ -2732,6 +3197,8 @@ def main() -> int:
                            (softsplat, dcn, siren_kernel, kernels), Siren)
     base, dcn16, sirens = run_baseline_phase(
         dev, card, args, (softsplat, dcn, siren_kernel, kernels), Siren)
+    recipes, setting_requests, splat_c130, synth_s6 = run_recipe_phase(
+        dev, card, args, (softsplat, dcn, siren_kernel, kernels), Siren)
 
     meta = {
         "splat_fused": ("motif_tpu_torch/csrc/splat_fused.cu",
@@ -2778,6 +3245,10 @@ def main() -> int:
         row["launches_baselines"] = {
             f: {path: e.get(entry, 0) for path, e in runs.items()}
             for f, runs in base.items()}
+        row["launches_recipes_per_step"] = {
+            y: e.get(entry, 0) for y, e in recipes.items()}
+        row["launches_setting_requests"] = {
+            k: e.get(entry, 0) for k, e in setting_requests.items()}
         if "device_kernels_per_call" in r:
             row["device_kernels_per_call"] = r["device_kernels_per_call"]
         if name in also:
@@ -2807,6 +3278,37 @@ def main() -> int:
         "bound_by": worst["bound_by"],
         "shape": "feat_imnet + flow_imnet + encode_imnet, 114,688 tokens "
                  "each (one time of a 256x448 request)"})
+    # the entries at phase 10's new shapes: the float16-sum splat at C =
+    # 130 on the setting-6 serving request's own inputs (its launches:
+    # that request's), the synthesis net of setting 6 (331 inputs), cut
+    # into two launches in either type (its launches: the setting-6
+    # recipe's CLI run, a step's STINF, SINF and the synthesis net's two;
+    # the serving request's)
+    src, replaces = meta["splat_fused"]
+    rows.append({
+        "name": "splat_fused[float16/C=130]", "kernel": "splat_fused",
+        "route": "cuda", "source": src, "replaces": replaces,
+        "launches": setting_requests["s6_serving"][
+            "splat_fused/float16/C=130"],
+        **{k: splat_c130[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "eager_ms")},
+        "shape": "setting 6 serving request's splat: 6x256x448x130"})
+    for dt, r in synth_s6.items():
+        rows.append({
+            "name": f"siren_mlp[{dt}/whole/cut]", "kernel": "siren_mlp",
+            "route": "cuda",
+            "source": ("motif_tpu_torch/csrc/siren_mlp_bf16.cu"
+                       if dt == "bfloat16" else meta["siren_mlp"][0]),
+            "replaces": meta["siren_mlp"][1],
+            "launches": (setting_requests["s6_serving"][
+                "siren_mlp/bfloat16/whole"] if dt == "bfloat16" else
+                int(RECIPE_CLI_STEPS * recipes["train_OursZSM_adobe_a.yml"][
+                    "siren_mlp/float32/whole"])),
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "eager_ms")},
+            "shape": "setting 6 synthesis net 331->64->64->64->256->3, "
+                     "344,064 tokens, two launches"})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,22 +1,28 @@
 """Host-side batching, the counterpart of motif_tpu/data/pipeline.py's
-`collate_stack`, `BatchLoader` and `device_prefetch`: batches are collated
-on a background thread, a few ahead of the consumer, and an error raised
-while loading is raised again in the consumer; `device_prefetch` copies
-them to the card ahead of use.
+`collate_stack`, `collate_adobe_arbitrary`, `BatchLoader` and
+`device_prefetch`: batches are collated on a background thread, a few
+ahead of the consumer, and an error raised while loading is raised again
+in the consumer; `device_prefetch` copies them to the card ahead of use.
 
-The training collate (`collate_adobe_arbitrary`) and `Subset` are not
-ported (ROADMAP.md §A.6, §A.7).
+The arbitrary-scale collate resizes with the port's own MATLAB bicubic
+(`ops/resize.py::imresize_matlab_np`), image by image in numpy: the JAX
+package's numpy fallback bit for bit (its native C++ core differs from
+that fallback by up to 2e-5). `Subset`, the per-host shard of a
+multi-host run, waits for data-parallel training (ROADMAP.md §A.6).
 """
 
 from __future__ import annotations
 
 import queue
+import random
 import threading
 from collections import deque
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from motif_tpu_torch.ops.resize import imresize_matlab_np
 
 
 def collate_stack(items: list[dict]) -> dict:
@@ -29,6 +35,56 @@ def collate_stack(items: list[dict]) -> dict:
         else:
             out[k] = [it[k] for it in items]
     return out
+
+
+def collate_adobe_arbitrary(items: list[dict], lq_size: int = 64,
+                            rng: random.Random | None = None,
+                            size_buckets: int | None = 16) -> dict:
+    """The arbitrary space-time collate (collate_function, data/__init__.py:
+    91-131) over items with 'lq_raw' / 'gt_raw' frame lists: one d_scale ∈
+    [2, 4] for the batch, a GT crop of floor(lq_size · d_scale) (rounded
+    down to a multiple of `size_buckets`, at least one bucket, with
+    d_scale recomputed from it, as the JAX package buckets it; None keeps
+    the reference's continuous size) at one random corner, the LQ by
+    MATLAB bicubic at 1 / (2 d_scale) of the crop and the GT at 1 / 2,
+    then the same flips and transpose for the whole batch. Draws from
+    `rng` (the `random` module when None), in the JAX package's order:
+    d_scale, the corner, hflip, vflip, rot90. Returns {'lq' (B, 4, s, s,
+    3), 'gt' (B, T, g, g, 3), 'times' (B, N), 'out_hw' (g, g)}."""
+    rng = rng or random
+    d_scale = rng.uniform(2, 4)
+    gt_size = int(np.floor(lq_size * d_scale))
+    if size_buckets:
+        gt_size = max(size_buckets, gt_size // size_buckets * size_buckets)
+        d_scale = gt_size / lq_size
+
+    H, W = items[0]["gt_raw"][0].shape[:2]
+    x = rng.randint(0, max(0, H - gt_size))
+    y = rng.randint(0, max(0, W - gt_size))
+
+    def resized(key, scale):
+        stack = np.stack([np.stack([f[x:x + gt_size, y:y + gt_size]
+                                    for f in it[key]], 0)
+                          for it in items], 0) * 255.0
+        B, n = stack.shape[:2]
+        flat = np.ascontiguousarray(stack.reshape(B * n, *stack.shape[2:]),
+                                    np.float32)
+        out = np.stack([imresize_matlab_np(im, scale) for im in flat],
+                       0) / 255.0
+        return out.reshape(B, n, *out.shape[1:])
+
+    lqs = resized("lq_raw", 1 / (2 * d_scale))
+    gts = resized("gt_raw", 0.5)
+    if rng.random() < 0.5:                               # hflip
+        lqs, gts = lqs[:, :, :, ::-1], gts[:, :, :, ::-1]
+    if rng.random() < 0.5:                               # vflip
+        lqs, gts = lqs[:, :, ::-1], gts[:, :, ::-1]
+    if rng.random() < 0.5:                               # rot90
+        lqs, gts = lqs.transpose(0, 1, 3, 2, 4), gts.transpose(0, 1, 3, 2, 4)
+    return {"lq": np.ascontiguousarray(lqs, np.float32),
+            "gt": np.ascontiguousarray(gts, np.float32),
+            "times": np.stack([it["times"] for it in items], 0),
+            "out_hw": (gts.shape[2], gts.shape[3])}
 
 
 class BatchLoader:

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from motif_tpu_torch import resolve_device
-from motif_tpu_torch.models.factory import BASELINES, FOUR_ANCHOR, unported
+from motif_tpu_torch.models.factory import BASELINES, FOUR_ANCHOR
 from motif_tpu_torch.ops import kernels
 from motif_tpu_torch.utils import metrics
 
@@ -99,7 +99,7 @@ class Evaluator:
       * TMNet: the interior times only;
       * ZSM / Zooming: no times, 2N_in - 1 frames out.
 
-    A family the port has not taken raises NotImplementedError. `knobs`, if
+    A family it does not know raises NotImplementedError. `knobs`, if
     any, are MoTIF's serving knobs by name (`fused_decode`,
     `compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`):
     those named are set on the model in place and the others keep the
@@ -111,8 +111,8 @@ class Evaluator:
         self.family, chunk = resolve_family(family, chunk)
         ours = self.family == "Ours" or self.family in FOUR_ANCHOR
         if not ours and self.family not in BASELINES:
-            reason = unported(self.family) or f"[{self.family}] is not known"
-            raise NotImplementedError(f"eval family {reason}")
+            raise NotImplementedError(f"eval family [{self.family}] is not "
+                                      "known")
         if knobs and not ours:
             raise ValueError(f"eval family [{self.family}]: the serving "
                              f"knobs {sorted(knobs)} are MoTIF's")

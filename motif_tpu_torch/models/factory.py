@@ -1,11 +1,13 @@
 """Model factory, the counterpart of motif_tpu/models/factory.py: the
 reference networks.define_G dispatch from a yml's `network_G` section.
 
-The port builds the `Ours` family (two anchors), the four-anchor
-`Ours_44` / `Ours_4` at `setting: 5`, and the baselines: `LIIF`
-(VideoINR), `ZSM` / `Zooming`, `TMNet`, `EDVR` and `Super_SloMo`. The
-other MoTIF variants (other settings, Ours_7, Ours_flow) wait for
-ROADMAP.md §A.8 and raise NotImplementedError.
+The port builds the MoTIF family at the yml's `setting` (1-6): `Ours` and
+its forks that differ only in training wiring (`Ours_back`, `Ours_ZSM`,
+...: two anchors), the four-anchor `Ours_44` / `Ours_4`, the linear-motion
+`Ours_7` (at setting 3 whatever the yml says, as the JAX package builds
+it) and `Ours_flow`, the flow precomputer (`FlowPrecompute`); and the
+baselines: `LIIF` (VideoINR), `ZSM` / `Zooming`, `TMNet`, `EDVR` and
+`Super_SloMo`.
 """
 
 from __future__ import annotations
@@ -15,20 +17,12 @@ import torch
 from motif_tpu_torch import resolve_device
 from motif_tpu_torch.models.motif import build_motif
 
-VARIANTS = ("Ours_7", "Ours_flow")
 FOUR_ANCHOR = ("Ours_44", "Ours_4")
 BASELINES = ("LIIF", "ZSM", "Zooming", "TMNet", "EDVR", "Super_SloMo")
 
 # chunking behaviour per model family at eval time
 # (VideoSR_base_model.py:172-197)
 EVAL_CHUNK = {"Ours_44": 1, "Ours": 3}
-
-
-def unported(which: str) -> str | None:
-    """Why the port cannot build or evaluate family `which` yet, or None."""
-    if which in VARIANTS:
-        return f"[{which}] is a MoTIF variant not ported yet (ROADMAP.md §A.8)"
-    return None
 
 
 def build_baseline(opt: dict, device=None, seed: int = 0) -> torch.nn.Module:
@@ -69,30 +63,37 @@ def build_baseline(opt: dict, device=None, seed: int = 0) -> torch.nn.Module:
 def define_g(opt: dict, device=None) -> torch.nn.Module:
     """The model of a `network_G` section with random weights from seed 0,
     on `device` (CUDA unless the caller names another device): a MoTIF for
-    Ours_* (four anchors for Ours_44 / Ours_4, two for every other), a
-    baseline (`build_baseline`) for the baseline families.
+    Ours_* (four anchors for Ours_44 / Ours_4, two for every other; the
+    linear-motion fork at setting 3 for Ours_7), `FlowPrecompute` for
+    Ours_flow, a baseline (`build_baseline`) for the baseline families.
 
     As in the JAX package, MoTIF's trunk has 5 front / 40 back residual
     blocks and the splat one channel group whatever `front_RBs`, `back_RBs`
-    and `groups` say; `nf` sets the width. The serving knobs are read as the
-    JAX package reads them (`fused_decode`, `compute_dtype`, `splat_dtype`,
-    `raft_resolution`, `decode_chunks`). `splat_method` is ignored: the port
-    has one splat kernel."""
+    and `groups` say; `nf` sets the width and `setting` the variant. The
+    serving knobs are read as the JAX package reads them (`fused_decode`,
+    `compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`),
+    except for Ours_7, which the JAX package builds with none it runs.
+    `splat_method` is ignored: the port has one splat kernel."""
     which = opt.get("which_model_G") or "Ours"
     nf = int(opt.get("nf") or 64)
     setting = int(opt.get("setting") or 5)
-    reason = unported(which)
-    if reason:
-        raise NotImplementedError(f"Generator model {reason}")
     if which in BASELINES:
         return build_baseline(opt, device)
+    if which == "Ours_flow":
+        from motif_tpu_torch.models.flow_precompute import FlowPrecompute
+
+        dev = resolve_device(device)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = FlowPrecompute(scale=int(opt.get("scale") or 4))
+        return model.to(dev).eval()
     if not which.startswith("Ours"):
         raise NotImplementedError(f"Generator model [{which}] not recognized")
-    if setting != 5:
-        raise NotImplementedError(f"MoTIF setting {setting}: the port has "
-                                  "setting 5 only (ROADMAP.md §A.8)")
+    if which == "Ours_7":
+        return build_motif(channel=nf, device=device, seed=0, setting=3,
+                           linear_motion=True)
     return build_motif(
-        channel=nf, device=device, seed=0,
+        channel=nf, device=device, seed=0, setting=setting,
         n_anchors=4 if which in FOUR_ANCHOR else 2,
         fused_decode=bool(opt.get("fused_decode") or False),
         compute_dtype=opt.get("compute_dtype") or None,

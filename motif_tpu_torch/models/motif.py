@@ -1,14 +1,16 @@
 """MoTIF continuous space-time video super-resolution — the counterpart of
-motif_tpu/models/motif.py::MoTIF at setting=5, groups=1, for both anchor
-families: n_anchors=2 (the reference `Ours`: the two center frames anchor
-the flows) and n_anchors=4 (`Ours_44` / `Ours_4`: all four input frames
+motif_tpu/models/motif.py::MoTIF at groups=1, for both anchor families:
+n_anchors=2 (the reference `Ours`: the two center frames anchor the
+flows) and n_anchors=4 (`Ours_44` / `Ours_4`: all four input frames
 anchor them, at positions 0, 2, 4, 6 of 6, and the residual is the
-encoder output at round(t·6) per target time). With no knob given it runs
-the reference float-op order in the input's dtype; the serving knobs of
-the JAX package (`fused_decode`, `compute_dtype`, `splat_dtype`,
-`raft_resolution`, `decode_chunks`) are taken under its names.
-`splat_method` has no counterpart (one splat kernel), nor has
-`fused_siren` (every SIREN runs through `siren_mlp`).
+encoder output at round(t·6) per target time), at every `setting` of the
+reference (1-6: the properties `input_Z`, `predict_Z`, `decoder_Z`,
+`warp_to_many`), and the linear-motion fork `Ours_7` (`linear_motion`).
+With no knob given it runs the reference float-op order in the input's
+dtype; the serving knobs of the JAX package (`fused_decode`,
+`compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`) are
+taken under its names. `splat_method` has no counterpart (one splat
+kernel), nor has `fused_siren` (every SIREN runs through `siren_mlp`).
 
 Pipeline: RAFT-small on the n(n-1) cross pairs of the anchor frames at HR
 (or the precomputed LR flows of `flows=`) → reliability metrics psi_photo
@@ -80,13 +82,33 @@ POSITIONS = {2: (0.0, 8.0), 4: (0.0, 2.0, 4.0, 6.0)}
 
 
 class MoTIF(nn.Module):
-    """The MoTIF model at setting=5 with `n_anchors` 2 or 4. Parameter
-    names are the reference torch names, so `load_state_dict(strict=True)`
-    takes the bridged JAX parameters (checkpoint.py); both families have
-    the same parameters (RAFT too, though a four-anchor model trained on
-    precomputed flows never runs it). The parameters are float32 (or what
-    `.double()` makes them) whatever the knobs: one checkpoint loads in
-    every mode. `positions` are the anchors' times (POSITIONS).
+    """The MoTIF model with `n_anchors` 2 or 4 at `setting` 1-6, or the
+    linear-motion fork. Parameter names are the reference torch names, so
+    `load_state_dict(strict=True)` takes the bridged JAX parameters
+    (checkpoint.py); both families have the same parameters (RAFT too,
+    though a four-anchor model trained on precomputed flows never runs
+    it). The parameters are float32 (or what `.double()` makes them)
+    whatever the knobs: one checkpoint loads in every mode. `positions`
+    are the anchors' times (POSITIONS).
+
+    The setting (Ours.py:455-459) switches four properties, each on from
+    a setting up: `input_Z` (3) feeds the reliability maps to the
+    flow-context convs (7 channels per target, else 4: the first conv's
+    fan-in); `predict_Z` (4) takes the splat's importance z from the STINF
+    output (else z = 0, and the max splat is skipped); `decoder_Z` (5)
+    gives the synthesis net the splatted max as a third extra channel;
+    `warp_to_many` (6) keeps the n directions apart (each normalised by
+    its own weights) and concatenates them, with their extras, into the
+    synthesis input. The synthesis net's fan-in follows: 66 + ch + (3 or
+    2) + ch + 1, or n · (66 + ch + (3 or 2)) + ch + 1 under warp_to_many.
+
+    `linear_motion` (Ours_7.py:480-704, `define_g` builds it at setting 3):
+    the anchors are the first two input frames, the motion to a time t is
+    the LR flows f01 · t and f10 · (1 - t) brought to HR (no STINF, no
+    reliability maps, no flow-context convs, whose parameters it keeps),
+    and the SINF features splat along it with the raw LR features. Of the
+    knobs it takes `splat_dtype` and `decode_chunks`, as the JAX fork
+    does, and no other.
 
     Each SIREN runs whole through `siren_mlp`: the JAX package's
     fused_siren=True. The knobs, all off by default (the parity path):
@@ -111,18 +133,28 @@ class MoTIF(nn.Module):
                  compute_dtype: str | None = None,
                  splat_dtype: str | None = None,
                  raft_resolution: float = 1.0, decode_chunks: int = 1,
-                 n_anchors: int = 2):
+                 n_anchors: int = 2, setting: int = 5,
+                 linear_motion: bool = False):
         super().__init__()
         if n_anchors not in POSITIONS:
             raise ValueError(f"MoTIF: n_anchors={n_anchors}: 2 (Ours) or 4 "
                              "(Ours_44 / Ours_4)")
+        if not 1 <= setting <= 6:
+            raise ValueError(f"MoTIF: setting={setting}: 1 to 6")
+        if linear_motion and (n_anchors != 2 or setting >= 6):
+            raise ValueError("MoTIF: linear_motion is the two-anchor Ours_7, "
+                             "which merges its directions (setting <= 5)")
         self.n_anchors, self.positions = n_anchors, POSITIONS[n_anchors]
+        self.setting, self.linear_motion = setting, linear_motion
         ch = self.channel = channel
         n = self.n_anchors
+        k_e = 3 if self.decoder_Z else 2           # the extras' channels
+        synth_in = 66 + ch + k_e
+        synth_in = (n * synth_in if self.warp_to_many else synth_in) + ch + 1
         self.flow_predictor = RAFT()
         self.encoder = ZSMEncoder(ch, front_rbs, back_rbs)
         self.flow_process = nn.Sequential(
-            Conv2d(n * 7, ch, 3, 1, 1, groups=n),
+            Conv2d(n * (7 if self.input_Z else 4), ch, 3, 1, 1, groups=n),
             Conv2d(ch, ch, 3, 1, 1, groups=2),
             LReLU(),
             *[LateralBlock(ch) for _ in range(5)],
@@ -134,10 +166,13 @@ class MoTIF(nn.Module):
         self.norm_gamma = nn.Parameter(torch.ones(1, 3, 1))
         self.norm_beta = nn.Parameter(torch.zeros(1, 3, 1))
         self.shuffle = Conv2d(ch, ch, 1, 1, 0)
-        self.flow_imnet = Siren(ch + 3, [64, 64, 256], 2, 3)
+        # the fork's STINF is checkpointed but unused, at 67 inputs (the
+        # reference's 64 + 3) whatever the width, as the JAX package
+        # builds it (motif.py:779-780)
+        self.flow_imnet = Siren(67 if linear_motion else ch + 3,
+                                [64, 64, 256], 2, 3)
         self.imnet = Siren(ch + 2, [64, 64, 256], 2, 64)
-        self.synth_net = Siren(64 + 2 + ch + 3 + ch + 1, [64, 64, 64, 256], 3,
-                               3)
+        self.synth_net = Siren(synth_in, [64, 64, 64, 256], 3, 3)
         self._tables: dict = {}
         self._alpha_sign = None
         self.configure(fused_decode=fused_decode, compute_dtype=compute_dtype,
@@ -145,12 +180,44 @@ class MoTIF(nn.Module):
                        raft_resolution=raft_resolution,
                        decode_chunks=decode_chunks)
 
+    @property
+    def warp_to_many(self) -> bool:
+        return self.setting >= 6
+
+    @property
+    def decoder_Z(self) -> bool:
+        return self.setting >= 5
+
+    @property
+    def predict_Z(self) -> bool:
+        return self.setting >= 4
+
+    @property
+    def input_Z(self) -> bool:
+        return self.setting >= 3
+
+    @property
+    def use_fused(self) -> bool:
+        """Whether the forward folds the SIRENs' first layers: the
+        fused_decode knob, which warp_to_many turns off (the fold of the
+        synthesis net through the splat assumes the merged directions;
+        motif.py:423-425) and the linear-motion fork does not run."""
+        return self.fused_decode and not self.warp_to_many \
+            and not self.linear_motion
+
     def configure(self, fused_decode: bool = False,
                   compute_dtype: str | None = None,
                   splat_dtype: str | None = None,
                   raft_resolution: float = 1.0, decode_chunks: int = 1):
         """Set every serving knob (one not named goes back to its default);
-        the parameters are untouched. Returns self."""
+        the parameters are untouched. Returns self. The linear-motion fork
+        raises for a knob it does not run."""
+        if self.linear_motion and (fused_decode or compute_dtype
+                                   or raft_resolution != 1.0):
+            raise ValueError(
+                "MoTIF(linear_motion): the Ours_7 fork runs none of "
+                "fused_decode, compute_dtype and raft_resolution; it takes "
+                "splat_dtype and decode_chunks")
         self.fused_decode = bool(fused_decode)
         self.compute_dtype = _dtype("compute_dtype", compute_dtype,
                                     ("bfloat16",))
@@ -158,7 +225,7 @@ class MoTIF(nn.Module):
         self.raft_resolution = float(raft_resolution)
         self.decode_chunks = int(decode_chunks)
         for net in (self.flow_imnet, self.imnet, self.synth_net):
-            net.skip_first_linear = self.fused_decode
+            net.skip_first_linear = self.use_fused
         return self
 
     def knobs(self) -> dict:
@@ -170,6 +237,11 @@ class MoTIF(nn.Module):
                     splat_dtype=name(self.splat_dtype),
                     raft_resolution=self.raft_resolution,
                     decode_chunks=self.decode_chunks)
+
+    def _z_nonpositive(self) -> bool:
+        """Whether z <= 0 everywhere, so that the max splat is skipped:
+        always when predict_Z is off (z = 0), else when alpha <= 0."""
+        return not self.predict_Z or self._alpha_nonpositive()
 
     def _alpha_nonpositive(self) -> bool:
         """alpha <= 0, read from the device once per loaded state: the
@@ -311,6 +383,9 @@ class MoTIF(nn.Module):
         N = target_t.shape[1]
         ch = self.channel
         n = self.n_anchors
+        if self.linear_motion:    # the first two (Ours_7.py:481-492)
+            return self._linear_forward(x[:, 0], x[:, 1], target_t, out_hw,
+                                        use_gt, iters, target_frames, train)
         if n == 2:
             c = N_in // 2
             frames = [x[:, c - 1], x[:, c]]
@@ -359,13 +434,15 @@ class MoTIF(nn.Module):
         feat = torch.cat([feat_t[:, 2 * i] for i in range(n)], 0)  # (nB,H,W,ch)
 
         # ---- flow-context encoder: per source frame i, the targets j of
-        # [flow_ij / 20 | psi_ij | rsd row] into a grouped conv ----
+        # [flow_ij / 20 | psi_ij (input_Z) | rsd row] into a grouped conv --
         f22 = (flow / 20.0).reshape(n, n, B, H, W, 2).permute(0, 2, 1, 3, 4, 5)
         p22 = psies.reshape(n, n, B, H, W, 3).permute(0, 2, 1, 3, 4, 5)
         r22 = tab["r22"].expand(n, B, n, H, W, 2)
-        ff = torch.cat([f22, p22, r22], dim=-1)              # (n,B,n,H,W,7)
-        ff = ff.reshape(n * B, n, H, W, 7).permute(0, 2, 3, 1, 4)
-        flow_feat = self.flow_process(cd(ff.reshape(n * B, H, W, n * 7)))
+        ff = torch.cat([f22, p22, r22] if self.input_Z else [f22, r22],
+                       dim=-1)                               # (n,B,n,H,W,7|4)
+        k = ff.shape[-1]
+        ff = ff.reshape(n * B, n, H, W, k).permute(0, 2, 3, 1, 4)
+        flow_feat = self.flow_process(cd(ff.reshape(n * B, H, W, n * k)))
 
         # ---- LIIF query as separable nearest takes (one shift, weight 1) --
         iy_t, ix_t, rel = tab["iy"], tab["ix"], tab["rel"]   # rel (1,HH,WW,2)
@@ -378,7 +455,8 @@ class MoTIF(nn.Module):
 
         t_tok = cd(target_t.reshape(B * N, 1, 1, 1).repeat(n, 1, 1, 1))
         chunks = self.decode_chunks
-        if self.fused_decode:
+        fused = self.use_fused
+        if fused:
             # Each SIREN's first layer folded through the takes: a channel
             # product commutes with a spatial take, so the feature products
             # run at LR and sti / si never exist. net.0's rows follow the
@@ -419,7 +497,7 @@ class MoTIF(nn.Module):
         # the payload's flow channels take no gradient (as in the JAX
         # package) ----
         flow_raw = cf(q_flow_o)
-        if self.fused_decode:
+        if fused:
             # The synthesis net's first layer folded through the splat,
             # which is linear in its payload: [q_feat_o | flow | q_feat]
             # goes through net.0's matching rows before it is scattered
@@ -429,11 +507,12 @@ class MoTIF(nn.Module):
             ws_raw, _ = self.synth_net.first_linear(x.dtype)
             ws, bs = self.synth_net.first_linear(rel.dtype)
             ws_raw, ws = ws_raw.t(), ws.t()                  # (198, 64)
+            k_e = 3 if self.decoder_Z else 2
             w_a, w_b = ws[:64], ws[66:66 + ch]
             off = 66 + ch
-            w_e = ws[off:off + 3]
-            w_r = ws[off + 3:off + 3 + ch]
-            w_t = ws[off + 3 + ch]
+            w_e = ws[off:off + k_e]
+            w_r = ws[off + k_e:off + k_e + ch]
+            w_t = ws[off + k_e + ch]
             pay = rep_n(torch.matmul(q_feat_o, w_a)
                         + up(torch.matmul(feat, w_b)))
             feat_hr = cf(pay) + torch.matmul(flow_raw[..., :2].detach(),
@@ -444,31 +523,13 @@ class MoTIF(nn.Module):
                                  rep_n(cf(q_feat))], dim=-1)
         flow_hr = flow_raw[..., :2] * 20.0 * (HH / H)
         z = torch.relu(flow_raw[..., 2:3]) * self.alpha
-        # teacher forcing splats with the teacher flow
-        splat_flow = flow_gt if use_gt else flow_hr
-        # z = relu(.) * alpha <= 0 whenever alpha <= 0: the max splat is then
-        # identically 1 and is skipped
-        output, warped_z, z_max, count = softsplat.splat_fused(
-            feat_hr, splat_flow, z, z_nonpositive=self._alpha_nonpositive(),
-            scatter_dtype=self.splat_dtype)
-
-        # ---- merge the n directions + extras ----
-        Cf = output.shape[-1]
-        output = output.reshape(n, B * N, HH, WW, Cf).sum(0)
-        warped_z = warped_z.reshape(n, B * N, HH, WW, 1).sum(0)
-        warped_z = torch.where(warped_z == 0.0, torch.ones_like(warped_z),
-                               warped_z)
-        output = output / warped_z
-        z_max = z_max.reshape(n, B * N, HH, WW, 1).amax(0)
-        count = count.reshape(n, B * N, HH, WW, 1).sum(0)
-        count_safe = torch.where(count == 0.0, torch.ones_like(count), count)
-        warped_z_masked = torch.where(warped_z == 1.0,
-                                      torch.zeros_like(warped_z), warped_z)
-        extra = torch.cat([z_max, count / 16.0, warped_z_masked / count_safe],
-                          dim=-1)
+        if not self.predict_Z:
+            z = torch.zeros_like(z)
+        output, extra = self._splat_merge(feat_hr, flow_gt if use_gt
+                                          else flow_hr, z, n, B * N)
 
         # ---- synthesis ----
-        if self.fused_decode:
+        if fused:
             # net.0's pre-activation: the merged splat output (already
             # through w_a, the flow rows and w_b) + the extras', the
             # residual's and the time's rows + the bias
@@ -492,6 +553,111 @@ class MoTIF(nn.Module):
         flow_gt_norm = flow_gt / 20.0 / (HH / H)
         return frames_out, flow_norm, flow_gt_norm
 
+    def _splat_merge(self, feat_hr, splat_flow, z, n, BN):
+        """The splat of the payload along `splat_flow` with importance z,
+        then the n directions merged (summed, normalised by their summed
+        weights, the max and count merged), or under warp_to_many each
+        normalised alone and laid side by side; and the extras: [z_max |]
+        count / 16 | the masked weights / the safe count. Returns (output,
+        extra), BN = B·N rows each."""
+        HH, WW = feat_hr.shape[1:3]
+        output, warped_z, z_max, count = softsplat.splat_fused(
+            feat_hr, splat_flow, z, z_nonpositive=self._z_nonpositive(),
+            scatter_dtype=self.splat_dtype)
+        Cf = output.shape[-1]
+        if not self.warp_to_many:
+            output = output.reshape(n, BN, HH, WW, Cf).sum(0)
+            warped_z = warped_z.reshape(n, BN, HH, WW, 1).sum(0)
+        warped_z = torch.where(warped_z == 0.0, torch.ones_like(warped_z),
+                               warped_z)
+        output = output / warped_z
+        if not self.warp_to_many:
+            z_max = z_max.reshape(n, BN, HH, WW, 1).amax(0)
+            count = count.reshape(n, BN, HH, WW, 1).sum(0)
+        count_safe = torch.where(count == 0.0, torch.ones_like(count), count)
+        warped_z_masked = torch.where(warped_z == 1.0,
+                                      torch.zeros_like(warped_z), warped_z)
+        extra = [count / 16.0, warped_z_masked / count_safe]
+        extra = torch.cat([z_max] + extra if self.decoder_Z else extra, -1)
+        if self.warp_to_many:
+            # the JAX package's NHWC form of the reference's NCHW concat
+            # (motif.py:686-691): the (n, HH, WW, c) block of each row read
+            # as (HH, WW, n·c) in memory order
+            def side_by_side(a):
+                return a.reshape(n, BN, HH, WW, -1).transpose(0, 1).reshape(
+                    BN, HH, WW, -1)
+            output, extra = side_by_side(output), side_by_side(extra)
+        return output, extra
+
+    def _linear_forward(self, x0, x1, target_t, out_hw, use_gt, iters,
+                        target_frames, train):
+        """The Ours_7 fork (Ours_7.py:480-704) on anchors x0, x1 (B, H, W,
+        3): RAFT's f01 / f10 at HR brought to LR, scaled by t and 1 - t
+        per target time and brought back to HR as the motion; the encoder
+        on the two anchors; SINF on the LIIF takes of their features; the
+        splat of [SINF | motion | features] along the motion (or the
+        teacher's) with z = 0 (its predict_Z is off); the synthesis net.
+        In the input's dtype (the fork has no compute dtype). The flows it
+        returns are the motion / 20 / (HH / H) and the teacher's likewise
+        (the fork's quirk: the motion was never multiplied by 20)."""
+        B, H, W, _ = x0.shape
+        HH, WW = out_hw
+        N = target_t.shape[1]
+        ch = self.channel
+        tab = self._shape_tables(H, W, HH, WW, HH, WW, x0.dtype, None,
+                                 x0.device)
+        with torch.no_grad():
+            hr0 = interpolate_bilinear(x0, (HH, WW))
+            hr1 = interpolate_bilinear(x1, (HH, WW))
+            f = self.flow_predictor(torch.cat([hr0, hr1], 0) * 255.0,
+                                    torch.cat([hr1, hr0], 0) * 255.0,
+                                    iters=iters)
+            f = interpolate_bilinear(f, (H, W)) * (H / HH)
+            t = target_t.reshape(1, B, N, 1, 1, 1)
+            lin = torch.cat([f[None, :B, None] * t,
+                             f[None, B:, None] * (1.0 - t)], 0)
+            flow = interpolate_bilinear(lin.reshape(2 * B * N, H, W, 2),
+                                        (HH, WW)) * (HH / H)
+            if train:
+                flow_gt = self._teacher(target_frames, N, (HH, WW), iters,
+                                        _identity, _identity)
+            else:
+                flow_gt = x0.new_zeros((2 * B * N, HH, WW, 2))
+
+        feat_t = self.encoder(torch.stack([x0, x1], 1))     # (B, 3, H, W, ch)
+        residual_bn = feat_t[:, 1]
+        feat = torch.cat([feat_t[:, 0], feat_t[:, 2]], 0)   # (2B, H, W, ch)
+        iy_t, ix_t, rel = tab["iy"], tab["ix"], tab["rel"]
+
+        def up(img):
+            return img.index_select(1, iy_t).index_select(2, ix_t)
+        q_feat = up(feat)
+        si = torch.cat([q_feat, rel.expand(2 * B, HH, WW, 2)], dim=-1)
+        si_out = _chunked_tokens(self.imnet, si.reshape(2 * B, HH * WW, -1),
+                                 self.decode_chunks).reshape(2 * B, HH, WW,
+                                                             64)
+        feat_hr = torch.cat([si_out.repeat_interleave(N, 0), flow,
+                             q_feat.repeat_interleave(N, 0)], dim=-1)
+        z = torch.relu(flow[..., -1:]) * self.alpha   # the fork reads z
+        if not self.predict_Z:                        # from dy; off at 3
+            z = torch.zeros_like(z)
+        output, extra = self._splat_merge(feat_hr, flow_gt if use_gt
+                                          else flow, z, 2, B * N)
+        tmap = target_t.reshape(B * N, 1, 1, 1) * x0.new_ones((1, HH, WW, 1))
+        synth_in = torch.cat([output, extra,
+                              up(residual_bn).repeat_interleave(N, 0), tmap],
+                             dim=-1)
+        out = _chunked_tokens(self.synth_net,
+                              synth_in.reshape(B * N, HH * WW, -1),
+                              self.decode_chunks)
+        frames = torch.clamp(out.reshape(B, N, HH, WW, 3), 0.0, 1.0
+                             ).permute(1, 0, 2, 3, 4)
+        return frames, flow / 20.0 / (HH / H), flow_gt / 20.0 / (HH / H)
+
+
+def _identity(a):
+    return a
+
 
 def _dtype(knob: str, name, allowed):
     """The torch dtype a knob names (the JAX package takes dtype names), or
@@ -506,19 +672,22 @@ def _dtype(knob: str, name, allowed):
 
 def build_motif(channel: int = 64, front_rbs: int = 5, back_rbs: int = 40,
                 device=None, seed: int = 0, n_anchors: int = 2,
+                setting: int = 5, linear_motion: bool = False,
                 **knobs) -> MoTIF:
-    """A MoTIF with `n_anchors` (2: Ours, 4: Ours_44) and float32 random
-    weights from `seed`, in eval mode, on `device` (CUDA unless the caller
-    passes another device; raises without CUDA). `knobs` are MoTIF's
-    serving knobs by name (`fused_decode`, `compute_dtype`, `splat_dtype`,
-    `raft_resolution`, `decode_chunks`); the weights depend on neither
-    (both families draw the same weights from a seed). On CUDA the conv
-    weights take the channels_last memory format."""
+    """A MoTIF with `n_anchors` (2: Ours, 4: Ours_44) at `setting` (or the
+    linear-motion Ours_7) and float32 random weights from `seed`, in eval
+    mode, on `device` (CUDA unless the caller passes another device;
+    raises without CUDA). `knobs` are MoTIF's serving knobs by name
+    (`fused_decode`, `compute_dtype`, `splat_dtype`, `raft_resolution`,
+    `decode_chunks`); the weights depend on neither (both families draw
+    the same weights from a seed; a setting changes the shapes of three
+    of them). On CUDA the conv weights take the channels_last memory
+    format."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = MoTIF(channel, front_rbs, back_rbs, n_anchors=n_anchors,
-                      **knobs)
+                      setting=setting, linear_motion=linear_motion, **knobs)
     model = model.to(dev).eval()
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

@@ -265,6 +265,34 @@ def plan_bf16(dims, aligned: bool = True):
     return nbuf, 2 * (n_params + nbuf * slab)
 
 
+def segments_bf16(dims, aligned: bool = True):
+    """The bfloat16 kernel's launches for layer widths `dims`: a list of
+    (first, last, nbuf) runs of whole layers, in order. An MLP whose
+    weights and warp slabs fit one block's shared memory is one launch;
+    otherwise each run is the longest from where the last one ended that
+    fits (MoTIF's warp_to_many synthesis net, 331 inputs: its first layer
+    alone, then the other four). The activation between two runs is the
+    bfloat16 one the kernel keeps between layers, written to global memory
+    and read back 16-byte aligned. `aligned`: the first run's x (see
+    `plan_bf16`). Raises where a layer does not fit alone."""
+    L, runs, i = len(dims) - 1, [], 0
+    while i < L:
+        al = aligned if i == 0 else True
+        for j in range(L, i, -1):
+            nbuf, smem = plan_bf16(dims[i:j + 1], al)
+            if smem <= SMEM_LIMIT:
+                break
+        else:
+            raise ValueError(
+                f"siren_mlp: widths {dims}: layer {i} needs {smem} B of "
+                f"shared memory alone (the weights resident plus "
+                f"{BF16_WARPS} warps' slabs of {BF16_TILE} tokens), more "
+                f"than the {SMEM_LIMIT} B a block may use")
+        runs.append((i, j, nbuf))
+        i = j
+    return runs
+
+
 def _check_chain(x, weights, biases, skip_first):
     n_layers = len(weights)
     if not 1 <= n_layers <= MAX_LAYERS:
@@ -354,13 +382,7 @@ def _mlp_forward(x, weights, biases, omega0, sine_last, skip_first, packed):
     xf = x.reshape(-1, dims[0]).contiguous()
     bf16 = dtype == torch.bfloat16
     if bf16:
-        nbuf, smem = plan_bf16(dims, xf.data_ptr() % 16 == 0)
-        if smem > SMEM_LIMIT:
-            raise ValueError(
-                f"siren_mlp: widths {dims} need {smem} B of shared memory "
-                f"(the weights resident plus {BF16_WARPS} warps' slabs of "
-                f"{BF16_TILE} tokens), more than the {SMEM_LIMIT} B a block "
-                "may use")
+        runs = segments_bf16(dims, xf.data_ptr() % 16 == 0)
     else:
         launches = segments(dims)
     if packed is None:
@@ -373,15 +395,23 @@ def _mlp_forward(x, weights, biases, omega0, sine_last, skip_first, packed):
     entry = str(dtype).removeprefix("torch.") + (
         "/skip_first" if skip_first else "/whole")
     if bf16:
-        out = torch.empty((xf.shape[0], dims[-1]), dtype=dtype,
-                          device=x.device)
         lib = kernels.load("siren_mlp_bf16", _SIGNATURES_BF16)
-        err = lib.siren_mlp_bf16_forward(
-            xf.data_ptr(), packed.data_ptr(), out.data_ptr(), xf.shape[0],
-            (ctypes.c_int * len(dims))(*dims), len(weights), n_sm,
-            float(omega0), int(sine_last), int(skip_first), nbuf, stream)
-        kernels.count("siren_mlp", entry)
-        kernels.check(err, "siren_mlp")
+        layers, _ = layout_bf16(dims)
+        h, L = xf, len(weights)
+        for first, last, nbuf in runs:
+            # a run's layers lie back to back in the whole MLP's buffer
+            out = torch.empty((xf.shape[0], dims[last]), dtype=dtype,
+                              device=x.device)
+            sub = dims[first:last + 1]
+            err = lib.siren_mlp_bf16_forward(
+                h.data_ptr(), packed.data_ptr() + 2 * layers[first][0],
+                out.data_ptr(), xf.shape[0], (ctypes.c_int * len(sub))(*sub),
+                last - first, n_sm, float(omega0),
+                int(sine_last or last < L), int(skip_first and first == 0),
+                nbuf, stream)
+            kernels.count("siren_mlp", entry)
+            kernels.check(err, "siren_mlp")
+            h = out
         return out.reshape(*lead, dims[-1])
     lib = kernels.load("siren_mlp", _SIGNATURES)
     h, offset, L = xf, 0, len(weights)

@@ -4,31 +4,102 @@
     python -m motif_tpu_torch.train -opt configs/train_smoke.yml
         [--max_steps N] [--device cpu]
 
-It builds the yml's `network_G` (`define_g`: the `Ours` family or the
-four-anchor Ours_44 / Ours_4, at setting 5), the `datasets.train` set
-(`vimeo`; for a four-anchor model with its precomputed flows unless the
-yml says `load_flows: false`, as the JAX package's train.py does) in
-shuffled batches of `batch_size` (`dataset_ratio` passes over it an
-epoch), and a `Trainer`
-from the `train` section; it resumes from the latest `step_<n>` under
-`path.models`, trains to `train.niter` steps (or `--max_steps`), appends a
-JSON line to `<experiments_root>/train_log.jsonl` every
+It builds the yml's `network_G` (`define_g`: the `Ours` family at any
+setting, the four-anchor Ours_44 / Ours_4, or the linear-motion Ours_7),
+the `datasets.train` set (`vimeo`, for a four-anchor model with its
+precomputed flows unless the yml says `load_flows: false`, as the JAX
+package's train.py does; `Adobe`, `Adobe_4`, `Adobe_flow`; the
+arbitrary-scale `Adobe_a` and `vimeo_a`) in shuffled batches of
+`batch_size` (`dataset_ratio` passes over it an epoch), and a `Trainer`
+from the `train` section. An arbitrary-scale mode's batches come from
+`collate_adobe_arbitrary` with `LQ_size` (default 64, 32 for `vimeo_a`)
+and a `random.Random(manual_seed)`: each batch has its own output size (a
+multiple of 8 from LQ_size to 2·LQ_size, LQ_size / 2 at the input), read
+from its GT. RAFT needs 64 px a side at the output, so `LQ_size: 32`
+(every `_a` yml of configs/grid/) fails at the first step in both
+packages; `LQ_size: 64` runs. The CLI resumes from the latest `step_<n>`
+under `path.models`, trains to `train.niter` steps (or `--max_steps`),
+appends a JSON line to `<experiments_root>/train_log.jsonl` every
 `logger.print_freq` steps and saves the train state every
 `logger.save_checkpoint_freq` steps and at the end. The model runs on CUDA
 unless `--device` names another device. `main` returns the last step's
-aux. The arbitrary-scale modes (`*_a`, ROADMAP.md §A.7), the other MoTIF
-variants (§A.8) and the baselines (§A.9) raise.
+aux. The baselines (LIIF training: ROADMAP.md §A.4) and `Ours_flow` (a
+flow precomputer, not a trained model) raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
+import random
 import time
 
 import numpy as np
+
+
+def setup(opt: dict, device=None, rng: random.Random | None = None,
+          dataset_seed: int | None = None):
+    """The parts of a training run of a parsed yml (`utils.config.parse`):
+    (model, loader, trainer). The model is `define_g`'s on `device` (CUDA
+    unless another device is named); the loader shuffles from the yml's
+    `manual_seed`; an arbitrary-scale mode's collate draws from `rng`
+    (default `random.Random(manual_seed)`). `dataset_seed` seeds the
+    dataset's own draws (None: fresh entropy, as the JAX package's CLI
+    leaves them)."""
+    import dataclasses
+
+    from motif_tpu_torch.data import (BatchLoader, collate_adobe_arbitrary,
+                                      collate_stack, create_dataset)
+    from motif_tpu_torch.models.factory import define_g
+    from motif_tpu_torch.trainer import Trainer
+    from motif_tpu_torch.utils import config as cfg
+
+    seed = (opt.get("train") or {}).get("manual_seed") or 0
+    net_opt = opt["network_G"]
+    which = net_opt.get("which_model_G") or "Ours"
+    if not which.startswith("Ours") or which == "Ours_flow":
+        raise NotImplementedError(
+            f"train: no training of [{which}] in the port (Ours_flow is a "
+            "flow precomputer; LIIF training: ROADMAP.md §A.4)")
+    dataset_opt = dict(opt["datasets"]["train"])
+    mode = dataset_opt.get("mode") or ""
+    arbitrary = mode.endswith("_a")     # Adobe_a / vimeo_a: batch collate
+    model = define_g(net_opt, device=device)
+    if model.n_anchors == 4 and mode == "vimeo":
+        # Ours_44 trains on the precomputed flow npys (Vimeo7_dataset.py:
+        # 143,152): RAFT does not run in a step
+        dataset_opt.setdefault("load_flows", True)
+    dataset = create_dataset(dataset_opt)
+    if dataset_seed is not None:
+        dataset = dataclasses.replace(dataset, seed=dataset_seed)
+    batch_size = int(dataset_opt.get("batch_size") or 1)
+    collate = collate_stack
+    if arbitrary:
+        # collate_function(_vimeo), data/__init__.py:91-173: a d_scale a
+        # batch, the LQ made by MATLAB bicubic, GT sizes in buckets of 16
+        lq_size = int(dataset_opt.get("LQ_size") or
+                      (32 if mode == "vimeo_a" else 64))
+        collate = functools.partial(collate_adobe_arbitrary,
+                                    lq_size=lq_size,
+                                    rng=rng or random.Random(seed))
+    loader = BatchLoader(dataset, batch_size=batch_size, shuffle=True,
+                         seed=seed, collate=collate,
+                         epoch_ratio=int(opt.get("dataset_ratio") or 200))
+    if len(loader) == 0:
+        raise ValueError(
+            f"train: {len(dataset)} clips x dataset_ratio make no batch of "
+            f"{batch_size}; raise dataset_ratio")
+    gt_size = int(dataset_opt.get("GT_size") or 128)
+    # Ours_ZSM trains without the flow distillation term; an
+    # arbitrary-scale batch's output size is its GT's
+    trainer = Trainer(model, cfg.trainer_config_from_opt(opt),
+                      None if arbitrary else (gt_size, gt_size),
+                      iters=int(net_opt.get("iters") or 12),
+                      flow_loss=which != "Ours_ZSM", seed=seed, family=which)
+    return model, loader, trainer
 
 
 def main(argv: list[str] | None = None, overrides: dict | None = None):
@@ -46,10 +117,7 @@ def main(argv: list[str] | None = None, overrides: dict | None = None):
     import torch
 
     from motif_tpu_torch import checkpoint
-    from motif_tpu_torch.data import (BatchLoader, create_dataset,
-                                      device_prefetch)
-    from motif_tpu_torch.models.factory import define_g, unported
-    from motif_tpu_torch.trainer import Trainer
+    from motif_tpu_torch.data import device_prefetch
     from motif_tpu_torch.utils import config as cfg
 
     opt = cfg.parse(args.opt, is_train=True, overrides=overrides)
@@ -59,42 +127,9 @@ def main(argv: list[str] | None = None, overrides: dict | None = None):
                         format="%(asctime)s %(levelname)s: %(message)s")
     logger = logging.getLogger("base")
 
-    seed = (opt.get("train") or {}).get("manual_seed") or 0
-    np.random.seed(seed)
-
-    net_opt = opt["network_G"]
-    which = net_opt.get("which_model_G") or "Ours"
-    reason = unported(which)
-    if reason or not which.startswith("Ours"):
-        raise NotImplementedError(
-            f"train: no training of {reason or f'[{which}]'} in the port "
-            "(baselines: ROADMAP.md §A.9)")
-    dataset_opt = dict(opt["datasets"]["train"])
-    mode = dataset_opt.get("mode") or ""
-    if mode.endswith("_a"):
-        raise NotImplementedError(
-            f"train: the arbitrary-scale mode [{mode}] and its batch collate "
-            "are not ported (ROADMAP.md §A.7)")
-    model = define_g(net_opt, device=args.device)
+    np.random.seed((opt.get("train") or {}).get("manual_seed") or 0)
+    model, loader, trainer = setup(opt, args.device)
     device = next(model.parameters()).device
-    if model.n_anchors == 4 and mode == "vimeo":
-        # Ours_44 trains on the precomputed flow npys (Vimeo7_dataset.py:
-        # 143,152): RAFT does not run in a step
-        dataset_opt.setdefault("load_flows", True)
-    dataset = create_dataset(dataset_opt)
-    batch_size = int(dataset_opt.get("batch_size") or 1)
-    loader = BatchLoader(dataset, batch_size=batch_size, shuffle=True,
-                         seed=seed,
-                         epoch_ratio=int(opt.get("dataset_ratio") or 200))
-    if len(loader) == 0:
-        raise ValueError(
-            f"train: {len(dataset)} clips x dataset_ratio make no batch of "
-            f"{batch_size}; raise dataset_ratio")
-    gt_size = int(dataset_opt.get("GT_size") or 128)
-    # Ours_ZSM trains without the flow distillation term
-    trainer = Trainer(model, cfg.trainer_config_from_opt(opt),
-                      (gt_size, gt_size), iters=int(net_opt.get("iters") or 12),
-                      flow_loss=which != "Ours_ZSM", seed=seed, family=which)
     logger.info("model built on %s: %d params", device,
                 sum(p.numel() for p in model.parameters()))
 

@@ -1,7 +1,8 @@
 """Training, the counterpart of motif_tpu/trainer.py (reference
 models/VideoSR_base_model.py + base_model.py): one optimiser step of a
-MoTIF model (the `Ours` family, or the four-anchor Ours_44 / Ours_4 on the
-dataset's precomputed flows) per batch.
+MoTIF model (the `Ours` family at any setting, the linear-motion Ours_7, or
+the four-anchor Ours_44 / Ours_4, with the dataset's precomputed flows when
+it has them) per batch.
 
 The step keeps the reference's training semantics as the JAX package does
 (VideoSR_base_model.py:127-158):
@@ -95,27 +96,29 @@ def make_optimizer(cfg: TrainerConfig, params):
 
 
 class Trainer:
-    """Trains a MoTIF (the `Ours` family, Ours_44 / Ours_4) in place.
+    """Trains a MoTIF (the `Ours` family, Ours_7, Ours_44 / Ours_4) in
+    place.
 
     batch: {'lq': (B, N_in, H, W, 3), 'gt': (B, N+2, HH, WW, 3),
-    'times': (B, N)} and, when the dataset has them (a four-anchor model),
-    the precomputed flows 'flow' (B, n², H, W, 2) and 'flow_gt' (B, N, n,
-    HH, WW, 2), which the model takes in place of RAFT's (its `flows=`);
-    numpy arrays or tensors, moved to the model's device and dtype. GT
-    holds the two anchor frames at [0] and [-1] (the live teacher's), the
-    loss is on gt[:, 1:-1].
+    'times': (B, N)} and, when the dataset has them (Vimeo's for a
+    four-anchor model, Adobe_flow's), the precomputed flows 'flow' (B, n²,
+    H, W, 2) and 'flow_gt' (B, N, n, HH, WW, 2), which the model takes in
+    place of RAFT's (its `flows=`); numpy arrays or tensors, moved to the
+    model's device and dtype. Any other key ('psies', the collate's
+    'out_hw', 'key') is dropped, as the JAX package drops it. GT holds the
+    two anchor frames at [0] and [-1] (the live teacher's), the loss is on
+    gt[:, 1:-1]. `out_hw` None: each batch's output size is its GT's (the
+    arbitrary-scale collates).
     `step_count` is the number of optimiser steps taken (the JAX package's
     state.step)."""
 
     def __init__(self, model, cfg: TrainerConfig, out_hw=None,
                  iters: int = 12, flow_loss: bool = True, seed: int = 0,
                  family: str = "Ours"):
-        if not family.startswith("Ours") or family in ("Ours_7",
-                                                       "Ours_flow"):
+        if not family.startswith("Ours") or family == "Ours_flow":
             raise NotImplementedError(
-                f"Trainer: family [{family}] is not ported (LIIF: ROADMAP.md "
-                "§A.9; the linear-motion variant and the flow precomputer: "
-                "§A.8)")
+                f"Trainer: no training of family [{family}] (LIIF: "
+                "ROADMAP.md §A.4; Ours_flow is a flow precomputer)")
         self.model = model
         self.cfg = cfg
         # None: the output size is read from each batch's GT

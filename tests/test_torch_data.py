@@ -80,13 +80,34 @@ def test_eval_datasets_match_motif_tpu(opt):
         assert got[0]["gt"].shape == (5, 64, 96, 3)
 
 
-@pytest.mark.parametrize("mode", datasets.TRAINING_MODES)
-def test_training_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="A.7"):
-        datasets.create_dataset({"mode": mode, "dataroot_GT": str(VID4),
-                                 "dataroot_LQ": str(VID4)})
+@pytest.mark.parametrize("mode", ["Adobe", "Adobe_4", "Adobe_flow",
+                                  "Adobe_a", "vimeo_a"])
+def test_training_modes_raise(mode, tmp_path):
+    """The training modes the port once refused now build as motif_tpu's
+    do (their items: tests/test_torch_adobe_data.py); an unknown mode
+    raises in both, and LMDB packs, which the port does not read, raise."""
+    import cv2
+
+    vimeo = mode.startswith("vimeo")
+    root = tmp_path / ("GT" if vimeo else "HR")
+    d = root / ("00001/0001" if vimeo else "clip")
+    d.mkdir(parents=True)
+    for i in range(7 if vimeo else 10):
+        cv2.imwrite(str(d / (f"im{i + 1}.png" if vimeo else f"{i:03d}.png")),
+                    np.zeros((8, 8, 3), np.uint8))
+    (tmp_path / "keys.txt").write_text("00001/0001\n")
+    opt = {"mode": mode, "dataroot_GT": str(root),
+           "dataroot_LQ": str(root),
+           "cache_keys": str(tmp_path / "keys.txt")}
+    got, want = datasets.create_dataset(opt), jdatasets.create_dataset(opt)
+    assert type(got).__name__ == type(want).__name__
+    assert len(got) == len(want) == 1
+    assert getattr(got, "load_flows", None) == getattr(want, "load_flows",
+                                                       None)
     with pytest.raises(NotImplementedError, match="not recognized"):
         datasets.create_dataset({"mode": "no_such_mode"})
+    with pytest.raises(NotImplementedError, match="LMDB"):
+        datasets.create_dataset({**opt, "mode": "vimeo", "data_type": "lmdb"})
 
 
 @pytest.mark.parametrize("shape,scale", [((32, 48, 3), 0.25), ((33, 47, 3), 0.5),

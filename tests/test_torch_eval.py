@@ -251,19 +251,24 @@ def test_define_g_reads_the_serving_knobs_as_motif_tpu():
 
 
 @pytest.mark.parametrize("which,setting,want", [
-    ("Ours", 3, "A.8"), ("Ours_44", 3, "A.8"), ("Ours_4", 6, "A.8"),
-    ("Ours_7", 5, "A.8"), ("Ours_flow", 5, "A.8"), ("LIIF", 3, None),
+    ("Ours", 3, None), ("Ours_44", 3, None), ("Ours_4", 6, None),
+    ("Ours_7", 5, None), ("Ours_flow", 5, None), ("LIIF", 3, None),
     ("ZSM", 3, None), ("Zooming", 3, None), ("TMNet", 3, None),
     ("EDVR", 3, None), ("Super_SloMo", 3, None), ("VSR", 5, "not recognized"),
 ])
 def test_define_g_raises_for_what_is_not_ported(which, setting, want):
-    """What is not ported raises and names its ROADMAP entry; the baselines
-    build whatever `setting` says (the JAX package reads it for MoTIF
-    only), at nf 16 here."""
+    """Every family of motif_tpu's define_g builds, at nf 16 here: MoTIF
+    at the yml's setting (Ours_7 at 3), the flow precomputer, the
+    baselines whatever `setting` says (the JAX package reads it for MoTIF
+    only); an unknown family raises."""
     net = _network_g(which_model_G=which, setting=setting)
     if want is None:
         m = factory.define_g(net | {"nf": 16}, device="cpu")
-        assert type(m).__name__ == type(jfactory.define_g(net)).__name__
+        jm = jfactory.define_g(net)
+        assert type(m).__name__ == type(jm).__name__
+        if which.startswith("Ours") and which != "Ours_flow":
+            assert (m.setting, m.n_anchors, m.linear_motion) == (
+                jm.setting, jm.n_anchors, jm.linear_motion)
         return
     with pytest.raises(NotImplementedError, match=want):
         factory.define_g(net, device="cpu")

@@ -541,8 +541,9 @@ def test_siren_mlp_bfloat16_wide_arguments(dev):
 
 
 def test_siren_mlp_bfloat16_refuses_what_it_does_not_take(dev):
-    """A wide layer that feeds a wide layer, and an MLP whose weights and
-    slabs exceed a block's shared memory, raise before any launch."""
+    """A wide layer that feeds a wide layer, and an MLP with a layer whose
+    weights and slabs exceed a block's shared memory alone, raise before
+    any launch."""
     before = kernels.LAUNCHES["siren_mlp"]
     x, ws, bs = _bf16_case(dev, [64, 256, 256, 3], 10, False)
     with pytest.raises(ValueError, match="must be last or feed"):
@@ -1314,3 +1315,176 @@ def test_deterministic_plain_dcn_backward_is_bit_equal(dev):
         torch.use_deterministic_algorithms(False)
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The Adobe and arbitrary-scale recipes (MoTIF settings 1-6, Ours_7): the
+# splat at the `_a` output sizes that are no multiple of 16, with z at zero
+# (predict_Z off) and with float16 sums at C = 130 (setting 6 serving); the
+# DCN at the PCD levels of an `_a` batch of 24 (LQ 32²); the SIREN whose
+# synthesis net is too wide for one block (setting 6: 331 inputs); one
+# forward of settings 2 and 6 and of Ours_7 against the plain versions.
+# ---------------------------------------------------------------------------
+
+def _a_splat_inputs(dev, side, C=130, B=12):
+    g = torch.Generator(device=dev).manual_seed(side)
+    img = torch.randn((B, side, side, C), device=dev, generator=g)
+    flow = torch.randn((B, side, side, 2), device=dev, generator=g) * 3.0
+    return img, flow, torch.zeros((B, side, side, 1), device=dev)
+
+
+@pytest.mark.parametrize("side", [72, 120])
+def test_splat_fused_at_arbitrary_sizes_with_z_at_zero(dev, side):
+    """C = 130, z = 0 (settings <= 3 and Ours_7 splat with the max
+    skipped) at 72² and 120² (`_a` outputs, not multiples of 16): the
+    forward against the plain version (out / norm 1e-4, max and count
+    exact), the backward against autograd through it."""
+    img, flow, z = _a_splat_inputs(dev, side)
+    with torch.no_grad():
+        got, n = _launches("splat_fused", lambda: softsplat.splat_fused(
+            img, flow, z, True))
+        want = softsplat.splat_fused_plain(img, flow, z, True)
+    assert n == 1 and (got[2] == 1.0).all()
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    g = torch.Generator(device=dev).manual_seed(side + 1)
+    cot = (torch.randn(img.shape, device=dev, generator=g),
+           torch.randn(z.shape, device=dev, generator=g))
+    got = _grads(lambda *a: softsplat.splat_fused(*a, True)[:2],
+                 (img, flow, z), cot)
+    want = _grads(lambda *a: softsplat.splat_fused_plain(*a, True)[:2],
+                  (img, flow, z), cot)
+    for what, a, b in zip(("img", "flow", "z"), got, want):
+        _grad_close(a, b, what)
+
+
+@pytest.mark.parametrize("side", [72, 120])
+@pytest.mark.parametrize("z_nonpositive", [True, False])
+def test_splat_fused_float16_sums_at_c130(dev, side, z_nonpositive):
+    """The float16-sum entry at MoTIF's C = 130 (setting 6 serves with
+    float16 sums and no fused decode): 4 float16 ulps of the largest value
+    on out / norm, the max and the count exact; counted as its own entry."""
+    img, flow, z = _a_splat_inputs(dev, side, B=4)
+    z = -torch.rand(z.shape, device=dev) if z_nonpositive else \
+        torch.rand(z.shape, device=dev)
+    before = dict(kernels.ENTRY_LAUNCHES)
+    got = softsplat.splat_fused(img, flow, z, z_nonpositive,
+                                scatter_dtype=torch.float16)
+    key = "splat_fused/float16/C=130"
+    assert kernels.ENTRY_LAUNCHES[key] - before.get(key, 0) == 1
+    want = softsplat.splat_fused_plain(img, flow, z, z_nonpositive,
+                                       scatter_dtype=torch.float16)
+    for a, b in zip(got[:2], want[:2]):
+        tol = 4 * ulp_at(max(float(b.abs().max()), 1e-3), 10)
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("side", [32, 16, 8], ids=["L1", "L2", "L3"])
+def test_dcn_v2_at_the_arbitrary_scale_pcd_levels(dev, side):
+    """The PCD of an `_a` batch of 24 at LQ 32² (48 frames, G 8, cg 8):
+    the forward against the plain version (1e-5) and the backward against
+    autograd through it."""
+    g = torch.Generator(device=dev).manual_seed(side)
+    B, G, cg, K = 48, 8, 8, 3
+    x = torch.randn((B, side, side, G * cg), device=dev, generator=g)
+    com = torch.randn((B, side, side, G * K * K * 3), device=dev,
+                      generator=g) * 2.0
+    w = torch.randn((64, G * cg, K, K), device=dev, generator=g) * 0.05
+    b = torch.randn((64,), device=dev, generator=g)
+    n2 = G * K * K * 2
+
+    def run(op):
+        def f(xx, cc, ww, bb):
+            return op(xx, cc[..., :n2], torch.sigmoid(cc[..., n2:]), ww, bb,
+                      K, 1, 1, 1, G)
+        return f
+    with torch.no_grad():
+        got, n = _launches("dcn_im2col", lambda: run(dcn.dcn_v2)(x, com, w,
+                                                                 b))
+        want = run(dcn.dcn_v2_plain)(x, com, w, b)
+    assert n == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    cot = (torch.randn(want.shape, device=dev, generator=g),)
+    got = _grads(run(dcn.dcn_v2), (x, com, w, b), cot)
+    want = _grads(run(dcn.dcn_v2_plain), (x, com, w, b), cot)
+    for what, a, c in zip(("x", "offset|mask", "weight", "bias"), got, want):
+        _grad_close(a, c, what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_siren_mlp_warp_to_many_synthesis_is_cut(dev, dtype):
+    """The synthesis net of setting 6 (331 -> 64 -> 64 -> 64 -> 256 -> 3)
+    fits no block whole in either type: two launches, float32 bit-equal
+    to the plain version, bfloat16 held by accuracy (mlp_gate); replayed
+    from a CUDA graph."""
+    dims = [331, 64, 64, 64, 256, 3]
+    if dtype == torch.bfloat16:
+        x, ws, bs = _bf16_case(dev, dims, 5001, False)
+    else:
+        ws, bs, g = _siren(dev, dims)
+        x = torch.rand((5001, 331), device=dev, generator=g) * 2 - 1
+    got, n = _launches("siren_mlp", lambda: siren_kernel.siren_mlp(x, ws,
+                                                                   bs))
+    assert n == 2
+    if dtype == torch.bfloat16:
+        _hold_bf16(x, ws, bs, False, False, got)
+    else:
+        assert torch.equal(got, siren_kernel.siren_mlp_plain(x, ws, bs))
+    (replayed,) = list(_replayed(lambda: siren_kernel.siren_mlp(x, ws, bs),
+                                 [x], [[x]]))
+    assert torch.equal(replayed, got) or dtype == torch.bfloat16
+
+
+SETTING_LAUNCHES = {  # one forward of 3 times: (setting, linear_motion)
+    (2, False): {"dcn_im2col/float32": 42, "siren_mlp/float32/whole": 3,
+                 "splat_fused/float32/generic": 1},
+    (6, False): {"dcn_im2col/float32": 42, "siren_mlp/float32/whole": 3,
+                 "splat_fused/float32/generic": 1},
+    (3, True): {"dcn_im2col/float32": 42, "siren_mlp/float32/whole": 2,
+                "splat_fused/float32/generic": 1}}
+
+
+@pytest.mark.parametrize("setting,linear", list(SETTING_LAUNCHES),
+                         ids=["s2", "s6", "ours7"])
+def test_settings_forward_matches_the_plain_versions(dev, setting, linear):
+    """MoTIF at setting 2 or 6, or Ours_7, at channel 16 (1 / 2 blocks,
+    DCN offsets perturbed, alpha > 0) through Evaluator.infer on LR 16² ->
+    64², 3 times: its kernels launch as counted (channel 16: a generic
+    splat payload of 82), the frames and flow statistics hold against the
+    plain versions to 1e-5, captured and replayed."""
+    from motif_tpu_torch.eval import Evaluator
+    from motif_tpu_torch.models.motif import build_motif
+    from motif_tpu_torch.models.pcd import DCNSep
+
+    model = build_motif(16, 1, 2, device=dev, seed=0, setting=setting,
+                        linear_motion=linear)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        model.alpha.fill_(0.5)
+        for mod in model.modules():
+            if isinstance(mod, DCNSep):
+                w, b = mod.conv_offset_mask.weight, mod.conv_offset_mask.bias
+                w.copy_(torch.randn(w.shape, generator=g) * 0.01)
+                b.copy_(torch.randn(b.shape, generator=g))
+    ev = Evaluator(model, iters=2, family="Ours_7" if linear else "Ours",
+                   device=dev)
+    rng = np.random.default_rng(0)
+    lq = rng.random((1, 4, 16, 16, 3), np.float32)
+    times = np.float32([[0.1, 0.5, 0.75]])
+    before = dict(kernels.ENTRY_LAUNCHES)
+    got, stats = ev.infer(lq, times, (64, 64))
+    launched = {k: v - before.get(k, 0)
+                for k, v in kernels.ENTRY_LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert launched == SETTING_LAUNCHES[(setting, linear)]
+    with _plain_versions():
+        want, want_stats = ev._infer_eager(lq, times, (64, 64))
+    assert got.shape == (3, 1, 64, 64, 3) and np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 1e-5
+    for a, b in zip(stats, want_stats):
+        assert abs(a - b) <= 1e-5 * max(abs(b), 1e-12)
+

@@ -263,7 +263,6 @@ def test_define_g_builds_four_anchors_as_motif_tpu(which):
     m, jm = factory.define_g(net, device="cpu"), jfactory.define_g(net)
     assert m.n_anchors == jm.n_anchors == 4
     assert m.positions == (0.0, 2.0, 4.0, 6.0)
-    assert factory.unported(which) is None
     assert factory.define_g(net | {"which_model_G": "Ours"},
                             device="cpu").n_anchors == 2
 

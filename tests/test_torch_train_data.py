@@ -85,7 +85,7 @@ def test_vimeo_without_augmentation_outside_the_train_phase():
 
 
 @pytest.mark.parametrize("kw,what", [({"load_flows": True}, "hr_gt_flow"),
-                                     ({"data_type": "lmdb"}, "A.7")])
+                                     ({"data_type": "lmdb"}, "A.9")])
 def test_vimeo_flows_and_lmdb_raise(kw, what):
     """LMDB packs are not ported; flows are (tests/test_torch_flows.py),
     and an item whose flow files are missing (the repository's data/vimeo
@@ -187,10 +187,30 @@ def test_train_cli_runs_saves_and_resumes(tmp_path, one_torch_thread):
 
 
 @pytest.mark.parametrize("over,what", [
-    ({"network_G": {"which_model_G": "LIIF"}}, "A.9"),
-    ({"network_G": {"which_model_G": "Ours_7"}}, "A.8"),
-    ({"datasets": {"train": {"mode": "vimeo_a"}}}, "A.7")])
-def test_train_cli_raises_for_what_is_not_ported(tmp_path, over, what):
+    ({"network_G": {"which_model_G": "LIIF"}}, "A.4"),
+    ({"network_G": {"which_model_G": "Ours_7"}}, None),
+    ({"datasets": {"train": {"mode": "vimeo_a", "LQ_size": 64}}}, None)])
+def test_train_cli_raises_for_what_is_not_ported(tmp_path, over, what,
+                                                 one_torch_thread):
+    """LIIF training raises naming its ROADMAP entry; Ours_7 and the
+    arbitrary-scale vimeo_a (the collate at LQ_size 64, the output size
+    from the batch, on data/vimeo's frames resized to 256x256: its crops
+    reach 240 px) train a step at width 16."""
+    if what is None:
+        if over.get("datasets"):
+            import cv2
+
+            gt = tmp_path / "vimeo" / "GT"
+            for key in ("00001/0001", "00001/0002"):
+                (gt / key).mkdir(parents=True)
+                for v in range(1, 8):
+                    img = cv2.imread(str(VIMEO / "GT" / key / f"im{v}.png"))
+                    cv2.imwrite(str(gt / key / f"im{v}.png"),
+                                cv2.resize(img, (256, 256)))
+            over["datasets"]["train"]["dataroot_GT"] = str(gt)
+        aux = _train(tmp_path, 1, **over)
+        assert np.isfinite(float(aux["loss"]))
+        return
     with pytest.raises(NotImplementedError, match=what):
         _train(tmp_path, 1, **over)
 

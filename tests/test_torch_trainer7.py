@@ -1,0 +1,24 @@
+"""One optimiser step of the port's Trainer against motif_tpu's on an
+arbitrary-scale batch (out_hw=None), in float64: the linear-motion Ours_7 (the motion f01 · t / f10 · (1 - t), z = 0,
+the splat payload [SINF | motion | features]).
+How: tests/_trainer_parity.py (the collate's batch with d_scale pinned to
+4, LQ 16² -> GT 64², 2 times, use_gt False; the loss and its parts 1e-9
+relative, each gradient 1e-10 of its tensor's largest).
+"""
+
+import pytest
+
+from _trainer_parity import check_gradients, check_step, one_step
+
+
+@pytest.fixture(scope="module")
+def steps():
+    return one_step("ours7")
+
+
+def test_step_matches_motif_tpu(steps):
+    check_step(steps)
+
+
+def test_gradients_match_motif_tpu(steps):
+    check_gradients(steps)
