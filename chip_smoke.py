@@ -53,14 +53,16 @@ Phases, each fatal on failure:
      of four wrong kernel outputs planted, printing which the serving gate
      refuses: it must refuse the splat's targets half a pixel off;
   6. a {"kernels": [...]} line, the card line, and the result line, printed
-     last, after phases 7 to 10; each kernel row also carries its
+     last, after phases 7 to 11; each kernel row also carries its
      launches on every path (requests, eval CLIs, training steps of both
      models, the baselines, the recipes of phase 10) and its plain
      backward's device ms in one two-anchor step; more rows hold the
      entries at the baselines' shapes (the DCN at cg 16, VideoINR's three
      SIRENs) and at phase 10's (the float16-sum splat at C = 130, the
      SIREN of setting 6's synthesis net cut into two launches in either
-     type);
+     type), and at phase 11's (VideoINR's SIRENs at 4 LQ frames; the
+     float16-sum splat, the bfloat16 DCN and SIREN at the knobs' training
+     shapes, each with its plain backward's time);
   7. training the two-anchor Ours (run before phase 6's lines): the CLI
      (motif_tpu_torch.train.main) on configs/train_smoke.yml with the
      shapes of the reference recipe train_Ours_vimeo.yml (nf 64, 5 + 40
@@ -118,7 +120,29 @@ Phases, each fatal on failure:
      setting 6 under the serving knobs, each against its plain versions,
      replayed against eager and timed; Ours_flow against itself on the
      CPU in float64; the SIREN of setting 6's synthesis net in both
-     types.
+     types;
+ 11. the rest of training (before phase 6's lines, on phase 10's trees):
+     LIIF (VideoINR at nf 64, 5 + 40 blocks, on the 4 LQ frames every
+     training mode gives) through the training CLI on copies of
+     train_INR_adobe.yml and train_INR_adobe_a.yml (LQ_size 64), counted
+     alone (90 DCNs, 30 float32 SIREN launches a step; use_gt always
+     False), a recipe step by part at batch 24, the gradient gate from the
+     deterministic state, the eval CLI on the trained models root, step
+     file and init (test_vid4_liif.yml at ref_num 4), VideoINR's SIRENs at
+     the step's 393,216 tokens a time and encode_imnet's backward; the
+     precision knobs (compute_dtype bfloat16, splat_dtype float16) on a
+     copy of train_Ours_adobe.yml: its CLI counted alone (the float16-sum
+     splat at C = 130, 42 bfloat16 DCNs, 3 bfloat16 SIRENs a step), its
+     step by part beside phase 10's float32 step, the step against the
+     float32 step from the deterministic state (BF16_GATES), and each
+     entry that trains for the first time held through its kernel's
+     forward against autograd through the plain version at the recipe's
+     shapes (the splat, the DCN, the SIREN whole, skip-first and cut);
+     data-parallel training: a step under an NCCL group of one against the
+     same step alone, bit for bit, and two gloo ranks on the one card,
+     each on half of the global batch of 24, against the one-process step
+     (DP_GATE), both on the plain versions under deterministic
+     algorithms.
 Every request goes through Evaluator.infer, which on CUDA replays one
 captured CUDA graph per shape bucket: each request of phases 4, 8 and 9 is
 also held, replayed, against the same request run eagerly (`_infer_eager`,
@@ -148,6 +172,7 @@ import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -1679,13 +1704,20 @@ def upstream_nonzero(model) -> dict:
     mask conv, every SIREN's layers and the flow-context convs before the
     first. A gradient cut at a kernel leaves its group at zero. Ours_7
     (`linear_motion`) runs neither the STINF nor the flow-context convs,
-    and its motion takes no gradient."""
+    and its motion takes no gradient. A LIIF (VideoINR) has no splat: its
+    DCNs and its three SIRENs."""
     from motif_tpu_torch.models.pcd import DCNSep
 
     def nz(params):
         return all(float(p.grad.abs().max()) > 0 for p in params)
-    linear = getattr(model, "linear_motion", False)
     dcns = [m for m in model.modules() if isinstance(m, DCNSep)]
+    if not hasattr(model, "imnet"):
+        return {"dcn_im2col": len(dcns) > 0 and all(
+                    nz(m.conv_offset_mask.parameters()) for m in dcns),
+                "siren_mlp": all(nz(net.parameters()) for net in (
+                    model.feat_imnet, model.flow_imnet,
+                    model.encode_imnet))}
+    linear = getattr(model, "linear_motion", False)
     sirens = (model.imnet, model.synth_net) + (
         () if linear else (model.flow_imnet,))
     return {
@@ -1770,11 +1802,12 @@ def profile_train_step(trainer, batch, out_dir, mods):
 
 
 def train_cli(yml, opt, kernels, entries, card, tag, steps=None,
-              resume_steps=None):
+              resume_steps=None, branches=(True, False)):
     """The training CLI on `yml` (its `niter` steps), the launch counters
     set to 0 just before and read just after: `entries` a step and no
-    other entry; then a resume for `resume_steps` more (0: none). Returns
-    the launches per step of every entry."""
+    other entry, the steps' use_gt taking the values `branches` (LIIF: only
+    False); then a resume for `resume_steps` more (0: none). Returns the
+    launches per step of every entry."""
     from motif_tpu_torch import checkpoint, train
 
     steps = steps or TRAIN_STEPS
@@ -1790,7 +1823,7 @@ def train_cli(yml, opt, kernels, entries, card, tag, steps=None,
         raise AssertionError(f"{tag}: no final train state")
     log = [json.loads(ln) for ln in open(log_path)]
     if [ln["step"] for ln in log] != list(range(1, steps + 1)) or \
-            {ln["use_gt"] for ln in log} != {True, False} or \
+            {ln["use_gt"] for ln in log} != set(branches) or \
             not all(np.isfinite(ln["loss"]) for ln in log):
         raise AssertionError(f"{tag}: log {log}")
     per_step = {k: launches.get(k, 0) / steps
@@ -1850,33 +1883,38 @@ def train_steps_by_part(dev, opt, card, tag):
     return tr, model, batches
 
 
-def checkpoint_round_trip(tmp, models, card):
-    """The eval CLI (test.yml, fp32, one Vid4 clip) through `--checkpoint`
-    on the models root the training CLI wrote (read at its newest step), on
-    that step's file and on a path that does not exist (the random init
-    from seed 0, the weights the training started from): the root and the
-    file give the same frames (EVAL_GATES fp32), the init other frames."""
+def checkpoint_round_trip(tmp, models, card, yml=None,
+                          tag="checkpoint_round_trip"):
+    """The eval CLI (`yml`, default test.yml fp32, one Vid4 clip) through
+    `--checkpoint` on the models root the training CLI wrote (read at its
+    newest step), on that step's file and on a path that does not exist
+    (the random init from seed 0, the weights the training started from):
+    the root and the file give the same frames (EVAL_GATES fp32), the init
+    other frames."""
     from motif_tpu_torch import checkpoint
 
-    ymls, _ = eval_ymls(tmp)
+    yml = yml or eval_ymls(tmp)[0]["fp32"]
     step = checkpoint.latest_step(models)
     frames, summaries = {}, {}
     for what, path in (("root", models),
                        ("step", os.path.join(models, f"step_{step}")),
                        ("init", os.path.join(tmp, "absent.pth"))):
-        summaries[what], clock = cli_run(tmp, ymls["fp32"], path, clips=1)
+        summaries[what], clock = cli_run(tmp, yml, path, clips=1)
         frames[what] = clock.frames[0]
     same = float(np.abs(frames["root"] - frames["step"]).max())
     moved = float(np.abs(frames["root"] - frames["init"]).max())
-    emit({"phase": "checkpoint_round_trip", "card": card, "step": step,
+    emit({"phase": tag, "card": card, "step": step,
+          "yml": os.path.basename(yml),
           "root_vs_step_max_abs_err": same,
           "tol": EVAL_GATES["fp32"]["frames"],
           "trained_vs_init_max_abs": moved, "min_trained_vs_init": 1e-3,
+          "frames_shape": list(frames["root"].shape),
           "psnr": {k: v["psnr"] for k, v in summaries.items()}})
-    if not (same <= EVAL_GATES["fp32"]["frames"] and moved > 1e-3):
-        raise AssertionError(f"eval CLI --checkpoint: the models root against "
-                             f"its step file {same}, the trained frames "
-                             f"against the init's {moved}")
+    if not (same <= EVAL_GATES["fp32"]["frames"] and moved > 1e-3
+            and np.isfinite(frames["root"]).all()):
+        raise AssertionError(f"{tag}: the models root against its step "
+                             f"file {same}, the trained frames against the "
+                             f"init's {moved}")
 
 
 @contextlib.contextmanager
@@ -1925,20 +1963,21 @@ def gate_state(dev, opt, mods, rng=None):
                               "batch": digest(arrays)}
 
 
-def train_gates(dev, opt, mods, card, tag, rng=None, upstream_all=True):
+def train_gates(dev, opt, mods, card, tag, rng=None, upstream_all=True,
+                branches=(True, False)):
     """At `gate_state`'s state (its hashes printed), a step of the kernels
     against the same step with the plain versions, same weights and batch,
     for use_gt True and False (the loss and every gradient, TRAIN_GATES),
     every kernel's upstream parameters with a non-zero gradient wherever
     the plain step gives them one, and everywhere with `upstream_all`;
-    all under `deterministic()`, where two plain steps must be bit-equal.
-    Returns the trainer, model and batch, the plain use_gt=False gradients
-    and aux."""
+    all under `deterministic()`, where two plain steps must be bit-equal
+    (for each of `branches`: LIIF has only use_gt False). Returns the
+    trainer, model and batch, the plain use_gt=False gradients and aux."""
     softsplat, dcn, siren_kernel, _ = mods
     t0 = time.perf_counter()
     tr, model, batch, hashes = gate_state(dev, opt, mods, rng)
     state_s = time.perf_counter() - t0
-    for use_gt in (True, False):
+    for use_gt in branches:
         with deterministic():
             aux = tr.compute_grads(batch, use_gt)
             got = [p.grad.clone() for p in tr.params]
@@ -2263,11 +2302,14 @@ def grads_of(fn, inputs, cotangents):
     return torch.autograd.grad(loss, ts)
 
 
-def hold_backward(name, fn, fn_plain, inputs, cotangents, card):
+def hold_backward(name, fn, fn_plain, inputs, cotangents, card, bits=None,
+                  tag=None):
     """An entry's autograd Function (the kernel forward, its plain
     backward) against autograd through the plain version at a training
     shape: each gradient within 1e-5 of its largest value (the card tests'
-    gate); the Function's forward + backward ms and peak memory."""
+    gate), or for a low-precision entry (`bits` stored mantissa bits of its
+    working type) within 2 of its ulps there; the Function's forward +
+    backward ms, the plain version's, and peak memory. Returns the line."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2277,14 +2319,27 @@ def hold_backward(name, fn, fn_plain, inputs, cotangents, card):
     want = grads_of(fn_plain, inputs, cotangents)
     errs = [float((a.double() - b.double()).abs().max())
             / float(b.double().abs().max()) for a, b in zip(got, want)]
+    # 2 ulps at the largest |g|, relative to it: 2 * 2^-bits at most
+    tols = [1e-5 if bits is None else
+            2 * ulp(float(b.double().abs().max()), bits)
+            / float(b.double().abs().max()) for b in want]
+    dtypes = [dname(a.dtype) for a in got]
     del got, want
     ms = cuda_ms(lambda: grads_of(fn, inputs, cotangents), reps=2, warmup=1)
-    emit({"check": f"{name}_backward", "card": card,
-          "shapes": [list(t.shape) for t in inputs], "grad_rel_errs": errs,
-          "tol": 1e-5, "forward_backward_ms": ms,
-          "peak_memory_gb": peak / 1e9})
-    if not max(errs) <= 1e-5:
-        raise AssertionError(f"{name} backward at {inputs[0].shape}: {errs}")
+    plain_ms = cuda_ms(lambda: grads_of(fn_plain, inputs, cotangents),
+                       reps=2, warmup=1)
+    line = {"check": f"{name}_backward", "card": card,
+            "shapes": [list(t.shape) for t in inputs], "grad_dtypes": dtypes,
+            "grad_rel_errs": errs, "tols": tols, "forward_backward_ms": ms,
+            "plain_forward_backward_ms": plain_ms,
+            "peak_memory_gb": peak / 1e9}
+    if tag:
+        line["case"] = tag
+    emit(line)
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise AssertionError(f"{name} backward at {inputs[0].shape}: {errs} "
+                             f"(tols {tols})")
+    return line
 
 
 def check_shapes44(dev, card, mods, Siren):
@@ -2623,13 +2678,13 @@ def make_trees(tmp: str, seed: int) -> dict:
 
 
 def recipe_yml(tmp: str, name: str, trees: dict, steps: int,
-               batch: int | None = None) -> str:
+               batch: int | None = None, network: dict | None = None) -> str:
     """A copy of configs/grid/`name` at its full width (nf 64, 5 + 40
     blocks, iters 12) pointed at the trees: the batch RECIPE_BATCH gives
     (the recipe's 24 unless listed), an `_a` recipe at LQ_size
     RECIPE_LQ_SIZE, `steps` steps with teacher forcing decaying over 1
     step (the first step use_gt True, the next False), a log line a step,
-    under `tmp`/<name>."""
+    under `tmp`/<name>; `network` added to its network_G."""
     import yaml
 
     with open(os.path.join(ROOT, "configs", "grid", name)) as f:
@@ -2645,6 +2700,7 @@ def recipe_yml(tmp: str, name: str, trees: dict, steps: int,
     ds["batch_size"] = batch or RECIPE_BATCH.get(name, ds["batch_size"])
     if ds["mode"].endswith("_a"):
         ds["LQ_size"] = RECIPE_LQ_SIZE
+    opt["network_G"].update(network or {})
     opt["path"] = {"root": os.path.join(tmp, name[:-4])}
     opt["train"].update(niter=steps, teacher_forcing_steps=1)
     opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 10 ** 6}
@@ -2730,7 +2786,8 @@ def recipe_steps(dev, opt, card, tag):
     step_ms = sum(ms.values())
     line = {"phase": f"{tag}_step", "card": card, "model":
             opt["network_G"]["which_model_G"],
-            "setting": model.setting, "mode": ds["mode"], "batch": B,
+            "setting": getattr(model, "setting", None), "mode": ds["mode"],
+            "batch": B,
             "times": N, "ms_median": ms, "step_ms": step_ms, "runs": runs,
             "peak_memory_gb": peak / 1e9,
             "hr_frames_per_s": B * N / (step_ms / 1e3), **host,
@@ -2750,13 +2807,13 @@ def run_recipes(dev, card, mods, tmp, trees):
     """The main path of phase 10: the training CLI on each recipe (its
     counters from 0, RECIPE_CLI_STEPS steps, its launches a step against
     `recipe_entries`; for Adobe_flow RAFT must not run), then each
-    recipe's steps by part. Returns the entry launches a step per
-    recipe."""
+    recipe's steps by part. Returns the entry launches a step per recipe
+    and each recipe's `recipe_steps` line."""
     from motif_tpu_torch.models.raft import RAFT
     from motif_tpu_torch.utils import config as cfg
 
     kernels = mods[3]
-    per_step, rafts = {}, {}
+    per_step, rafts, lines = {}, {}, {}
     forward = RAFT.forward
     for name in RECIPES:
         t0 = time.perf_counter()
@@ -2778,10 +2835,10 @@ def run_recipes(dev, card, mods, tmp, trees):
         if name == "train_Ours_adobe_flow.yml" and calls:
             raise AssertionError(f"{name}: RAFT ran on precomputed flows "
                                  f"{calls}")
-        recipe_steps(dev, opt, card, f"recipe_{name[6:-4]}")
+        lines[name] = recipe_steps(dev, opt, card, f"recipe_{name[6:-4]}")
         emit({"phase": "recipe", "yml": name, "raft_batches": calls,
               "seconds": time.perf_counter() - t0})
-    return per_step
+    return per_step, lines
 
 
 def recipe_gates(dev, card, mods, tmp, trees):
@@ -2914,31 +2971,481 @@ def run_flow_precompute(dev, card):
     torch.cuda.empty_cache()
 
 
-def run_recipe_phase(dev, card, args, mods, Siren):
-    """Phase 10: the trees, the recipes' CLIs and steps, their gates, the
-    settings' requests, Ours_flow, and the SIREN cut at setting 6's
-    synthesis net in both types. Returns the launches per recipe step and
-    per request, and the rows of the new shapes."""
-    import tempfile
-
+def run_recipe_phase(dev, card, args, mods, Siren, tmp):
+    """Phase 10: the trees (under `tmp`, kept for phase 11), the recipes'
+    CLIs and steps, their gates, the settings' requests, Ours_flow, and
+    the SIREN cut at setting 6's synthesis net in both types. Returns the
+    launches per recipe step and per request, the rows of the new shapes,
+    the trees and the recipes' step lines."""
     softsplat, dcn, siren_kernel, kernels = mods
     t0 = time.perf_counter()
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        trees = make_trees(tmp, args.seed)
-        emit({"phase": "recipe_trees", "clips": trees["clips"],
-              "vimeo_keys": trees["keys"], "hw": TREE_HW,
-              "frames": TREE_FRAMES, "seed": args.seed,
-              "seconds": time.perf_counter() - t0})
-        per_step = run_recipes(dev, card, mods, tmp, trees)
-        recipe_gates(dev, card, mods, tmp, trees)
+    trees = make_trees(tmp, args.seed)
+    emit({"phase": "recipe_trees", "clips": trees["clips"],
+          "vimeo_keys": trees["keys"], "hw": TREE_HW,
+          "frames": TREE_FRAMES, "seed": args.seed,
+          "seconds": time.perf_counter() - t0})
+    per_step, lines = run_recipes(dev, card, mods, tmp, trees)
+    recipe_gates(dev, card, mods, tmp, trees)
     requests, splat_row = run_setting_requests(dev, card, mods)
     run_flow_precompute(dev, card)
     sirens = {dname(dt): check_siren(dev, siren_kernel, Siren, kernels, dt,
                                      mlps=SYNTH_S6)
               for dt in (torch.float32, torch.bfloat16)}
     emit({"phase": "recipes", "seconds": time.perf_counter() - t0})
-    return per_step, requests, splat_row, sirens
+    return per_step, requests, splat_row, sirens, trees, lines
+
+
+# ---------------------------------------------------------------------------
+# phase 11: LIIF training, training under the precision knobs, and
+# data-parallel training
+# ---------------------------------------------------------------------------
+
+LIIF_RECIPES = ("train_INR_adobe.yml", "train_INR_adobe_a.yml")
+# a LIIF step: VideoINR on the 4 LQ frames every training mode gives (3
+# frame pairs, 7 fused frames): 90 DCNs, and its three float32 SIRENs, cut
+# into 2 + 2 + 6 launches, at each of 3 times; no splat
+LIIF_ENTRIES = {"dcn_im2col/float32": 90, "siren_mlp/float32/whole": 30}
+# VideoINR's SIRENs at 4 LQ frames and nf 64 over one time of a recipe
+# step (batch 24 at 128²)
+LIIF_TOKENS = 24 * 128 * 128
+LIIF_SIRENS = {"feat_imnet": (463, [64, 64, 256], 64, LIIF_TOKENS),
+               "flow_imnet": (525, [64, 64, 256], 4, LIIF_TOKENS),
+               "encode_imnet": (1049, [64, 64, 256, 256], 3, LIIF_TOKENS)}
+# the precision knobs on a copy of the Adobe recipe, and what its step
+# launches: the float16-sum splat, the bfloat16 DCNs and whole SIRENs
+BF16_RECIPE = "train_Ours_adobe.yml"
+BF16_KNOBS = dict(compute_dtype="bfloat16", splat_dtype="float16")
+BF16_ENTRIES = {"splat_fused/float16/C=130": 1, "dcn_im2col/bfloat16": 42,
+                "siren_mlp/bfloat16/whole": 3}
+# the recipe's shapes at batch 24, 3 times: the splat over n·B·N = 144
+# images of 128² (payload 130), the STINF over their tokens, the SINF over
+# n·B = 48 images', setting 6's synthesis net (cut) over B·N = 72's, the
+# PCD's L1 over the 24 frame pairs of 32²
+BF16_SPLAT = (144, 128, 128, 130)
+BF16_SIRENS = {"stinf": ((67, 64, 64, 256, 3), False, 144 * 128 * 128),
+               "sinf": ((64, 64, 256, 64), True, 48 * 128 * 128),
+               "synth_s6": ((331, 64, 64, 64, 256, 3), False,
+                            72 * 128 * 128)}
+BF16_DCN = {"train_bf16_L1": (24, 32, 32)}
+# a step under the knobs against the float32 step from the same state and
+# batch (GATE_BATCH): each module's gradient within this L2 distance of the
+# float32 one's, relative to its norm, and the loss (the CPU lane reads
+# 1.3-3.6e-2 a module at channel 16, tests/test_torch_train_bf16.py)
+BF16_GATES = dict(module_l2=0.2, loss_rel=1e-2)
+DP_RECIPE = "train_Ours_adobe.yml"
+DP_WORLD = 2
+DP_GATE = 1e-3        # TRAIN_GATES' grad_rel: of each tensor's largest |g|
+
+
+def liif_round_trip(tmp, models, card):
+    """`checkpoint_round_trip` on the LIIF models root, with
+    configs/test_vid4_liif.yml at ref_num 4 (the LQ frames a trained LIIF
+    takes)."""
+    with open(os.path.join(ROOT, "configs", "test_vid4_liif.yml")) as f:
+        text = f.read()
+    if "    ref_num: 2\n" not in text:
+        raise AssertionError("test_vid4_liif.yml has no `ref_num: 2` line")
+    yml = os.path.join(tmp, "test_vid4_liif_4.yml")
+    with open(yml, "w") as f:
+        f.write(text.replace("    ref_num: 2\n", "    ref_num: 4\n"))
+    checkpoint_round_trip(tmp, models, card, yml,
+                          "liif_checkpoint_round_trip")
+
+
+def run_liif(dev, card, mods, Siren, tmp, trees):
+    """LIIF at full width (VideoINR nf 64, 5 + 40 blocks, 4 LQ frames): the
+    training CLI on both LIIF recipes (counted alone, use_gt always False;
+    `_a` at LQ_size 64), a recipe step by part at batch 24, the gradient
+    gate against the plain versions from the deterministic state, the eval
+    CLI's round trip on the trained state, and the float32 SIRENs at the
+    step's shapes (cut into launches; encode_imnet's backward held).
+    Returns the launches a step per recipe and the SIRENs' row."""
+    from motif_tpu_torch.utils import config as cfg
+
+    softsplat, dcn, siren_kernel, kernels = mods
+    per_step, opts = {}, {}
+    for name in LIIF_RECIPES:
+        yml = recipe_yml(os.path.join(tmp, "liif"), name, trees,
+                         RECIPE_CLI_STEPS)
+        opts[name] = opt = cfg.parse(yml, is_train=True)
+        per_step[name] = train_cli(yml, opt, kernels, LIIF_ENTRIES, card,
+                                   f"liif_{name[10:-4] or 'adobe'}",
+                                   RECIPE_CLI_STEPS, 0, branches=(False,))
+    liif_round_trip(os.path.join(tmp, "liif"),
+                    opts[LIIF_RECIPES[0]]["path"]["models"], card)
+    step = recipe_steps(dev, opts[LIIF_RECIPES[0]], card, "liif_adobe")
+    gate_yml = recipe_yml(os.path.join(tmp, "liif_gate"), LIIF_RECIPES[0],
+                          trees, 1, GATE_BATCH)
+    tr, model, batch, _, _ = train_gates(
+        dev, cfg.parse(gate_yml, is_train=True), mods, card, "liif_adobe",
+        branches=(False,))
+    del tr, model, batch
+    torch.cuda.empty_cache()
+    sirens = {n: check_siren(dev, siren_kernel, Siren, kernels,
+                             mlps={n: shape})
+              for n, shape in LIIF_SIRENS.items()}
+    cin, hidden, cout, n_tok = LIIF_SIRENS["encode_imnet"]
+    dims = [cin] + hidden + [cout]
+    x, ws, bs = siren_case(dev, dims, n_tok, torch.float32, False)
+    n = len(ws)
+    g = torch.Generator(device=dev).manual_seed(8)
+    back = hold_backward(
+        "siren_mlp", lambda xx, *p: siren_kernel.siren_mlp(xx, p[:n], p[n:]),
+        lambda xx, *p: siren_kernel.siren_mlp_plain(xx, p[:n], p[n:]),
+        (x, *ws, *bs), (torch.randn((n_tok, cout), device=dev, generator=g),),
+        card, tag="liif_encode_imnet")
+    del x, ws, bs
+    torch.cuda.empty_cache()
+    row = {"max_abs_err": max(r["max_abs_err"] for r in sirens.values()),
+           **{k: sum(r[k] for r in sirens.values())
+              for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                        "eager_ms")},
+           "bound_by": max(sirens.values(),
+                           key=lambda r: r["bound_ms"])["bound_by"],
+           "backward_ms_encode_imnet": back["forward_backward_ms"]}
+    emit({"phase": "liif", "steps": {k: v for k, v in per_step.items()},
+          "step_ms": step["step_ms"], "peak_memory_gb":
+          step["peak_memory_gb"]})
+    return per_step, row
+
+
+def bf16_backwards(dev, card, mods, Siren):
+    """The new backward entries at the knobs' recipe shapes, each through
+    its kernel's forward against autograd through the plain version in the
+    working type (2 ulps of it): the float16-sum splat (C = 130), the
+    bfloat16 DCN (the PCD's L1) and the bfloat16 SIREN whole, skip-first
+    and cut; and each forward's row at that shape (time, bound, library).
+    Returns the rows by entry."""
+    softsplat, dcn, siren_kernel, kernels = mods
+    rows = {}
+    f16, bf = torch.float16, torch.bfloat16
+    B, H, W, C = BF16_SPLAT
+    g = torch.Generator(device=dev).manual_seed(9)
+    img = torch.randn((B, H, W, C), device=dev, generator=g)
+    flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
+    z = (torch.randn((B, H, W, 1), device=dev, generator=g) * 0.5).abs()
+    held = hold_splat(softsplat, kernels, img, flow, z, False, tol=4,
+                      sdt=f16)
+    b_ms, b_by = splat_bound(B, H, W, C, False)
+
+    def run():
+        return softsplat.splat_fused(img, flow, z, False, scatter_dtype=f16)
+    ms = device_ms(run, reps=5)
+    line = {"ms": ms, "eager_ms": cuda_ms(run, reps=5),
+            "plain_ms": device_ms(lambda: softsplat.splat_fused_plain(
+                img, flow, z, False, scatter_dtype=f16), reps=2),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": index_add_ms(softsplat, img, flow, z, f16, reps=3)}
+    emit({"check": "splat_fused", "sums": "float16", "case": "train_bf16",
+          "shape": [B, H, W, C], **held, **line,
+          "fraction_of_bound": b_ms / ms, "library": "float16 index_add_"})
+    cot = (torch.randn((B, H, W, C), device=dev, generator=g),
+           torch.randn((B, H, W, 1), device=dev, generator=g))
+    back = hold_backward(
+        "splat_fused",
+        lambda *a: softsplat.splat_fused(*a, False, scatter_dtype=f16)[:2],
+        lambda *a: softsplat.splat_fused_plain(*a, False,
+                                               scatter_dtype=f16)[:2],
+        (img, flow, z), cot, card, bits=10, tag="train_bf16")
+    rows["splat_fused/float16/C=130"] = dict(
+        line, max_abs_err=held["max_abs_err"],
+        backward_ms=back["forward_backward_ms"],
+        grad_rel_err=max(back["grad_rel_errs"]))
+    del img, flow, z, cot
+    torch.cuda.empty_cache()
+
+    row = check_dcn(dev, dcn, kernels, bf, BF16_DCN)
+    (Bd, Hd, Wd), = BF16_DCN.values()
+    G, cg, K = 8, 8, 3
+    x, off, mask = dcn_inputs(dev, Bd, Hd, Wd, G, cg, K, bf)
+    w = (torch.randn((64, G * cg, K, K), device=dev, generator=g)
+         * 0.05).to(bf)
+    bias = torch.randn((64,), device=dev, generator=g).to(bf)
+    back = hold_backward(
+        "dcn_v2", lambda *a: dcn.dcn_v2(*a, K, 1, 1, 1, G),
+        lambda *a: dcn.dcn_v2_plain(*a, K, 1, 1, 1, G),
+        (x, off, mask, w, bias),
+        (torch.randn((Bd, Hd, Wd, 64), device=dev, generator=g).to(bf),),
+        card, bits=7, tag="train_bf16")
+    rows["dcn_im2col/bfloat16"] = dict(
+        row, backward_ms=back["forward_backward_ms"],
+        grad_rel_err=max(back["grad_rel_errs"]))
+    del x, off, mask
+    torch.cuda.empty_cache()
+
+    for name, (dims, skip, n_tok) in BF16_SIRENS.items():
+        if name == "stinf":
+            cin, *hidden, cout = dims
+            row = check_siren(dev, siren_kernel, Siren, kernels, bf,
+                              mlps={"stinf_train_bf16": (cin, hidden, cout,
+                                                         n_tok)})
+        x, ws, bs = siren_case(dev, list(dims), n_tok, bf, skip,
+                               0.6 if skip else 1.0)
+        n = len(ws)
+        back = hold_backward(
+            "siren_mlp",
+            lambda xx, *p, s=skip: siren_kernel.siren_mlp(
+                xx, p[:n], p[n:], 30.0, False, s),
+            lambda xx, *p, s=skip: siren_kernel.siren_mlp_plain(
+                xx, p[:n], p[n:], 30.0, False, s),
+            (x, *ws, *bs),
+            (torch.randn((n_tok, dims[-1]), device=dev,
+                         generator=g).to(bf),), card, bits=7,
+            tag=f"train_bf16_{name}")
+        if name == "stinf":
+            rows["siren_mlp/bfloat16/whole"] = dict(
+                row, backward_ms=back["forward_backward_ms"],
+                grad_rel_err=max(back["grad_rel_errs"]))
+        del x, ws, bs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def module_l2(model, got, want) -> dict:
+    """Per top-level module, the L2 distance of the gradients `got` from
+    `want` relative to the norm of `want` (modules without a gradient in
+    `want` left out)."""
+    out, names = {}, [k for k, _ in model.named_parameters()]
+    for key in dict.fromkeys(k.split(".")[0] for k in names):
+        idx = [i for i, k in enumerate(names) if k.split(".")[0] == key]
+        a = torch.cat([got[i].double().reshape(-1) for i in idx])
+        b = torch.cat([want[i].double().reshape(-1) for i in idx])
+        if float(b.norm()) > 0:
+            out[key] = float((a - b).norm() / b.norm())
+    return out
+
+
+def bf16_step_gate(dev, card, mods, opt):
+    """From the float32 recipe's deterministic gate state (`gate_state`),
+    the step under the knobs against the float32 step on the same weights
+    and batch, both with the kernels, for use_gt True and False: every
+    module's gradient within BF16_GATES of the float32 one's and the loss
+    likewise; per parameter the worst distance is printed."""
+    tr, model, batch, hashes = gate_state(dev, opt, mods)
+    for use_gt in (True, False):
+        aux = tr.compute_grads(batch, use_gt)
+        want = [p.grad.clone() for p in tr.params]
+        model.configure(**BF16_KNOBS)
+        aux16 = tr.compute_grads(batch, use_gt)
+        got = [p.grad.clone() for p in tr.params]
+        model.configure()
+        mods_l2 = module_l2(model, got, want)
+        per = {k: float((a.double() - b.double()).norm()
+                        / b.double().norm())
+               for (k, _), a, b in zip(model.named_parameters(), got, want)
+               if float(b.norm()) > 0}
+        worst = max(per, key=per.get)
+        loss_rel = abs(float(aux16["loss"]) / float(aux["loss"]) - 1)
+        reached = all((float(a.abs().max()) > 0) == (float(b.abs().max()) > 0)
+                      for a, b in zip(got, want))
+        ok = (max(mods_l2.values()) <= BF16_GATES["module_l2"]
+              and loss_rel <= BF16_GATES["loss_rel"] and reached)
+        emit({"phase": "train_bf16_gate", "card": card, "use_gt": use_gt,
+              "state_sha256": hashes, "loss_float32": float(aux["loss"]),
+              "loss_knobs": float(aux16["loss"]), "loss_rel": loss_rel,
+              "module_l2_rel": mods_l2, "worst_parameter": [worst,
+                                                           per[worst]],
+              "same_parameters_reached": reached, "gates": BF16_GATES,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"train_bf16: the step under the knobs "
+                                 f"(use_gt={use_gt}) against float32: "
+                                 f"modules {mods_l2}, loss {loss_rel}")
+    del tr, model, batch
+    torch.cuda.empty_cache()
+
+
+def run_bf16(dev, card, mods, Siren, tmp, trees, f32_line):
+    """Training under the precision knobs at full width: the CLI on a copy
+    of the Adobe recipe with `compute_dtype: bfloat16`, `splat_dtype:
+    float16` (counted alone), its step by part beside the float32
+    recipe's (phase 10), the step against the float32 step, and the new
+    backward entries at its shapes. Returns the launches a step and the
+    rows of the entries."""
+    from motif_tpu_torch.utils import config as cfg
+
+    kernels = mods[3]
+    yml = recipe_yml(os.path.join(tmp, "bf16"), BF16_RECIPE, trees,
+                     RECIPE_CLI_STEPS, network=BF16_KNOBS)
+    opt = cfg.parse(yml, is_train=True)
+    per_step = train_cli(yml, opt, kernels, BF16_ENTRIES, card, "train_bf16",
+                         RECIPE_CLI_STEPS, 0)
+    line = recipe_steps(dev, opt, card, "train_bf16")
+    emit({"phase": "train_bf16_vs_float32", "card": card,
+          "step_ms": {"knobs": line["step_ms"],
+                      "float32": f32_line["step_ms"]},
+          "ms_median": {"knobs": line["ms_median"],
+                        "float32": f32_line["ms_median"]},
+          "peak_memory_gb": {"knobs": line["peak_memory_gb"],
+                             "float32": f32_line["peak_memory_gb"]},
+          "hr_frames_per_s": {"knobs": line["hr_frames_per_s"],
+                              "float32": f32_line["hr_frames_per_s"]}})
+    gate_yml = recipe_yml(os.path.join(tmp, "bf16_gate"), BF16_RECIPE,
+                          trees, 1, GATE_BATCH)
+    bf16_step_gate(dev, card, mods, cfg.parse(gate_yml, is_train=True))
+    rows = bf16_backwards(dev, card, mods, Siren)
+    return per_step, rows
+
+
+def dp_worker(rank, world, spec_path, out_dir):
+    """One rank of the data-parallel check (spawned): a gloo group through
+    a file in `out_dir`, CUDA tensors on the one card, the recipe's model
+    (`build_motif` at the spec's sizes) with the spec's weights, its half
+    of the global batch, one backward on the plain versions under
+    deterministic algorithms; rank 0 writes the summed loss and
+    gradients."""
+    import torch.distributed as tdist
+
+    from motif_tpu_torch.models.motif import build_motif
+    from motif_tpu_torch.ops import dcn, siren_kernel, softsplat
+    from motif_tpu_torch.trainer import Trainer
+
+    tdist.init_process_group("gloo", init_method=f"file://{out_dir}/gloo",
+                             rank=rank, world_size=world)
+    try:
+        spec = torch.load(spec_path, weights_only=False)
+        dev = torch.device(spec["device"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        model = build_motif(device=dev, **spec["sizes"])
+        model.load_state_dict(spec["state"])
+        tr = Trainer(model, spec["cfg"], spec["out_hw"], iters=spec["iters"],
+                     seed=0)
+        share = spec["batch"]["lq"].shape[0] // world
+        half = {k: v[rank * share:(rank + 1) * share]
+                for k, v in spec["batch"].items()}
+        with plain_versions(softsplat, dcn, siren_kernel), deterministic():
+            aux = tr.compute_grads(half, False)
+        torch.cuda.synchronize()
+        if rank == 0:
+            torch.save({"loss": float(aux["loss"]), "sync": tr.sync,
+                        "grads": [p.grad.cpu() for p in tr.params]},
+                       os.path.join(out_dir, "dp_grads.pt"))
+    finally:
+        tdist.destroy_process_group()
+
+
+def run_data_parallel(dev, card, mods, tmp, trees):
+    """The data-parallel step of the Adobe recipe at full width, on the
+    plain versions under deterministic algorithms: the step of one process
+    under an NCCL group of one (its gradients through the all-reduce)
+    against the same step without a group, bit for bit, at GATE_BATCH; and
+    two gloo ranks on the one card (NCCL refuses two ranks on one device),
+    each on half of the global batch of 24, their summed gradients against
+    the one-process step over the global batch (DP_GATE of each tensor's
+    largest |g|, the loss 1e-5)."""
+    import torch.distributed as tdist
+    import torch.multiprocessing as tmp_mp
+
+    from motif_tpu_torch import train
+    from motif_tpu_torch.data import device_prefetch
+    from motif_tpu_torch.trainer import Trainer
+    from motif_tpu_torch.utils import config as cfg
+
+    softsplat, dcn, siren_kernel, _ = mods
+    out = os.path.join(tmp, "dp")
+    os.makedirs(out)
+    # ---- world 1 over NCCL, from the deterministic gate state ----
+    gate_yml = recipe_yml(os.path.join(tmp, "dp_gate"), DP_RECIPE, trees, 1,
+                          GATE_BATCH)
+    tr, model, batch, hashes = gate_state(
+        dev, cfg.parse(gate_yml, is_train=True), mods)
+    with plain_versions(softsplat, dcn, siren_kernel), deterministic():
+        alone = tr.compute_grads(batch, False)
+        want = [p.grad.clone() for p in tr.params]
+        tdist.init_process_group("nccl", init_method=f"file://{out}/nccl",
+                                 rank=0, world_size=1)
+        try:
+            grouped = Trainer(model, tr.cfg, tr.out_hw, iters=tr.iters,
+                              seed=0)
+            aux = grouped.compute_grads(batch, False)
+            got = [p.grad.clone() for p in grouped.params]
+            synced = grouped.sync
+        finally:
+            tdist.destroy_process_group()
+    bit_equal = synced and float(aux["loss"]) == float(alone["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    emit({"phase": "data_parallel_nccl_world1", "card": card,
+          "state_sha256": hashes, "synced": synced,
+          "bit_equal": bit_equal, "loss": float(aux["loss"])})
+    if not bit_equal:
+        raise AssertionError("data-parallel: a step under an NCCL group of "
+                             "one differs from the step alone")
+    del tr, model, batch, grouped, got, want
+    torch.cuda.empty_cache()
+
+    # ---- world 2 over gloo on the one card, global batch 24 ----
+    t0 = time.perf_counter()
+    opt = cfg.parse(recipe_yml(os.path.join(tmp, "dp_recipe"), DP_RECIPE,
+                               trees, 1), is_train=True)
+    model, loader, tr = train.setup(opt, dev, dataset_seed=0)
+    perturb_offsets(model, seed=1)
+    batches = device_prefetch(loader.epoch(0), dev)
+    batch = {k: v for k, v in next(batches).items()
+             if k in ("lq", "gt", "times")}
+    batches.close()
+    with plain_versions(softsplat, dcn, siren_kernel), deterministic():
+        single = tr.compute_grads(batch, False)
+    want = [p.grad.detach().cpu() for p in tr.params]
+    spec = os.path.join(out, "spec.pt")
+    enc = model.encoder
+    torch.save({"device": str(dev), "cfg": tr.cfg, "out_hw": tr.out_hw,
+                "iters": tr.iters,
+                "sizes": dict(channel=model.channel,
+                              front_rbs=len(enc.feature_extraction),
+                              back_rbs=len(enc.recon_trunk),
+                              setting=model.setting),
+                "state": {k: v.cpu() for k, v in model.state_dict().items()},
+                "batch": {k: torch.as_tensor(v).cpu()
+                          for k, v in batch.items()}}, spec)
+    single_loss = float(single["loss"])
+    names = [k for k, _ in model.named_parameters()]
+    del model, tr, loader, batch, single
+    torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tmp_mp.start_processes(dp_worker, args=(DP_WORLD, spec, out),
+                           nprocs=DP_WORLD, join=True, start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    res = torch.load(os.path.join(out, "dp_grads.pt"))
+    rels = {}
+    for name, a, b in zip(names, res["grads"], want):
+        scale = float(b.abs().max())
+        err = float((a.double() - b.double()).abs().max())
+        rels[name] = err / scale if scale > 0 else (0.0 if err == 0
+                                                     else np.inf)
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(res["loss"] / single_loss - 1)
+    ok = res["sync"] and rels[worst] <= DP_GATE and loss_rel <= 1e-5
+    emit({"phase": "data_parallel_gloo_world2", "card": card,
+          "world": DP_WORLD, "global_batch": RECIPE_BATCH.get(DP_RECIPE, 24),
+          "loss_ranks_summed": res["loss"], "loss_one_process": single_loss,
+          "loss_rel": loss_rel, "grad_rel": rels[worst],
+          "grad_rel_at": worst, "gate": DP_GATE,
+          "one_process_seconds": single_s, "ranks_seconds": ranks_s,
+          "ok": ok, "note": "plain versions, deterministic algorithms; a "
+                            "run on two cards waits for a machine with "
+                            "them"})
+    if not ok:
+        raise AssertionError(f"data-parallel: two ranks' summed gradient "
+                             f"{rels[worst]} at {worst}, loss {loss_rel}")
+
+
+def run_phase11(dev, card, mods, Siren, tmp, trees, recipe_lines):
+    """Phase 11: LIIF training, training under the precision knobs and the
+    data-parallel step. Returns the launches a step of each path and the
+    rows of the entries at the new shapes."""
+    t0 = time.perf_counter()
+    liif_steps, liif_row = run_liif(dev, card, mods, Siren, tmp, trees)
+    t1 = time.perf_counter()
+    bf16_steps, bf16_rows = run_bf16(dev, card, mods, Siren, tmp, trees,
+                                     recipe_lines[BF16_RECIPE])
+    t2 = time.perf_counter()
+    run_data_parallel(dev, card, mods, tmp, trees)
+    emit({"phase": "phase11", "seconds": time.perf_counter() - t0,
+          "liif_seconds": t1 - t0, "bf16_seconds": t2 - t1,
+          "data_parallel_seconds": time.perf_counter() - t2})
+    return liif_steps, liif_row, bf16_steps, bf16_rows
 
 
 def profile_request(infer, lq, times, out_dir, name, out_hw=(256, 448)):
@@ -3197,8 +3704,12 @@ def main() -> int:
                            (softsplat, dcn, siren_kernel, kernels), Siren)
     base, dcn16, sirens = run_baseline_phase(
         dev, card, args, (softsplat, dcn, siren_kernel, kernels), Siren)
-    recipes, setting_requests, splat_c130, synth_s6 = run_recipe_phase(
-        dev, card, args, (softsplat, dcn, siren_kernel, kernels), Siren)
+    mods = (softsplat, dcn, siren_kernel, kernels)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        (recipes, setting_requests, splat_c130, synth_s6, trees,
+         recipe_lines) = run_recipe_phase(dev, card, args, mods, Siren, tmp)
+        liif_steps, liif_row, bf16_steps, bf16_rows = run_phase11(
+            dev, card, mods, Siren, tmp, trees, recipe_lines)
 
     meta = {
         "splat_fused": ("motif_tpu_torch/csrc/splat_fused.cu",
@@ -3309,6 +3820,43 @@ def main() -> int:
                                  "bound_by", "library_ms", "eager_ms")},
             "shape": "setting 6 synthesis net 331->64->64->64->256->3, "
                      "344,064 tokens, two launches"})
+    # phase 11's entries at new shapes: VideoINR's three float32 SIRENs at
+    # 4 LQ frames over one time of a LIIF recipe step, summed (their
+    # launches: the LIIF CLI's); the three entries that train for the
+    # first time under the knobs, at the knobs' recipe shapes, each with
+    # its plain backward's time (their launches: the knobs' CLI run)
+    src, replaces = meta["siren_mlp"]
+    liif = LIIF_RECIPES[0]
+    rows.append({
+        "name": "siren_mlp[float32/whole/LIIF train]", "kernel": "siren_mlp",
+        "route": "cuda", "source": src, "replaces": replaces,
+        "launches": int(RECIPE_CLI_STEPS
+                        * liif_steps[liif]["siren_mlp/float32/whole"]),
+        **{k: liif_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "eager_ms", "backward_ms_encode_imnet")},
+        "shape": "feat_imnet 463 + flow_imnet 525 + encode_imnet 1049 "
+                 "inputs, 393,216 tokens each (one time of a LIIF step at "
+                 "batch 24, 128²)"})
+    shapes = {"splat_fused/float16/C=130": "144x128x128x130 (2 x 24 x 3 "
+              "images of the knobs' Adobe step)",
+              "dcn_im2col/bfloat16": "PCD L1 24x32x32, G 8, cg 8, K 3",
+              "siren_mlp/bfloat16/whole": "STINF 67->64->64->256->3, "
+              "2,359,296 tokens"}
+    for entry, r in bf16_rows.items():
+        name, variant = entry.split("/", 1)
+        src, replaces = meta[name]
+        if name == "siren_mlp":
+            src = "motif_tpu_torch/csrc/siren_mlp_bf16.cu"
+        rows.append({
+            "name": f"{name}[{variant}/train]", "kernel": name,
+            "route": "cuda", "source": src, "replaces": replaces,
+            "launches": int(RECIPE_CLI_STEPS * bf16_steps[entry]),
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "eager_ms", "backward_ms", "grad_rel_err")},
+            "shape": shapes[entry],
+            "backward": "plain PyTorch in the working type (new: trains)"})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

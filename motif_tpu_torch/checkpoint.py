@@ -26,7 +26,8 @@ The train state (`save_train_state`, `restore_train_state`, `restore_meta`,
 torch's own format: {model, optimizer, step} by `torch.save` in a file
 `<dir>/step_<n>`, with the same `.meta.json` sidecar and the same
 latest-step rule. The JAX package's orbax directories are not read
-(ROADMAP.md §A.5).
+(ROADMAP.md §A.9). In a data-parallel run (`train.main` under torchrun)
+rank 0 alone saves, and every rank restores the step rank 0 found newest.
 """
 
 from __future__ import annotations
@@ -113,13 +114,13 @@ def reference_state_dict(path: str) -> dict:
     unwrapped, DataParallel's `module.` prefix stripped and every key
     holding one of `REFERENCE_ONLY_KEYS` dropped. An orbax directory, the
     JAX package's own format, raises NotImplementedError (ROADMAP.md
-    §A.5)."""
+    §A.9)."""
     if not path.endswith((".pth", ".pt")):
         kind = "an orbax checkpoint directory" if os.path.isdir(path) \
             else "not a .pth / .pt file"
         raise NotImplementedError(
             f"{path}: {kind}; the port loads reference .pth state dicts only "
-            "(ROADMAP.md §A.5)")
+            "(ROADMAP.md §A.9)")
     sd = torch.load(path, map_location="cpu")
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
@@ -154,7 +155,7 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> str:
     A missing or unexpected key, or a shape that differs, raises naming
     the keys at fault; so does a file that is not such a train state, or a
     models root without one. An orbax directory of the JAX package raises
-    NotImplementedError (ROADMAP.md §A.5)."""
+    NotImplementedError (ROADMAP.md §A.9)."""
     if path.endswith((".pth", ".pt")):
         load_reference_checkpoint(model, path)
         return path
@@ -168,7 +169,7 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> str:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: an orbax train-state directory of the JAX package; the "
-            "port loads its own torch train states only (ROADMAP.md §A.5)")
+            "port loads its own torch train states only (ROADMAP.md §A.9)")
     state = torch.load(path, map_location="cpu")
     if not isinstance(state, dict) or "model" not in state:
         raise ValueError(f"{path}: not a train state of this package (no "
@@ -203,12 +204,12 @@ def save_train_state(ckpt_dir: str, step: int, trainer,
 def restore_train_state(ckpt_dir: str, step: int, trainer):
     """Load `<ckpt_dir>/step_<step>` into `trainer` (its model, optimizer and
     step count) and return it. An orbax directory, the JAX package's
-    format, raises NotImplementedError (ROADMAP.md §A.5)."""
+    format, raises NotImplementedError (ROADMAP.md §A.9)."""
     path = _step_path(ckpt_dir, step)
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: an orbax train-state directory of the JAX package; the "
-            "port restores its own torch train states only (ROADMAP.md §A.5)")
+            "port restores its own torch train states only (ROADMAP.md §A.9)")
     trainer.load_state_dict(torch.load(path, map_location="cpu"))
     return trainer
 

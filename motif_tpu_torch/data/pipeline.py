@@ -7,8 +7,8 @@ in the consumer; `device_prefetch` copies them to the card ahead of use.
 The arbitrary-scale collate resizes with the port's own MATLAB bicubic
 (`ops/resize.py::imresize_matlab_np`), image by image in numpy: the JAX
 package's numpy fallback bit for bit (its native C++ core differs from
-that fallback by up to 2e-5). `Subset`, the per-host shard of a
-multi-host run, waits for data-parallel training (ROADMAP.md §A.6).
+that fallback by up to 2e-5). `Subset` is one process's shard of a
+data-parallel run (`parallel.host_shard_indices`).
 """
 
 from __future__ import annotations
@@ -85,6 +85,22 @@ def collate_adobe_arbitrary(items: list[dict], lq_size: int = 64,
             "gt": np.ascontiguousarray(gts, np.float32),
             "times": np.stack([it["times"] for it in items], 0),
             "out_hw": (gts.shape[2], gts.shape[3])}
+
+
+class Subset:
+    """An index-restricted view of a dataset: one process's shard of the
+    sample list in a data-parallel run (motif_tpu/data/pipeline.py:90-103,
+    the reference's DistIterSampler rank striding)."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i: int):
+        return self.dataset[int(self.indices[i])]
 
 
 class BatchLoader:

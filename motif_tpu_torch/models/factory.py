@@ -25,12 +25,15 @@ BASELINES = ("LIIF", "ZSM", "Zooming", "TMNet", "EDVR", "Super_SloMo")
 EVAL_CHUNK = {"Ours_44": 1, "Ours": 3}
 
 
-def build_baseline(opt: dict, device=None, seed: int = 0) -> torch.nn.Module:
+def build_baseline(opt: dict, device=None, seed: int = 0,
+                   n_frames: int = 2) -> torch.nn.Module:
     """The baseline of a `network_G` section, as the JAX package's
     define_g builds it (nf, groups, front_RBs, back_RBs; EDVR at nf 128
     unless set, `nframes` frames, TSA unless `with_tsa` is false; VideoINR
-    for two LQ frames), with float32 random weights from `seed`, in eval
-    mode, on `device` (CUDA unless the caller names another device)."""
+    for `n_frames` LQ frames: the JAX package's flax module sizes its
+    SIRENs from the frames it is first called with, the port's from this),
+    with float32 random weights from `seed`, in eval mode, on `device`
+    (CUDA unless the caller names another device)."""
     from motif_tpu_torch.models import baselines
     from motif_tpu_torch.models.videoinr import VideoINR
 
@@ -43,7 +46,7 @@ def build_baseline(opt: dict, device=None, seed: int = 0) -> torch.nn.Module:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         if which == "LIIF":
-            model = VideoINR(nf, front, back, groups)
+            model = VideoINR(nf, front, back, groups, n_frames)
         elif which in ("ZSM", "Zooming"):
             model = baselines.ZSM(nf, front, back, groups)
         elif which == "TMNet":
@@ -60,7 +63,7 @@ def build_baseline(opt: dict, device=None, seed: int = 0) -> torch.nn.Module:
     return model.to(dev).eval()
 
 
-def define_g(opt: dict, device=None) -> torch.nn.Module:
+def define_g(opt: dict, device=None, n_frames: int = 2) -> torch.nn.Module:
     """The model of a `network_G` section with random weights from seed 0,
     on `device` (CUDA unless the caller names another device): a MoTIF for
     Ours_* (four anchors for Ours_44 / Ours_4, two for every other; the
@@ -73,12 +76,14 @@ def define_g(opt: dict, device=None) -> torch.nn.Module:
     serving knobs are read as the JAX package reads them (`fused_decode`,
     `compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`),
     except for Ours_7, which the JAX package builds with none it runs.
-    `splat_method` is ignored: the port has one splat kernel."""
+    `splat_method` is ignored: the port has one splat kernel. `n_frames`:
+    the LQ frames a LIIF (VideoINR) takes, which set its SIRENs' widths
+    (2 in the eval ymls, 4 in every training mode)."""
     which = opt.get("which_model_G") or "Ours"
     nf = int(opt.get("nf") or 64)
     setting = int(opt.get("setting") or 5)
     if which in BASELINES:
-        return build_baseline(opt, device)
+        return build_baseline(opt, device, n_frames=n_frames)
     if which == "Ours_flow":
         from motif_tpu_torch.models.flow_precompute import FlowPrecompute
 

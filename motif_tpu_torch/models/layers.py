@@ -34,21 +34,21 @@ class LReLU(nn.Module):
 
 def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
     """`module.<name>` in `dtype`: the parameter itself when it has that
-    dtype (or is None), else a cast copy kept on the module, so that a
-    forward does not cast every weight again. The copy is stamped with the
-    parameter's version counter, address and device, and is made anew when
-    any of them changed: `load_state_dict` copies into the parameter in
-    place, which raises its version, and a move to another device replaces
-    its storage. The copy carries no gradient, so under autograd a cast
-    of a parameter that requires grad raises instead of cutting it."""
+    dtype (or is None), else a cast copy. Under autograd (the parameter
+    requires grad and grad mode is on) the copy is `p.to(dtype)`, made
+    anew by every forward, so that the gradient flows back to the float32
+    parameter as optax's does through a cast. Otherwise the copy is kept
+    on the module, so that a forward does not cast every weight again: it
+    is stamped with the parameter's version counter, address and device,
+    and made anew when any of them changed (`load_state_dict` copies into
+    the parameter in place, which raises its version, and a move to
+    another device replaces its storage). The kept copy carries no
+    gradient."""
     p = getattr(module, name)
     if p is None or p.dtype == dtype:
         return p
     if torch.is_grad_enabled() and p.requires_grad:
-        raise NotImplementedError(
-            f"{name}: a {p.dtype} parameter cast to {dtype} under autograd "
-            "would be cut from its gradient; training runs in the "
-            "parameters' dtype (mixed-precision training: ROADMAP.md §A.4)")
+        return p.to(dtype)
     cache = module.__dict__.setdefault("_cast_cache", {})
     stamp = (p._version, p.data_ptr(), p.device)
     hit = cache.get((name, dtype))

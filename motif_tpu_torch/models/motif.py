@@ -126,6 +126,10 @@ class MoTIF(nn.Module):
     raft_resolution: RAFT runs on the HR grid times this factor (a multiple
       of 8, at least 64), the flow rescaled per component.
     decode_chunks: the SIRENs decode the HR tokens in this many pieces.
+    Every knob trains, as the JAX package's autodiff does: under autograd
+    the bfloat16 casts of the float32 parameters carry their gradients
+    (`cast_param`), and each kernel entry's backward is its plain version
+    in the entry's working type.
     """
 
     def __init__(self, channel: int = 64, front_rbs: int = 5,
@@ -371,13 +375,6 @@ class MoTIF(nn.Module):
         dataset's precomputed flows, which replace RAFT's (RAFT does not run
         when both are given, or lr_flow is and `train` is off) and take no
         gradient."""
-        if (self.compute_dtype is not None or self.splat_dtype is not None) \
-                and torch.is_grad_enabled() \
-                and any(p.requires_grad for p in self.parameters()):
-            raise NotImplementedError(
-                "MoTIF: compute_dtype / splat_dtype under autograd: the "
-                "bfloat16 and float16 entries have no backward; training "
-                "runs in the parameters' dtype (ROADMAP.md §A.4)")
         B, N_in, H, W, _ = x.shape
         HH, WW = out_hw
         N = target_t.shape[1]

@@ -35,7 +35,12 @@ CPU) and whose backward is `dcn_im2col_backward_plain`, plain PyTorch: the
 JAX package's `_sample_onehot_bwd` (motif_tpu/ops/dcn.py:147-177) in gather
 form, with its floor-corner convention for the position gradient. The
 weight and the bias take their gradients through `_contract`'s `addmm`.
-The bfloat16 entry has no backward: it raises under grad.
+The bfloat16 entry takes the same backward in its working type: float32
+arithmetic on the bfloat16 values of x, the offsets, the mask and the
+columns' gradient, each gradient rounded to bfloat16 once, as its forward
+rounds a column once (the JAX package's VJP rounds its hat weights and
+contraction inputs to bfloat16 as well, so the two agree by accuracy, not
+bit for bit).
 """
 
 from __future__ import annotations
@@ -233,13 +238,9 @@ def dcn_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     On CPU tensors: the plain version; on CUDA tensors: the `dcn_im2col`
     kernel's float32 or bfloat16 entry, by the tensors' dtype. offset and
     mask may be strided views. Under autograd (a tensor requires grad): the
-    same forward with `dcn_im2col_backward_plain` as its backward; bfloat16
-    raises."""
+    same forward with `dcn_im2col_backward_plain` as its backward, in
+    either type."""
     if kernels.needs_grad(x, offset, mask):
-        if torch.bfloat16 in (x.dtype, offset.dtype, mask.dtype):
-            raise NotImplementedError(
-                "dcn_im2col: the bfloat16 entry has no backward; training "
-                "runs in float32 (bfloat16 training: ROADMAP.md §A.4)")
         return _DcnIm2col.apply(x, offset, mask, K, stride, padding,
                                 dilation, G)
     return _im2col_forward(x, offset, mask, K, stride, padding, dilation, G)

@@ -27,7 +27,10 @@ composed plain form recomputed from the input, as the JAX package's
 `siren_fused` backward is (motif_tpu/ops/siren_kernel.py:117-125) and as its
 `nn.remat` decoders recompute. The weights and biases are inputs of the
 Function, so their gradients reach the parameters. The bfloat16 entries
-have no backward: they raise under grad.
+(whole, skip-first, cut by `segments_bf16`) take the same backward in
+their working type: autodiff of the bfloat16 plain form, whose products
+accumulate in float32 and round where its forward rounds, as the JAX
+package differentiates `_composed` in the input's dtype.
 """
 
 from __future__ import annotations
@@ -358,12 +361,8 @@ def siren_mlp(x: torch.Tensor, weights, biases, omega0: float = 30.0,
     tensors' dtype. `packed` is `pack(weights, biases)` where the caller
     keeps it; without it the parameters are packed on every call. Under
     autograd (a tensor requires grad): the same forward with
-    `siren_mlp_backward_plain` as its backward; bfloat16 raises."""
+    `siren_mlp_backward_plain` as its backward, in either type."""
     if kernels.needs_grad(x, *weights, *biases):
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "siren_mlp: the bfloat16 entries have no backward; training "
-                "runs in float32 (bfloat16 training: ROADMAP.md §A.4)")
         return _SirenMlp.apply(x, packed, float(omega0), bool(sine_last),
                                bool(skip_first), *weights, *biases)
     return _mlp_forward(x, weights, biases, omega0, sine_last, skip_first,

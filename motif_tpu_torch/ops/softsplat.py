@@ -15,6 +15,12 @@ float16 (the JAX package's `_splat_fused_base(scatter_dtype=float16)`): the
 corner weights' factors, e^z and img * e^z rounded to float16, the products
 and the sums (norm and count too) in float16, the results returned in the
 input dtype; the max stays float32.
+
+Gradients: under autograd the kernel's forward (either sums) runs in an
+autograd Function whose backward is `splat_fused_backward_plain`, plain
+PyTorch in gather form, in the sums' type: float32, or for the float16 sums
+the float16 arithmetic that autodiff of the JAX package's float16 scatter
+does (`_half_backward`).
 """
 
 from __future__ import annotations
@@ -123,12 +129,16 @@ def splat_fused_plain(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
     if z_nonpositive:
         z_max = torch.ones((B, H, W, 1), dtype=img.dtype, device=img.device)
     else:
-        zm = torch.ones(B * HW, dtype=img.dtype, device=img.device)
-        for idx, w, valid in corners:
-            v = torch.where(valid, ez.reshape(B, H, W) * w.to(img.dtype),
-                            torch.full_like(ez.reshape(B, H, W), -torch.inf))
-            zm.scatter_reduce_(0, (idx + boff).reshape(-1), v.reshape(-1),
-                               "amax")
+        # the max takes no gradient, as in the JAX package (its
+        # stop_gradient) and the kernel's autograd Function
+        with torch.no_grad():
+            zm = torch.ones(B * HW, dtype=img.dtype, device=img.device)
+            for idx, w, valid in corners:
+                v = torch.where(valid, ez.reshape(B, H, W) * w.to(img.dtype),
+                                torch.full_like(ez.reshape(B, H, W),
+                                                -torch.inf))
+                zm.scatter_reduce_(0, (idx + boff).reshape(-1),
+                                   v.reshape(-1), "amax")
         z_max = zm.reshape(B, H, W, 1)
     return acc[..., :C], acc[..., C:C + 1], z_max, acc[..., C + 1:]
 
@@ -171,7 +181,8 @@ def plan(C: int, elem_size: int = 4) -> tuple[int, int]:
 
 def splat_fused_backward_plain(img: torch.Tensor, flow: torch.Tensor,
                                ez: torch.Tensor, g_out: torch.Tensor | None,
-                               g_norm: torch.Tensor | None):
+                               g_norm: torch.Tensor | None,
+                               scatter_dtype=None):
     """The gradients (d img, d flow, d z) of `splat_fused`'s out and norm
     given theirs (`g_out` (B, H, W, C), `g_norm` (B, H, W, 1), either None
     for zero), with ez = e^z. Gather form: each source pixel reads the
@@ -180,7 +191,11 @@ def splat_fused_backward_plain(img: torch.Tensor, flow: torch.Tensor,
     a_c = e^z (img . G_c[:C] + g_norm_c):
       d img = e^z sum_c w_c G_c,   d z = sum_c w_c a_c,
       d fx = wy0 (a_NE - a_NW) + wy1 (a_SE - a_SW),
-      d fy = wx0 (a_SW - a_NW) + wx1 (a_SE - a_NE)."""
+      d fy = wx0 (a_SW - a_NW) + wx1 (a_SE - a_NE).
+    With float16 sums (`scatter_dtype`, see `_half`): the same terms in
+    float16, `_half_backward`."""
+    if _half(scatter_dtype, img):
+        return _half_backward(img, flow, ez, g_out, g_norm)
     B, H, W, C = img.shape
     n = B * H * W
     gx, gy = pixel_grid(H, W, flow.device)
@@ -220,14 +235,66 @@ def splat_fused_backward_plain(img: torch.Tensor, flow: torch.Tensor,
             d_flow.to(flow.dtype), (d_ez * ezf).reshape(B, H, W, 1))
 
 
+def _half_backward(img, flow, ez, g_out, g_norm):
+    """`splat_fused_backward_plain` for the float16 sums: what autodiff of
+    the JAX package's `_splat_fused_base(scatter_dtype=float16)` computes.
+    The output gradient is rounded to float16 (the backward of the sums'
+    widening); with the forward's float16 fractional weights wx, wy, their
+    complements and products w_c, u = [img * e^z | e^z] in float16 and
+    G_c the float16 gradient at corner c:
+      d u = sum_c w_c G_c,   d w_c = u . G_c         (float16),
+      d img = e^z d u[:C],   d e^z = img . d u[:C] + d u[C],
+      d wx1 = wy0 d w_NE + wy1 d w_SE,   d wx0 = wy0 d w_NW + wy1 d w_SW,
+      d fx = d wx1 - d wx0 (the complement's gradient goes back through
+    its float32 form), likewise fy; each widened to the inputs' dtype, and
+    d z = d e^z * e^z there."""
+    B, H, W, C = img.shape
+    n, h = B * H * W, torch.float16
+    gx, gy = pixel_grid(H, W, flow.device)
+    fx = gx + flow[..., 0]
+    fy = gy + flow[..., 1]
+    wx1 = (fx - torch.floor(fx)).to(h).reshape(n, 1)
+    wy1 = (fy - torch.floor(fy)).to(h).reshape(n, 1)
+    wx0 = (1.0 - wx1.float()).to(h)
+    wy0 = (1.0 - wy1.float()).to(h)
+    ezh = ez.to(h).reshape(n, 1)
+    imgh = img.to(h).reshape(n, C)
+    u = torch.cat([imgh * ezh, ezh], -1)                    # (n, C + 1)
+    zero = img.new_zeros(())
+    g = torch.cat([(g_out if g_out is not None else zero.expand(B, H, W, C)),
+                   (g_norm if g_norm is not None
+                    else zero.expand(B, H, W, 1))], -1).to(h).reshape(
+                        n, C + 1)
+    boff = (torch.arange(B, device=img.device) * H * W)[:, None, None]
+    d_u = torch.zeros_like(u)
+    d_w = []
+    for (idx, _, valid), w in zip(_corner_data(flow, H, W),
+                                  (wy0 * wx0, wy0 * wx1, wy1 * wx0,
+                                   wy1 * wx1)):
+        gc = g.index_select(0, (idx + boff).reshape(n))
+        gc = gc * valid.reshape(n, 1).to(h)
+        d_u = d_u + gc * w
+        d_w.append((u * gc).sum(-1, keepdim=True))
+    d_ezh = (d_u[:, :C] * imgh).sum(-1, keepdim=True) + d_u[:, C:]
+    d_wx = (wy0 * d_w[1] + wy1 * d_w[3]).float() - \
+        (wy0 * d_w[0] + wy1 * d_w[2]).float()
+    d_wy = (wx0 * d_w[2] + wx1 * d_w[3]).float() - \
+        (wx0 * d_w[0] + wx1 * d_w[1]).float()
+    dt = img.dtype
+    return ((d_u[:, :C] * ezh).to(dt).reshape(B, H, W, C),
+            torch.cat([d_wx, d_wy], -1).to(flow.dtype).reshape(B, H, W, 2),
+            (d_ezh.to(dt) * ez.reshape(n, 1)).reshape(B, H, W, 1))
+
+
 class _SplatFused(torch.autograd.Function):
-    """splat_fused with float32 (or the inputs') sums under autograd: the
-    kernel forward, `splat_fused_backward_plain` backward."""
+    """splat_fused under autograd: the kernel forward (float32 or float16
+    sums), `splat_fused_backward_plain` backward in the same sums' type."""
 
     @staticmethod
-    def forward(ctx, img, flow, z, z_nonpositive):
-        outs = _splat_forward(img, flow, z, z_nonpositive, None)
+    def forward(ctx, img, flow, z, z_nonpositive, scatter_dtype):
+        outs = _splat_forward(img, flow, z, z_nonpositive, scatter_dtype)
         ctx.save_for_backward(img, flow, z)
+        ctx.scatter_dtype = scatter_dtype
         ctx.mark_non_differentiable(outs[2], outs[3])
         return outs
 
@@ -236,8 +303,8 @@ class _SplatFused(torch.autograd.Function):
         img, flow, z = ctx.saved_tensors
         with torch.profiler.record_function("splat_fused.backward"):
             d_img, d_flow, d_z = splat_fused_backward_plain(
-                img, flow, torch.exp(z), g_out, g_norm)
-        return d_img, d_flow, d_z, None
+                img, flow, torch.exp(z), g_out, g_norm, ctx.scatter_dtype)
+        return d_img, d_flow, d_z, None, None
 
 
 def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
@@ -259,15 +326,10 @@ def splat_fused(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor,
     sums in an order that varies from run to run (the count and z_max are
     exact; float16 sums then differ by about 1e-3 relative).
     Under autograd (a tensor requires grad): the same forward with
-    `splat_fused_backward_plain` as its backward; the float16 sums raise.
+    `splat_fused_backward_plain` as its backward, with either sums.
     """
     if kernels.needs_grad(img, flow, z):
-        if _half(scatter_dtype, img):
-            raise NotImplementedError(
-                "splat_fused: the float16-sum entry has no backward; "
-                "training runs with float32 sums (bfloat16 / float16 "
-                "training: ROADMAP.md §A.4)")
-        return _SplatFused.apply(img, flow, z, z_nonpositive)
+        return _SplatFused.apply(img, flow, z, z_nonpositive, scatter_dtype)
     return _splat_forward(img, flow, z, z_nonpositive, scatter_dtype)
 
 

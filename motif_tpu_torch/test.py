@@ -74,7 +74,10 @@ def main(argv: list[str] | None = None, overrides: dict | None = None):
     loader = BatchLoader(dataset, batch_size=1, shuffle=False)
     logger.info("dataset %s: %d clips", dataset_opt["mode"], len(dataset))
 
-    model = define_g(net_opt, device=args.device)
+    # a LIIF's SIRENs are as wide as its LQ frames make them (2 in the
+    # eval ymls, 4 where a yml's ref_num asks for a trained model's 4)
+    model = define_g(net_opt, device=args.device,
+                     n_frames=len(dataset[0]["lq"]) if which == "LIIF" else 2)
 
     ckpt = args.checkpoint or opt["path"].get("pretrain_model_G")
     if ckpt:

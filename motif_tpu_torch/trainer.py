@@ -2,7 +2,8 @@
 models/VideoSR_base_model.py + base_model.py): one optimiser step of a
 MoTIF model (the `Ours` family at any setting, the linear-motion Ours_7, or
 the four-anchor Ours_44 / Ours_4, with the dataset's precomputed flows when
-it has them) per batch.
+it has them) or of the `LIIF` baseline (VideoINR) per batch, alone or as
+one process of a data-parallel run.
 
 The step keeps the reference's training semantics as the JAX package does
 (VideoSR_base_model.py:127-158):
@@ -12,6 +13,11 @@ The step keeps the reference's training semantics as the JAX package does
    scaled by (4 / scale)^2, scale = output width / LQ width;
  * flow distillation: + 0.1 * cb(flow, flow_GT)
    * max(0, 1 - (step % teacher_forcing_steps) / teacher_forcing_steps);
+ * LIIF (motif_tpu/trainer.py:145-153, 205-206): the model's per-time
+   list stacked, the same pixel loss with the scale correction from the
+   actual output width (the JAX package's fix of the reference's
+   `fake_H.shape[3]` on a list), no flow loss and no teacher forcing: its
+   step draws nothing from the generator;
  * Adam (AdamW with a weight decay) over every parameter, the lr from the
    schedule at the step count before the update, as optax reads it.
 
@@ -21,6 +27,14 @@ checkpointed but unused). torch's optimisers skip a parameter whose `.grad`
 is None, and from then on its moments and weight decay would differ from
 the JAX package's; so every parameter autograd did not reach is given a
 zero gradient before the update.
+
+Data-parallel (`parallel/dist.py`): under a process group (of any size;
+one that exists when the Trainer is made), each process computes the
+gradient of its part of the global batch and the gradients are summed over
+the processes after that zero-fill, so every process holds the gradient of
+the global batch, as the JAX package's sharded step does (its losses are
+sums over the batch). The loss in aux is the global one too. Every process draws use_gt from the same
+`random.Random(seed)`, as every JAX host does.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ import numpy as np
 import torch
 
 from motif_tpu_torch import losses, schedules
+from motif_tpu_torch.parallel import dist
 
 f32 = np.float32
 
@@ -96,8 +111,8 @@ def make_optimizer(cfg: TrainerConfig, params):
 
 
 class Trainer:
-    """Trains a MoTIF (the `Ours` family, Ours_7, Ours_44 / Ours_4) in
-    place.
+    """Trains a MoTIF (the `Ours` family, Ours_7, Ours_44 / Ours_4) or a
+    VideoINR (`family="LIIF"`) in place.
 
     batch: {'lq': (B, N_in, H, W, 3), 'gt': (B, N+2, HH, WW, 3),
     'times': (B, N)} and, when the dataset has them (Vimeo's for a
@@ -110,21 +125,26 @@ class Trainer:
     gt[:, 1:-1]. `out_hw` None: each batch's output size is its GT's (the
     arbitrary-scale collates).
     `step_count` is the number of optimiser steps taken (the JAX package's
-    state.step)."""
+    state.step). Under a process group (read when the Trainer is made)
+    the gradients and the loss are summed over its processes."""
 
     def __init__(self, model, cfg: TrainerConfig, out_hw=None,
                  iters: int = 12, flow_loss: bool = True, seed: int = 0,
                  family: str = "Ours"):
-        if not family.startswith("Ours") or family == "Ours_flow":
+        if family != "LIIF" and (not family.startswith("Ours")
+                                 or family == "Ours_flow"):
             raise NotImplementedError(
-                f"Trainer: no training of family [{family}] (LIIF: "
-                "ROADMAP.md §A.4; Ours_flow is a flow precomputer)")
+                f"Trainer: no training of family [{family}] (the grid "
+                "trains Ours* and LIIF; Ours_flow is a flow precomputer)")
         self.model = model
+        self.family = family
         self.cfg = cfg
         # None: the output size is read from each batch's GT
         self.out_hw = tuple(out_hw) if out_hw is not None else None
         self.iters = iters
-        self.flow_loss = flow_loss
+        self.flow_loss = flow_loss and family.startswith("Ours")
+        # a process group (read now): sum over it after each backward
+        self.sync = torch.distributed.is_initialized()
         self.criterion = losses.PIXEL_CRITERIA[cfg.pixel_criterion]
         self.params = list(model.parameters())
         self.optimizer, self.schedule = make_optimizer(cfg, self.params)
@@ -133,7 +153,10 @@ class Trainer:
 
     def draw_use_gt(self) -> bool:
         """The host-side teacher-forcing draw for the current step
-        (VideoSR_base_model.py:128-129); advances the generator."""
+        (VideoSR_base_model.py:128-129); advances the generator. LIIF has
+        no teacher forcing: False, and no draw."""
+        if self.family == "LIIF":
+            return False
         ratio = max(0.0, 1.0 - self.step_count / self.cfg.teacher_forcing_steps)
         return self._rng.random() < ratio
 
@@ -152,12 +175,15 @@ class Trainer:
         cfg = self.cfg
         b = self._tensors(batch)
         out_hw = self._out_hw(b["gt"])
-        flows = None
-        if "flow" in b or "flow_gt" in b:     # precomputed (Ours_44 / Vimeo)
-            flows = (b.get("flow"), b.get("flow_gt"))
-        frames, flow, flow_gt = self.model(
-            b["lq"], b["times"], out_hw, use_gt=use_gt, iters=self.iters,
-            target_frames=b["gt"], train=True, flows=flows)
+        if self.family == "LIIF":      # the per-time list, stacked
+            frames = torch.stack(self.model(b["lq"], b["times"], out_hw), 0)
+        else:
+            flows = None
+            if "flow" in b or "flow_gt" in b:  # precomputed (Ours_44 / Vimeo)
+                flows = (b.get("flow"), b.get("flow_gt"))
+            frames, flow, flow_gt = self.model(
+                b["lq"], b["times"], out_hw, use_gt=use_gt, iters=self.iters,
+                target_frames=b["gt"], train=True, flows=flows)
         gt = b["gt"][:, 1:-1]
         l_pix = 0.0
         for idx in range(frames.shape[0]):              # per-time sum loss
@@ -178,7 +204,8 @@ class Trainer:
     def compute_grads(self, batch, use_gt: bool, clock=None) -> dict:
         """Forward and backward on `batch`, no update: every parameter's
         `.grad` holds this batch's gradient (zeros where autograd did not
-        reach). Returns aux with `loss`."""
+        reach), summed over the processes of a data-parallel run, as are
+        the loss and its parts in the returned aux."""
         clock = clock or _Clock(False, None)
         self.optimizer.zero_grad(set_to_none=False)
         total, aux = self.loss(batch, use_gt)
@@ -187,8 +214,11 @@ class Trainer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clock.mark("backward")
         aux["loss"] = total.detach()
+        if self.sync:
+            dist.all_reduce_grads(self.params)
+            aux = {k: dist.all_reduce_sum(v) for k, v in aux.items()}
+        clock.mark("backward")
         return aux
 
     def step(self, batch, sync_times: bool = False) -> dict:

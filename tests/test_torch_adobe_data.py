@@ -29,15 +29,15 @@ from motif_tpu.data import pipeline as jpipeline
 from motif_tpu.models import factory as jfactory
 from motif_tpu.utils import config as jconfig
 from motif_tpu_torch.data import datasets, pipeline
-from motif_tpu_torch.models import factory
 from motif_tpu_torch.models.motif import MoTIF
+from motif_tpu_torch.models.videoinr import VideoINR
 from motif_tpu_torch.utils import config
 
 GRID = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..",
                                      "configs", "grid", "*.yml")))
-# the LIIF recipes wait for LIIF training (ROADMAP.md §A.4)
-TRAINED = [p for p in GRID if not os.path.basename(p).startswith(
-    "train_INR_")]
+# every recipe trains in the port, the 4 LIIF ones (train_INR_*) too
+TRAINED = GRID
+LIIF = [p for p in GRID if os.path.basename(p).startswith("train_INR_")]
 
 
 @pytest.fixture(scope="module")
@@ -211,8 +211,8 @@ def test_collate_draws_as_motif_tpu():
 
 
 def test_grid_counts():
-    """31 training ymls; 27 train in the port, the 4 LIIF ones wait."""
-    assert len(GRID) == 31 and len(TRAINED) == 27
+    """31 training ymls, all trained by the port, 4 of them LIIF."""
+    assert len(GRID) == 31 and len(TRAINED) == 31 and len(LIIF) == 4
 
 
 @contextlib.contextmanager
@@ -240,22 +240,30 @@ def _resize_fallback():
 @pytest.mark.parametrize("path", TRAINED,
                          ids=[os.path.basename(p) for p in TRAINED])
 def test_grid_yml_builds_and_batches_as_motif_tpu(path, trees):
-    """yml -> define_g (full width, the yml's model and setting) ->
-    dataset on the synthetic tree (GT 64, batch 1) -> one batch (an `_a`
-    mode through the collate at its yml's LQ_size, d_scale pinned to 4 as
+    """yml -> `train.setup` (the model at full width, the yml's model and
+    setting, its dataset on the synthetic tree at GT 64, batch 1, and the
+    Trainer of its family) -> one batch (an `_a` mode through the collate
+    at its yml's LQ_size, d_scale pinned to 4 as
     tests/test_config_lint.py pins it): the batch equals motif_tpu's."""
+    from motif_tpu_torch import train
+
     opt, jopt = config.parse(path, is_train=True), \
         jconfig.parse(path, is_train=True)
-    net = opt["network_G"]
-    m, jm = factory.define_g(net, device="cpu"), jfactory.define_g(
-        jopt["network_G"])
-    assert isinstance(m, MoTIF) and m.channel == jm.channel == 64
-    assert (m.setting, m.linear_motion, m.n_anchors) == (
-        jm.setting, jm.linear_motion, jm.n_anchors)
     dopt = dict(opt["datasets"]["train"])
     mode = dopt["mode"]
     dopt.update(_opt(trees, mode), GT_size=64, batch_size=1,
                 sample_num=min(int(dopt.get("sample_num") or 3), 3))
+    net = opt["network_G"]
+    m, _, tr = train.setup({**opt, "datasets": {"train": dopt}}, "cpu")
+    jm = jfactory.define_g(jopt["network_G"])
+    if net["which_model_G"] == "LIIF":   # the 4 LQ frames of every mode
+        assert isinstance(m, VideoINR) and m.nf == jm.nf == 64
+        assert m.n_frames == 4 and tr.family == "LIIF"
+        assert not tr.flow_loss
+    else:
+        assert isinstance(m, MoTIF) and m.channel == jm.channel == 64
+        assert (m.setting, m.linear_motion, m.n_anchors) == (
+            jm.setting, jm.linear_motion, jm.n_anchors)
     kw, jkw = {}, {}
     if mode.endswith("_a"):
         lq = int(dopt["LQ_size"])
@@ -273,21 +281,27 @@ def test_grid_yml_builds_and_batches_as_motif_tpu(path, trees):
     assert got["gt"].shape[2:4] == (64, 64)
 
 
-@pytest.mark.parametrize("path", [p for p in GRID if p not in TRAINED],
-                         ids=lambda p: os.path.basename(p))
+@pytest.mark.parametrize("path", LIIF, ids=lambda p: os.path.basename(p))
 def test_liif_recipes_point_at_what_waits(path, tmp_path):
-    """The LIIF ymls build their model, and training it raises naming
-    ROADMAP.md §A.4 (LIIF training), in the CLI and in Trainer."""
+    """The LIIF ymls, which waited for LIIF training, train: their Trainer
+    takes the family with no flow loss; what the port still refuses
+    (Ours_flow, a flow precomputer; a baseline the grid does not train)
+    raises in the CLI and in Trainer."""
     from motif_tpu_torch import train
     from motif_tpu_torch.trainer import Trainer, TrainerConfig
 
     opt = config.parse(path, is_train=True)
     assert opt["network_G"]["which_model_G"] == "LIIF"
-    with pytest.raises(NotImplementedError, match="A.4"):
-        Trainer(torch.nn.Linear(1, 1), TrainerConfig(), family="LIIF")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        train.main(["-opt", path, "--device", "cpu"],
-                   overrides={"path": {"root": str(tmp_path)}})
+    tr = Trainer(torch.nn.Linear(1, 1), TrainerConfig(), family="LIIF")
+    assert tr.family == "LIIF" and not tr.flow_loss
+    assert tr.draw_use_gt() is False
+    for which in ("Ours_flow", "EDVR"):
+        with pytest.raises(NotImplementedError, match="no training"):
+            Trainer(torch.nn.Linear(1, 1), TrainerConfig(), family=which)
+        with pytest.raises(NotImplementedError, match="no training"):
+            train.main(["-opt", path, "--device", "cpu"],
+                       overrides={"path": {"root": str(tmp_path)},
+                                  "network_G": {"which_model_G": which}})
 
 
 def _lq32_batch():

@@ -238,7 +238,8 @@ def test_cli_matches_motif_tpu_run(family, tmp_path, monkeypatch):
     pth = _reference_pth(tmp_path / "w.pth", _port(net, params).state_dict())
     build = factory.define_g
     monkeypatch.setattr(factory, "define_g",
-                        lambda opt, device=None: build(opt, device).double())
+                        lambda opt, device=None, **kw:
+                        build(opt, device, **kw).double())
     monkeypatch.chdir(tmp_path)
     ds = dict(config.parse(str(yml), is_train=False)["datasets"]["train"],
               dataroot_GT=str(VID4 / "HR"), dataroot_LQ=str(VID4 / "LR"))

@@ -913,27 +913,250 @@ def test_siren_mlp_backward(dev, dims, skip_first):
         _grad_close(a, c, k)
 
 
-def test_lower_precision_entries_raise_under_grad(dev):
-    def t(shape, dtype=torch.float32):
-        return torch.rand(shape, device=dev, dtype=dtype, requires_grad=True)
-    before = dict(kernels.LAUNCHES)
+def _lowprec_close(got, want, bits, what):
+    """Within 2 units in the last place of the working type (`bits`
+    stored mantissa bits) at the gradient's largest magnitude: a backward
+    fed the kernel's forward against one fed the plain forward."""
+    scale = float(want.double().abs().max())
+    err = float((got.double() - want.double()).abs().max())
+    assert scale > 0 and err <= 2 * ulp_at(scale, bits), (what, err, scale)
+
+
+@pytest.mark.parametrize("C", [64, 130])
+def test_splat_fused_float16_sums_backward(dev, C):
+    """The float16-sum entry under grad (the knobs' training splat: C = 64
+    under fused_decode, 130 without) on 4 images of 128²: one launch, and
+    the gradients of img, flow and z against autograd through the plain
+    float16 splat, within 2 float16 ulps of the largest."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, H, W = 4, 128, 128
+    img = torch.randn((B, H, W, C), device=dev, generator=g)
+    flow = torch.randn((B, H, W, 2), device=dev, generator=g) * 3.0
+    z = torch.randn((B, H, W, 1), device=dev, generator=g).abs()
+    cot = (torch.randn((B, H, W, C), device=dev, generator=g),
+           torch.randn((B, H, W, 1), device=dev, generator=g))
+    h = torch.float16
+    got, n = _launches("splat_fused", lambda: _grads(
+        lambda *a: softsplat.splat_fused(*a, False, scatter_dtype=h)[:2],
+        (img, flow, z), cot))
+    assert n == 1
+    want = _grads(lambda *a: softsplat.splat_fused_plain(
+        *a, False, scatter_dtype=h)[:2], (img, flow, z), cot)
+    for what, a, b in zip(("img", "flow", "z"), got, want):
+        _lowprec_close(a, b, 10, what)
+
+
+def test_dcn_v2_bfloat16_backward(dev):
+    """The bfloat16 entry under grad at the PCD's L1 training size (8
+    frames of 32², G 8, cg 8): one launch, every gradient against autograd
+    through the plain bfloat16 dcn_v2 within 2 bfloat16 ulps."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, H, W, G, cg, K = 8, 32, 32, 8, 8, 3
     bf = torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        softsplat.splat_fused(t((1, 8, 8, 64)), t((1, 8, 8, 2)),
-                              t((1, 8, 8, 1)), True,
-                              scatter_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dcn.dcn_im2col(t((1, 8, 8, 64), bf), t((1, 8, 8, 144), bf),
-                       t((1, 8, 8, 72), bf), 3, 1, 1, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        siren_kernel.siren_mlp(t((100, 64), bf), [t((64, 64), bf)],
-                               [t((64,), bf)], skip_first=True)
-    assert kernels.LAUNCHES == before
+    x = torch.randn((B, H, W, G * cg), device=dev, generator=g).to(bf)
+    com = (torch.randn((B, H, W, G * K * K * 3), device=dev, generator=g)
+           * 2.0).to(bf)
+    w = (torch.randn((64, G * cg, K, K), device=dev, generator=g)
+         * 0.05).to(bf)
+    b = torch.randn((64,), device=dev, generator=g).to(bf)
+    cot = (torch.randn((B, H, W, 64), device=dev, generator=g).to(bf),)
+    n2 = G * K * K * 2
+
+    def run(op):
+        def f(xx, cc, ww, bb):
+            return op(xx, cc[..., :n2], torch.sigmoid(cc[..., n2:]), ww, bb,
+                      K, 1, 1, 1, G)
+        return f
+    got, n = _launches("dcn_im2col", lambda: _grads(run(dcn.dcn_v2),
+                                                    (x, com, w, b), cot))
+    assert n == 1
+    want = _grads(run(dcn.dcn_v2_plain), (x, com, w, b), cot)
+    for what, a, c in zip(("x", "offset|mask", "weight", "bias"), got, want):
+        assert a.dtype == bf, what
+        _lowprec_close(a, c, 7, what)
+
+
+@pytest.mark.parametrize("dims,skip_first,launches", [
+    ((67, 64, 64, 256, 3), False, 1), ((64, 64, 256, 64), True, 1),
+    ((331, 64, 64, 64, 256, 3), False, 2)],
+    ids=["whole", "skip_first", "cut"])
+def test_siren_mlp_bfloat16_backward(dev, dims, skip_first, launches):
+    """The bfloat16 entries under grad: whole (STINF), skip-first (SINF)
+    and setting 6's synthesis net cut into two launches
+    (`segments_bf16`): the kernel's launches, and every gradient equal to
+    autograd through the plain bfloat16 version (the backward recomputes
+    from the inputs, so the kernel's forward cannot reach it)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    ws = [((torch.rand((o, i), device=dev, generator=g) * 2 - 1)
+           * hidden_bound(i, 30.0)).to(bf) for i, o in zip(dims[:-1],
+                                                           dims[1:])]
+    bs = [(torch.rand((o,), device=dev, generator=g) * 0.2 - 0.1).to(bf)
+          for o in dims[1:]]
+    x = (torch.randn((3, 20000, dims[0]), device=dev, generator=g)
+         * 0.3).to(bf)
+    cot = (torch.randn((3, 20000, dims[-1]), device=dev, generator=g
+                       ).to(bf),)
+    n = len(ws)
+
+    def run(op):
+        return lambda xx, *p: op(xx, list(p[:n]), list(p[n:]), 30.0, False,
+                                 skip_first)
+    got, launched = _launches("siren_mlp", lambda: _grads(
+        run(siren_kernel.siren_mlp), (x, *ws, *bs), cot))
+    assert launched == launches
+    want = _grads(run(siren_kernel.siren_mlp_plain), (x, *ws, *bs), cot)
+    for k, (a, c) in enumerate(zip(got, want)):
+        assert a.dtype == bf and torch.equal(a, c), k
+
+
+def test_lower_precision_entries_raise_under_grad(dev):
+    """The lower-precision entries no longer raise under grad: MoTIF under
+    every knob (bfloat16 compute, float16 splat sums, fused decode) runs a
+    forward and a backward on the card, launching the bfloat16 DCN, the
+    bfloat16 skip-first SIREN and the float16-sum splat, and its float32
+    parameters take finite gradients."""
     from motif_tpu_torch.models.motif import build_motif
-    m = build_motif(16, 1, 2, device=dev, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(torch.rand(1, 4, 16, 16, 3, device=dev),
-          torch.rand(1, 2, device=dev), (64, 64), iters=1)
+    m = build_motif(16, 1, 2, device=dev, fused_decode=True,
+                    compute_dtype="bfloat16", splat_dtype="float16")
+    before = dict(kernels.ENTRY_LAUNCHES)
+    frames, _, _ = m(torch.rand(1, 4, 16, 16, 3, device=dev),
+                     torch.rand(1, 2, device=dev), (64, 64), iters=1)
+    frames.square().sum().backward()
+    torch.cuda.synchronize()
+    launched = {k for k, v in kernels.ENTRY_LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert launched == {"dcn_im2col/bfloat16", "siren_mlp/bfloat16/skip_first",
+                        "splat_fused/float16/C=64"}
+    for name, p in m.named_parameters():
+        assert p.grad is None or (p.grad.dtype == torch.float32
+                                  and torch.isfinite(p.grad).all()), name
+
+
+def _perturbed_motif(dev, **kw):
+    from motif_tpu_torch.models.motif import build_motif
+    from motif_tpu_torch.models.pcd import DCNSep
+
+    model = build_motif(16, 1, 2, device=dev, seed=0, **kw)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        model.alpha.fill_(0.5)
+        for mod in model.modules():
+            if isinstance(mod, DCNSep):
+                w, b = mod.conv_offset_mask.weight, mod.conv_offset_mask.bias
+                w.copy_(torch.randn(w.shape, generator=g) * 0.01)
+                b.copy_(torch.randn(b.shape, generator=g))
+    return model
+
+
+def _motif_grads(model, fused):
+    model.configure(fused_decode=fused)
+    model.zero_grad(set_to_none=True)
+    rng = np.random.default_rng(1)
+    dev = next(model.parameters()).device
+    x = torch.tensor(rng.random((1, 4, 16, 16, 3), np.float32), device=dev)
+    tt = torch.tensor([[0.2, 0.8]], device=dev)
+    gt = torch.tensor(rng.random((1, 2, 64, 64, 3), np.float32), device=dev)
+    frames, _, _ = model(x, tt, (64, 64), iters=2)
+    ((frames.transpose(0, 1) - gt) ** 2).sum().backward()
+    return {k: (p.grad.clone() if p.grad is not None else
+                torch.zeros_like(p)) for k, p in model.named_parameters()}
+
+
+STEP_GRAD_TOL = 1e-3   # chip_smoke.py's TRAIN_GATES["grad_rel"]
+
+
+def test_fused_decode_gradient_on_the_card(dev):
+    """The gradient through fused_decode (the skip-first float32 SIREN
+    entry) on the card: against the reference order's, per module within
+    5e-3 of its largest (tests/test_bf16.py:82-112), and against the same
+    fused forward and backward with the plain versions, each gradient
+    within STEP_GRAD_TOL of its largest: a whole model's gradient, as the
+    smoke's training gates hold one (alpha > 0, so the max splat and z
+    enter; the splat's float32 sums run in another order than the plain
+    version's, which moves the flow-context convs' gradient by 1.4e-5 on
+    an H100)."""
+    model = _perturbed_motif(dev)
+    ref = _motif_grads(model, False)
+    before = dict(kernels.ENTRY_LAUNCHES)
+    got = _motif_grads(model, True)
+    assert kernels.ENTRY_LAUNCHES["siren_mlp/float32/skip_first"] - \
+        before.get("siren_mlp/float32/skip_first", 0) == 3
+    for key in ("synth_net", "imnet", "flow_imnet", "encoder"):
+        a = torch.cat([g.reshape(-1) for k, g in ref.items()
+                       if k.startswith(key + ".")])
+        b = torch.cat([g.reshape(-1) for k, g in got.items()
+                       if k.startswith(key + ".")])
+        assert float((a - b).abs().max()) <= 5e-3 * float(a.abs().max()), key
+    with _plain_versions():
+        plain = _motif_grads(model, True)
+    for k, g in got.items():
+        scale = float(plain[k].abs().max())
+        if scale > 0:
+            err = float((g - plain[k]).abs().max())
+            assert err <= STEP_GRAD_TOL * scale, (k, err, scale)
+
+
+def test_bfloat16_trainer_step_matches_the_plain_versions(dev):
+    """Trainer.step under every knob (bfloat16 compute, float16 splat
+    sums, fused decode) at channel 16 on the card, use_gt False: every
+    parameter's gradient within 0.5 of the same step's with the plain
+    versions in L2 relative to its norm (bfloat16's own spread reaches
+    0.19 at the PCD's offset convs against float64,
+    tests/test_torch_train_bf16.py), the loss within 1e-2, and the
+    parameters each reaches the same."""
+    from motif_tpu_torch.trainer import Trainer, TrainerConfig
+
+    model = _perturbed_motif(dev, fused_decode=True, compute_dtype="bfloat16",
+                             splat_dtype="float16")
+    rng = np.random.default_rng(0)
+    batch = {"lq": rng.random((2, 4, 16, 16, 3), np.float32),
+             "gt": rng.random((2, 5, 64, 64, 3), np.float32),
+             "times": np.float32([[0.25, 0.5, 0.75]] * 2)}
+    tr = Trainer(model, TrainerConfig(teacher_forcing_steps=1), iters=2)
+    aux = tr.compute_grads(batch, False)
+    grads = [p.grad.clone() for p in tr.params]
+    with _plain_versions():
+        plain = tr.compute_grads(batch, False)
+    assert abs(float(aux["loss"]) / float(plain["loss"]) - 1) <= 1e-2
+    for (name, p), a in zip(model.named_parameters(), grads):
+        n = float(p.grad.norm())
+        assert (n > 0) == (float(a.norm()) > 0), name
+        if n > 0:
+            assert float((a - p.grad).norm()) <= 0.5 * n, name
+
+
+def test_liif_trainer_step_matches_the_plain_versions(dev):
+    """A LIIF (VideoINR at nf 16, 1 / 1 blocks, 4 LQ frames) Trainer step
+    on the card, LR 16² -> 64², 3 times: the DCN and the float32 SIREN
+    (the 1049-wide encode_imnet cut into launches) launch, and the loss
+    and every gradient hold against the plain versions (1e-5)."""
+    from motif_tpu_torch.models.factory import build_baseline
+    from motif_tpu_torch.trainer import Trainer, TrainerConfig
+
+    model = build_baseline({"which_model_G": "LIIF", "nf": 16,
+                            "front_RBs": 1, "back_RBs": 1}, dev, n_frames=4)
+    model.train()
+    rng = np.random.default_rng(0)
+    batch = {"lq": rng.random((2, 4, 16, 16, 3), np.float32),
+             "gt": rng.random((2, 5, 64, 64, 3), np.float32),
+             "times": np.float32([[0.25, 0.5, 0.75]] * 2)}
+    tr = Trainer(model, TrainerConfig(), out_hw=(64, 64), family="LIIF")
+    before = dict(kernels.LAUNCHES)
+    aux = tr.compute_grads(batch, tr.draw_use_gt())
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
+    assert set(launched) == {"dcn_im2col", "siren_mlp"}
+    grads = [p.grad.clone() for p in tr.params]
+    with _plain_versions():
+        plain = tr.compute_grads(batch, False)
+    assert abs(float(aux["loss"]) - float(plain["loss"])) <= \
+        1e-5 * abs(float(plain["loss"]))
+    for (name, p), a in zip(model.named_parameters(), grads):
+        if float(p.grad.abs().max()) > 0:
+            _grad_close(a, p.grad, name)
+        else:
+            assert float(a.abs().max()) == 0.0, name
 
 
 def test_siren_packed_follows_an_optimiser_step_on_the_card(dev):

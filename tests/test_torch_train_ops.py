@@ -12,8 +12,12 @@ Pallas splat has no VJP and fails under x64), the one-hot DCN (the
 composed SIREN; and against autograd through the port's plain forward.
 Each backward is also called directly. Tolerance: 1e-10 of the largest
 gradient of each tensor (the readings are ~1e-15). Also: the
-lower-precision entries raise under grad, and `Siren.packed` follows an
-optimiser step.
+lower-precision entries run under grad, their gradients reaching inputs
+and parameters in their own dtypes (held by accuracy in
+tests/test_torch_train_bf16.py), `Siren.packed` follows an optimiser step,
+and the gradient through `fused_decode` equals the reference order's
+(the counterpart of tests/test_bf16.py:82-112, its relative gate of 5e-3;
+the reading in float64 is ~1e-14).
 """
 
 import jax
@@ -175,6 +179,26 @@ def test_splat_backward_matches_autograd_of_the_plain_splat(rng, positive):
         out, norm, _, _ = fn(*ts, not positive)
         grads.append(torch.autograd.grad(
             (out * _t(g_out)).sum() + (norm * _t(g_norm)).sum(), ts))
+    for what, a, b in zip(("img", "flow", "z"), *grads):
+        _close(a, b.numpy(), what=what)
+
+
+def test_plain_splat_max_takes_no_gradient(rng):
+    """With z > 0 the plain splat's max (ones-initialised, scattered in
+    place) enters a loss as MoTIF's extras take it, and autograd through
+    the plain version runs (its in-place scatter-max used to fail the
+    backward) and equals the kernel Function's gradient: the max takes
+    none, as motif_tpu's stop_gradient and the Function give it none."""
+    img, flow, z, (g_out, g_norm) = _splat_inputs(rng, positive=True)
+    g_max = rng.standard_normal(z.shape)
+    grads = []
+    for fn in (softsplat.splat_fused, softsplat.splat_fused_plain):
+        ts = [_t(a, True) for a in (img, flow, z)]
+        out, norm, z_max, _ = fn(*ts, False)
+        assert not z_max.requires_grad
+        loss = ((out * _t(g_out)).sum() + (norm * _t(g_norm)).sum()
+                + (z_max * norm * _t(g_max)).sum())
+        grads.append(torch.autograd.grad(loss, ts))
     for what, a, b in zip(("img", "flow", "z"), *grads):
         _close(a, b.numpy(), what=what)
 
@@ -355,27 +379,74 @@ def test_siren_packed_follows_an_optimiser_step(rng, foreach):
 # ---------------------------------------------- lower precision and grad ---
 
 def test_lower_precision_entries_raise_under_grad(rng):
+    """The float16-sum splat, the bfloat16 DCN and SIREN, a parameter cast
+    to bfloat16 and MoTIF under `compute_dtype` no longer raise under
+    grad: each takes a backward and its gradients come back in the input's
+    own dtype; without grad a cast is the kept copy, as for serving."""
     f = lambda shape, dt=torch.float32: torch.tensor(  # noqa: E731
         rng.random(shape), dtype=dt, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        softsplat.splat_fused(f((1, 4, 4, 3)), f((1, 4, 4, 2)),
-                              f((1, 4, 4, 1)), True,
-                              scatter_dtype=torch.float16)
+    ins = [f((1, 4, 4, 3)), f((1, 4, 4, 2)), f((1, 4, 4, 1))]
+    out = softsplat.splat_fused(*ins, True, scatter_dtype=torch.float16)
+    (out[0].sum() + out[1].sum()).backward()
+    assert all(t.grad is not None and t.grad.dtype == torch.float32
+               for t in ins)
     bf = torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dcn.dcn_im2col(f((1, 4, 4, 8), bf), f((1, 4, 4, 36), bf),
-                       f((1, 4, 4, 18), bf), 3, 1, 1, 1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        siren_kernel.siren_mlp(f((5, 3), bf), [f((4, 3), bf)], [f((4,), bf)])
+    ins = [f((1, 4, 4, 8), bf), f((1, 4, 4, 36), bf), f((1, 4, 4, 18), bf)]
+    dcn.dcn_im2col(*ins, 3, 1, 1, 1, 2).sum().backward()
+    assert all(t.grad.dtype == bf and t.grad.shape == t.shape for t in ins)
+    ins = [f((5, 3), bf), f((4, 3), bf), f((4,), bf)]
+    siren_kernel.siren_mlp(ins[0], [ins[1]], [ins[2]]).sum().backward()
+    assert all(t.grad.dtype == bf for t in ins)
     conv = Conv2d(3, 4, 3, 1, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cast_param(conv, "weight", bf)
+    cast = cast_param(conv, "weight", bf)
+    assert cast.dtype == bf and cast.requires_grad
+    cast.float().sum().backward()
+    assert torch.equal(conv.weight.grad, torch.ones_like(conv.weight))
     with torch.no_grad():                       # serving casts as before
-        assert cast_param(conv, "weight", bf).dtype == bf
-    m = MoTIF(8, 1, 1, compute_dtype="bfloat16")
-    x = torch.rand(1, 4, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(x, torch.rand(1, 2), (64, 64), iters=1)
+        kept = cast_param(conv, "weight", bf)
+        assert kept.dtype == bf and kept is cast_param(conv, "weight", bf)
+    m = MoTIF(8, 1, 1, compute_dtype="bfloat16", splat_dtype="float16")
+    frames, _, _ = m(torch.rand(1, 4, 16, 16, 3), torch.rand(1, 2), (64, 64),
+                     iters=1)
+    frames.sum().backward()
+    assert m.synth_net.net[0].linear.weight.grad.dtype == torch.float32
+    assert float(m.encoder.conv_first.weight.grad.abs().max()) > 0
+
+
+def _fused_grads(fused, params_from=None):
+    torch.manual_seed(3)
+    m = MoTIF(16, 1, 2, fused_decode=fused).double()
+    if params_from is not None:
+        m.load_state_dict(params_from)
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.random((1, 4, 16, 16, 3)))
+    tt = torch.tensor([[0.2, 0.8]], dtype=torch.float64)
+    gt = torch.tensor(rng.random((1, 2, 64, 64, 3)))
+    frames, _, _ = m(x, tt, (64, 64), iters=2)
+    ((frames.transpose(0, 1) - gt) ** 2).sum().backward()
+    return m, {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+               for k, p in m.named_parameters()}
+
+
+def test_fused_decode_gradient_matches_the_reference_order():
+    """tests/test_bf16.py:82-112 on the port: the gradient of a squared
+    error through the fused decode (the SIRENs' first layers read through
+    `first_linear`, the synthesis net's folded through the splat) against
+    the reference order's, same parameters, in float64: per module the
+    largest difference within 5e-3 of the largest gradient, and every
+    module reached alike."""
+    ref, g0 = _fused_grads(False)
+    _, g1 = _fused_grads(True, ref.state_dict())
+    for key in ("synth_net", "imnet", "flow_imnet", "encoder"):
+        a = torch.cat([g.reshape(-1) for k, g in g0.items()
+                       if k.startswith(key + ".")])
+        b = torch.cat([g.reshape(-1) for k, g in g1.items()
+                       if k.startswith(key + ".")])
+        scale = float(a.abs().max())
+        assert scale > 0, key
+        assert float((a - b).abs().max()) / scale < 5e-3, key
+    assert all((float(g0[k].abs().max()) > 0) == (float(g.abs().max()) > 0)
+               for k, g in g1.items())
 
 
 def test_float32_entries_keep_their_no_grad_path(rng):
