@@ -142,7 +142,22 @@ Phases, each fatal on failure:
      same step alone, bit for bit, and two gloo ranks on the one card,
      each on half of the global batch of 24, against the one-process step
      (DP_GATE), both on the plain versions under deterministic
-     algorithms.
+     algorithms;
+ 12. the last entry points and what no yml reaches (before phase 6's
+     lines): `python -m motif_tpu_torch.demo` on 4 frames from --seed at
+     Vid4's LR size 180x144, x4 space, x8 time (3 pairs, 24 HR frames of
+     576x720) counted alone, its one captured graph (1 capture, the
+     pool's bytes), pair 0 replayed against eager at request (a)'s gate
+     and against the plain versions, timed, the splat on the demo's own
+     inputs and the STINF at its 6,635,520 tokens; the MoTIF fields
+     (groups=2, trans, res_liff, local_ensemble, siren=False) each on a
+     request at bench.py's shape, counted, against its plain versions,
+     replayed and timed, and the groups=2 splat (the generic width) on
+     its own inputs; generate, flow and test_tmp over test.yml on one
+     data/Vid4 clip, counted (their PNGs, .flo files read back, the
+     summary); the native host core built, and the `_a` collate at batch
+     24 with it and with numpy (COLLATE_GATE); PWCNet and PWCNetLight on
+     a seeded 448x256 pair against the CPU in float32 (PWC_RTOL).
 Every request goes through Evaluator.infer, which on CUDA replays one
 captured CUDA graph per shape bucket: each request of phases 4, 8 and 9 is
 also held, replayed, against the same request run eagerly (`_infer_eager`,
@@ -1062,7 +1077,8 @@ def hold_against(name, frames, ref, tol, min_psnr=None):
                              f"{err} (tol {tol}), {db} dB (min {min_psnr})")
 
 
-def slice_vs_plain(ev, model, lq, times, name, tol, stats_rtol, mods):
+def slice_vs_plain(ev, model, lq, times, name, tol, stats_rtol, mods,
+                   out_hw=(256, 448)):
     """One request against the same forward with the plain versions, both
     run eagerly: the frames, the synthesis output before the clip (most
     frames clip with random weights; every forward of the request) and the
@@ -1071,10 +1087,10 @@ def slice_vs_plain(ev, model, lq, times, name, tol, stats_rtol, mods):
     pre_clip = []
     hook = model.synth_net.register_forward_hook(
         lambda mod, inp, out: pre_clip.append(out.double().cpu()))
-    f_k, stats_k = eager(ev)(lq, times, (256, 448))   # kernels, hooked
+    f_k, stats_k = eager(ev)(lq, times, out_hw)   # kernels, hooked
     with plain_versions(softsplat, dcn, siren_kernel):
         kernels.reset_launches()
-        f_plain, stats_plain = eager(ev)(lq, times, (256, 448))
+        f_plain, stats_plain = eager(ev)(lq, times, out_hw)
         if any(kernels.LAUNCHES.values()):
             raise AssertionError("the plain forward launched a kernel")
     hook.remove()
@@ -1099,7 +1115,7 @@ def slice_vs_plain(ev, model, lq, times, name, tol, stats_rtol, mods):
             f"{stats_rtol})")
 
 
-def capture_splat(ev, softsplat, lq, times):
+def capture_splat(ev, softsplat, lq, times, out_hw=(256, 448)):
     """The splat's inputs on one request."""
     captured = []
     splat = softsplat.splat_fused
@@ -1109,7 +1125,7 @@ def capture_splat(ev, softsplat, lq, times):
                          scatter_dtype))
         return splat(img, flow, z, z_nonpositive, scatter_dtype)
     with mock.patch.object(softsplat, "splat_fused", spy):
-        eager(ev)(lq, times, (256, 448))
+        eager(ev)(lq, times, out_hw)
     return captured[0]
 
 
@@ -3619,6 +3635,394 @@ def compare_only(dev, card, out_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the last entry points (demo, generate, flow, test_tmp), the
+# MoTIF fields, the native host core and PWC-Net
+# ---------------------------------------------------------------------------
+
+DEMO_LR = (144, 180)          # Vid4 calendar's LR (its HR is 720x576)
+DEMO_FRAMES, DEMO_SPACE, DEMO_TIME = 4, 4, 8
+# one request each at bench.py's shape, the same weights per field
+FIELD_REQUESTS = {"groups2": dict(groups=2), "trans": dict(trans=True),
+                  "res_liff": dict(res_liff=True),
+                  "local_ensemble": dict(local_ensemble=True),
+                  "conv_synth": dict(siren=False)}
+# the demo's STINF: 67 -> 64 -> 64 -> 256 -> 3 over 2 directions x 8 times
+# x 576 x 720 tokens of one pair
+STINF_DEMO = {"stinf_demo": (67, [64, 64, 256], 3, 2 * 8 * 576 * 720)}
+COLLATE_GATE = 2e-5           # the native resize against the numpy one
+COLLATE_CROPS = (128, 144, 240)
+PWC_RTOL = 1e-4               # the card's float32 flow against the CPU's,
+                              # relative to the largest |flow|
+
+
+def field_entries(name: str, model, siren_kernel) -> dict:
+    """What a field's request launches (3 times in one forward): one splat
+    (at the generic width for groups=2), 42 DCNs, and the float32 SIREN
+    launches of the MLPs it runs (`segments` of each: STINF and SINF, four
+    times each under the local ensemble; res_liff's residual SIREN; the
+    synthesis net unless it is the conv stack; at width 64 res_liff's 262
+    inputs cut the synthesis net into two launches)."""
+    from motif_tpu_torch.models.siren import Siren
+
+    def launches(net):
+        ws = [m.weight for m in net._linears()]
+        return len(siren_kernel.segments([ws[0].shape[1]]
+                                         + [w.shape[0] for w in ws]))
+    sirens = (4 if model.local_ensemble else 1) * (
+        launches(model.flow_imnet) + launches(model.imnet))
+    if model.res_liff:
+        sirens += launches(model.res_imnet)
+    if isinstance(model.synth_net, Siren):
+        sirens += launches(model.synth_net)
+    splat = ("splat_fused/float32/generic" if name == "groups2"
+             else "splat_fused/float32/C=130")
+    return {splat: 1, "dcn_im2col/float32": 42,
+            "siren_mlp/float32/whole": sirens}
+
+
+def demo_frames(folder: str, seed: int) -> None:
+    """DEMO_FRAMES frames of DEMO_LR from `seed`: a smooth texture (a
+    random image 4x upsampled by MATLAB bicubic) moving 2 px down and 3
+    px right a frame, written as PNGs."""
+    from motif_tpu_torch.ops.resize import imresize_matlab_np
+    from motif_tpu_torch.utils.video import save_img
+
+    h, w = DEMO_LR
+    small = np.random.default_rng(seed).random(
+        ((h + 2 * DEMO_FRAMES) // 4 + 2, (w + 3 * DEMO_FRAMES) // 4 + 2, 3))
+    big = np.clip(imresize_matlab_np(small * 255, 4) / 255, 0, 1)
+    os.makedirs(folder, exist_ok=True)
+    for k in range(DEMO_FRAMES):
+        save_img(big[2 * k:2 * k + h, 3 * k:3 * k + w],
+                 os.path.join(folder, f"{k:05d}.png"))
+
+
+def run_demo(dev, card, args, mods, tmp):
+    """`python -m motif_tpu_torch.demo` at Vid4's LR size, x4 space, x8
+    time (3 pairs, 24 HR frames of 576x720) with the launches counted
+    around it; then its one bucket: the captures (must be 1), the pool's
+    bytes, pair 0 replayed against eager at request (a)'s gate and timed
+    in turns (`replay`), eager against the plain versions, and the splat
+    on the demo's own inputs. Returns (entries, splat row)."""
+    from motif_tpu_torch import demo
+    from motif_tpu_torch import eval as eval_mod
+    from motif_tpu_torch.utils.video import read_seq_imgs
+
+    softsplat, dcn, siren_kernel, kernels = mods
+    frames_dir = os.path.join(tmp, "demo_in")
+    out_dir = os.path.join(tmp, "demo_out")
+    demo_frames(frames_dir, args.seed)
+    made = []
+
+    class Recorded(eval_mod.Evaluator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    with mock.patch.object(eval_mod, "Evaluator", Recorded):
+        res = demo.main(["--frames_dir", frames_dir, "--out_dir", out_dir,
+                         "--space_scale", str(DEMO_SPACE), "--time_scale",
+                         str(DEMO_TIME)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    entries = dict(kernels.ENTRY_LAUNCHES)
+    ev = made[0]
+    pairs = DEMO_FRAMES - 1
+    want = {"dcn_im2col/float32": 42 * pairs,
+            "siren_mlp/float32/whole": 3 * pairs,
+            "splat_fused/float32/C=130": pairs}
+    hh, ww = DEMO_LR[0] * DEMO_SPACE, DEMO_LR[1] * DEMO_SPACE
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    line = {"phase": "demo", "card": card, "pairs": res["pairs"],
+            "hr_frames": res["frames"], "out_hw": list(res["out_hw"]),
+            "pngs": len(pngs), "captures": res["captures"],
+            "launches": entries, "launches_per_pair": {
+                k: v / pairs for k, v in entries.items()},
+            "pool_bytes": pool_bytes(ev), "buckets": len(ev._buckets),
+            "pair_seconds": res["pair_seconds"], "seconds": seconds,
+            "note": "first pair: eager warm-up + capture; the others replay"}
+    emit(line)
+    if not (res["captures"] == 1 and len(ev._buckets) == 1
+            and entries == want and res["frames"] == pairs * DEMO_TIME
+            and len(pngs) == res["frames"]
+            and tuple(res["out_hw"]) == (hh, ww)):
+        raise AssertionError(f"demo: {line} (launches wanted {want})")
+
+    f = read_seq_imgs(frames_dir)
+    x0 = np.stack([f[0], f[0], f[1], f[1]], 0)[None]
+    times = np.asarray([[i / DEMO_TIME for i in range(DEMO_TIME)]],
+                       np.float32)
+    got, _ = ev.infer(x0, times, (hh, ww))
+    check_frames("demo", got, (DEMO_TIME, 1, hh, ww, 3))
+    if ev.captures != 1:
+        raise AssertionError(f"demo: {ev.captures} captures")
+    r = hold_replay(ev, x0, times, "demo", 1e-5, 1e-5, card, (hh, ww), n=2)
+    ms = r["captured_ms_median"]
+    emit({"phase": "demo_time", "card": card, "pair_ms_captured": ms,
+          "pair_ms_eager": r["eager_ms_median"],
+          "hr_frames_per_s": DEMO_TIME * 1e3 / ms,
+          "eager_hr_frames_per_s": DEMO_TIME * 1e3 / r["eager_ms_median"],
+          "device_busy_share": r["device_busy_share"],
+          "pool_bytes": r["pool_bytes"], "captures": ev.captures,
+          "note": "one pair [f0, f0, f1, f1] -> 8 times at 576x720, iters "
+                  "4, TF32 off; Evaluator.infer wall ms incl. the copy-out"})
+    slice_vs_plain(ev, ev.model, x0, times, "demo", 1e-5, 1e-5, mods,
+                   (hh, ww))
+    inputs = capture_splat(ev, softsplat, x0, times, (hh, ww))
+    del ev, made
+    torch.cuda.empty_cache()
+    row = check_splat_request(softsplat, kernels, inputs, "demo")
+    img, flow, z, nonpos, sdt = inputs
+    row["plain_ms"] = device_ms(lambda: softsplat.splat_fused_plain(
+        img, flow, z, nonpos, scatter_dtype=sdt), reps=2)
+    row["shape"] = list(img.shape)
+    del inputs, img, flow, z
+    torch.cuda.empty_cache()
+    return entries, row
+
+
+def run_field_requests(dev, card, mods):
+    """The MoTIF fields (FIELD_REQUESTS) at full width on a request at
+    bench.py's shape (LQ 64x112 -> 256x448, 3 times, iters 4): each
+    counted alone (`field_entries`), against its plain versions (1e-5),
+    replayed against eager and timed; the groups=2 splat (B·N·G = 12
+    rows, C = 66: the generic width) on its own inputs. Returns the
+    entries per field and that splat's row."""
+    from motif_tpu_torch.eval import Evaluator
+    from motif_tpu_torch.models.motif import build_motif
+
+    softsplat, dcn, siren_kernel, kernels = mods
+    lq = np.random.default_rng(0).random((1, 4, 64, 112, 3), dtype=np.float32)
+    t3 = np.linspace(0, 1, 3, dtype=np.float32)[None]
+    entries, row = {}, None
+    for name, fields in FIELD_REQUESTS.items():
+        t0 = time.perf_counter()
+        model = build_motif(channel=64, front_rbs=5, back_rbs=40, device=dev,
+                            seed=0, fields=fields)
+        perturb_offsets(model, seed=1)
+        ev = Evaluator(model, scale=4, iters=4, chunk=3, device=dev)
+        kernels.reset_launches()
+        frames, _ = ev.infer(lq, t3, (256, 448))
+        entries[name] = dict(kernels.ENTRY_LAUNCHES)
+        check_frames(name, frames, (3, 1, 256, 448, 3))
+        want = field_entries(name, model, siren_kernel)
+        if entries[name] != want:
+            raise AssertionError(f"request ({name}) launched {entries[name]}"
+                                 f" (wanted {want})")
+        slice_vs_plain(ev, model, lq, t3, name, 1e-5, 1e-5, mods)
+        if name == "groups2":
+            inputs = capture_splat(ev, softsplat, lq, t3)
+            row = check_splat_request(softsplat, kernels, inputs, name)
+            img, flow, z, nonpos, sdt = inputs
+            row["plain_ms"] = device_ms(lambda: softsplat.splat_fused_plain(
+                img, flow, z, nonpos, scatter_dtype=sdt), reps=3)
+            row["shape"] = list(img.shape)
+            del inputs, img, flow, z
+        r = hold_replay(ev, lq, t3, name, 1e-5, 1e-5, card, n=2)
+        ms = r["captured_ms_median"]
+        emit({"phase": f"request_{name}_time", "card": card,
+              "forward_ms_median": ms, "hr_frames_per_s": 3e3 / ms,
+              "eager_ms_median": r["eager_ms_median"],
+              "fields": fields, "launches_per_request": entries[name],
+              "device_busy_share": r["device_busy_share"],
+              "pool_bytes": r["pool_bytes"],
+              "seconds": time.perf_counter() - t0,
+              "note": "Evaluator.infer wall time incl. host copy-out, TF32 "
+                      "off, iters 4, LQ 4x64x112 -> HR 256x448, 3 times; "
+                      "captured and eager in turns (`replay`)"})
+        del model, ev
+        torch.cuda.empty_cache()
+    return entries, row
+
+
+def run_entry_clis(card, mods, tmp):
+    """generate, flow and test_tmp (`--max_clips 1`) over test.yml on
+    data/Vid4 (its dataroots made absolute, run in `tmp`), each with the
+    launches counted around it: generate's PNGs (out, GT, diff per time),
+    flow's .flo files read back (finite, the HR size) beside their
+    pictures, test_tmp's summary (finite). Returns the entries per CLI."""
+    from motif_tpu_torch import flow, generate, test_tmp
+    from motif_tpu_torch.utils.flow_io import read_flow
+
+    kernels = mods[3]
+    with open(os.path.join(ROOT, "test.yml")) as f:
+        text = f.read()
+    yml = os.path.join(tmp, "test_abs.yml")
+    with open(yml, "w") as f:
+        f.write(text.replace("./data/Vid4/", VID4 + "/"))
+    entries, cwd = {}, os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        clips = generate.main(["-opt", yml, "--out_dir", "gen"])
+        entries["generate"] = dict(kernels.ENTRY_LAUNCHES)
+        pngs = os.listdir("gen")
+        n_t = len(pngs) // 3
+        emit({"phase": "generate_cli", "card": card, "clips": clips,
+              "pngs": len(pngs), "launches": entries["generate"],
+              "seconds": time.perf_counter() - t0})
+        if clips != 1 or n_t < 1 or len(pngs) != 3 * n_t:
+            raise AssertionError(f"generate: {clips} clips, {pngs}")
+
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        means = flow.main(["-opt", yml, "--out_dir", "fl", "--max_clips",
+                           "1"])
+        entries["flow"] = dict(kernels.ENTRY_LAUNCHES)
+        flos = sorted(f for f in os.listdir("fl") if f.endswith(".flo"))
+        fields = [read_flow(os.path.join("fl", f)) for f in flos]
+        n_png = sum(f.endswith(".png") for f in os.listdir("fl"))
+        emit({"phase": "flow_cli", "card": card, "flo_files": len(flos),
+              "pngs": n_png, "shape": list(fields[0].shape),
+              "flow_abs_mean": means, "launches": entries["flow"],
+              "seconds": time.perf_counter() - t0})
+        if not (flos and n_png == len(flos)
+                and all(np.isfinite(x).all() and x.shape[2] == 2
+                        and x.shape[0] % 4 == 0 for x in fields)):
+            raise AssertionError(f"flow: {len(flos)} .flo, {n_png} PNGs")
+
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        res = test_tmp.main(["-opt", yml, "--max_clips", "1",
+                             "--t_scales", "6"])
+        entries["test_tmp"] = dict(kernels.ENTRY_LAUNCHES)
+        (key, summary), = res.items()
+        emit({"phase": "test_tmp_cli", "card": card, "sweep": list(key),
+              "summary": summary, "launches": entries["test_tmp"],
+              "seconds": time.perf_counter() - t0})
+        if not np.isfinite(summary["psnr"]):
+            raise AssertionError(f"test_tmp: {summary}")
+    finally:
+        os.chdir(cwd)
+    for cli, e in entries.items():
+        if not all(e.get(k, 0) > 0 for k in ("dcn_im2col/float32",
+                                             "siren_mlp/float32/whole")) \
+                or not any(k.startswith("splat_fused") for k in e) \
+                or e["dcn_im2col/float32"] % 42:
+            raise AssertionError(f"{cli}: launched {e}")
+    return entries
+
+
+def run_native(card, mods):
+    """The native host core: built (g++ -fopenmp) or the phase fails; the
+    arbitrary-scale collate at the `_a` recipes' batch (24 items of 4 LQ
+    and 5 GT frames at the smoke trees' size, LQ_size 64) per crop in
+    COLLATE_CROPS, timed with the core and with the numpy resize on the
+    same draws, and their outputs compared (COLLATE_GATE)."""
+    from motif_tpu_torch import native
+    from motif_tpu_torch.data import pipeline
+
+    t0 = time.perf_counter()
+    built = native.available()
+    emit({"phase": "native_core", "card": card, "built": built,
+          "threads": native.num_threads(),
+          "seconds": time.perf_counter() - t0,
+          "log_tail": native.BUILD_LOG[-400:]})
+    if not built:
+        raise AssertionError(f"the native core was not built: "
+                             f"{native.BUILD_LOG[-2000:]}")
+    rng = np.random.default_rng(5)
+    h, w = TREE_HW
+    items = [{"lq_raw": [rng.random((h, w, 3), dtype=np.float32)
+                         for _ in range(4)],
+              "gt_raw": [rng.random((h, w, 3), dtype=np.float32)
+                         for _ in range(5)],
+              "times": rng.random(3).astype(np.float32)} for _ in range(24)]
+    for crop in COLLATE_CROPS:
+        def collate():
+            return pipeline.collate_adobe_arbitrary(
+                items, RECIPE_LQ_SIZE,
+                PinnedScale(crop, [crop], RECIPE_LQ_SIZE))
+        core = collate()
+        ts_core = []
+        for _ in range(3):
+            t = time.perf_counter()
+            collate()
+            ts_core.append((time.perf_counter() - t) * 1e3)
+        with mock.patch.object(native, "_load", lambda: None):
+            plain = collate()
+            ts_np = []
+            for _ in range(2):
+                t = time.perf_counter()
+                collate()
+                ts_np.append((time.perf_counter() - t) * 1e3)
+        err = max(float(np.abs(core[k] - plain[k]).max())
+                  for k in ("lq", "gt"))
+        same = core["out_hw"] == plain["out_hw"] and np.array_equal(
+            core["times"], plain["times"])
+        emit({"phase": "native_collate", "card": card, "crop": crop,
+              "batch": len(items), "out_hw": list(core["out_hw"]),
+              "collate_ms_native": float(np.median(ts_core)),
+              "collate_ms_numpy": float(np.median(ts_np)),
+              "native_ms": ts_core, "numpy_ms": ts_np,
+              "max_abs_err_vs_numpy": err, "tol": COLLATE_GATE,
+              "threads": native.num_threads(),
+              "note": "host ms on the loader's thread, one call a batch"})
+        if not (same and err <= COLLATE_GATE):
+            raise AssertionError(f"native collate at crop {crop}: {err} "
+                                 f"(tol {COLLATE_GATE}), draws equal {same}")
+
+
+def run_pwcnet(dev, card):
+    """PWCNet and PWCNetLight (seed 0) on a seeded 448x256 pair on the card
+    in float32, against the same call on the CPU in float32 (PWC_RTOL of
+    the largest |flow|), timed."""
+    import copy
+
+    from motif_tpu_torch.models import pwcnet
+
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.random((1, 256, 448, 3), dtype=np.float32))
+    b = torch.from_numpy(np.roll(a.numpy(), (2, 3), (1, 2)) * 0.9 + 0.05)
+    for name in ("PWCNet", "PWCNetLight"):
+        torch.manual_seed(0)
+        cpu = getattr(pwcnet, name)().eval()
+        with torch.no_grad():
+            t = time.perf_counter()
+            want = cpu(a, b)
+            cpu_s = time.perf_counter() - t
+            m = copy.deepcopy(cpu).to(dev)
+            ad, bd = a.to(dev), b.to(dev)
+            got = m(ad, bd)
+            ms = cuda_ms(lambda: m(ad, bd), reps=5, warmup=1)
+        err = max_err(got.cpu(), want)
+        scale = float(want.abs().max())
+        emit({"phase": "pwcnet", "card": card, "model": name,
+              "shape": list(got.shape), "ms": ms, "cpu_seconds": cpu_s,
+              "max_abs_err_vs_cpu": err, "flow_abs_max": scale,
+              "rtol": PWC_RTOL})
+        if not (tuple(got.shape) == (1, 64, 112, 2)
+                and torch.isfinite(got).all() and err <= PWC_RTOL * scale):
+            raise AssertionError(f"{name}: {tuple(got.shape)}, err {err} "
+                                 f"(max |flow| {scale})")
+        del m, got
+
+
+def run_phase12(dev, card, args, mods, Siren):
+    """Phase 12. Returns what the kernels line needs: the launches per
+    entry of the demo, of each field's request and of each CLI, and rows
+    for the entries at the new shapes (the demo's splat and STINF, the
+    groups=2 splat)."""
+    t0 = time.perf_counter()
+    softsplat, dcn, siren_kernel, kernels = mods
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        demo_entries, demo_splat = run_demo(dev, card, args, mods, tmp)
+        stinf = check_siren(dev, siren_kernel, Siren, kernels,
+                            mlps=STINF_DEMO)
+        torch.cuda.empty_cache()
+        field_e, groups_splat = run_field_requests(dev, card, mods)
+        cli_e = run_entry_clis(card, mods, tmp)
+    run_native(card, mods)
+    run_pwcnet(dev, card)
+    emit({"phase": "phase12", "seconds": time.perf_counter() - t0})
+    return {"demo": demo_entries, "fields": field_e, "clis": cli_e,
+            "demo_splat": demo_splat, "demo_stinf": stinf,
+            "groups_splat": groups_splat}
+
+
+# ---------------------------------------------------------------------------
 
 def card_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
@@ -3710,6 +4114,7 @@ def main() -> int:
          recipe_lines) = run_recipe_phase(dev, card, args, mods, Siren, tmp)
         liif_steps, liif_row, bf16_steps, bf16_rows = run_phase11(
             dev, card, mods, Siren, tmp, trees, recipe_lines)
+    p12 = run_phase12(dev, card, args, mods, Siren)
 
     meta = {
         "splat_fused": ("motif_tpu_torch/csrc/splat_fused.cu",
@@ -3760,6 +4165,11 @@ def main() -> int:
             y: e.get(entry, 0) for y, e in recipes.items()}
         row["launches_setting_requests"] = {
             k: e.get(entry, 0) for k, e in setting_requests.items()}
+        row["launches_demo"] = p12["demo"].get(entry, 0)
+        row["launches_fields"] = {f: e.get(entry, 0)
+                                  for f, e in p12["fields"].items()}
+        row["launches_entry_clis"] = {c: e.get(entry, 0)
+                                      for c, e in p12["clis"].items()}
         if "device_kernels_per_call" in r:
             row["device_kernels_per_call"] = r["device_kernels_per_call"]
         if name in also:
@@ -3857,6 +4267,31 @@ def main() -> int:
                                  "eager_ms", "backward_ms", "grad_rel_err")},
             "shape": shapes[entry],
             "backward": "plain PyTorch in the working type (new: trains)"})
+    # phase 12's entries at new shapes: the float32 splat on the demo's
+    # pair (16 images of 576x720, C = 130) and on the groups=2 request (12
+    # images of 256x448 at the generic width C = 66), each on its request's
+    # own inputs; the demo's STINF at a pair's tokens (the launches: every
+    # float32 SIREN of the demo's 3 pairs)
+    src, replaces = meta["splat_fused"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "eager_ms")
+    for name, r, launches in (
+            ("float32/C=130/demo", p12["demo_splat"],
+             p12["demo"]["splat_fused/float32/C=130"]),
+            ("float32/generic/groups2", p12["groups_splat"],
+             p12["fields"]["groups2"]["splat_fused/float32/generic"])):
+        rows.append({"name": f"splat_fused[{name}]", "kernel": "splat_fused",
+                     "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": launches, **{k: r[k] for k in keys},
+                     "shape": "x".join(map(str, r["shape"]))})
+    src, replaces = meta["siren_mlp"]
+    rows.append({
+        "name": "siren_mlp[float32/whole/demo STINF]", "kernel": "siren_mlp",
+        "route": "cuda", "source": src, "replaces": replaces,
+        "launches": p12["demo"]["siren_mlp/float32/whole"],
+        **{k: p12["demo_stinf"][k] for k in keys},
+        "shape": "STINF 67->64->64->256->3, 6,635,520 tokens (one demo "
+                 "pair: 2 directions x 8 times x 576x720)"})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

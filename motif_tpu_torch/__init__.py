@@ -1,7 +1,8 @@
 """motif_tpu_torch — MoTIF (the two-anchor Ours and the four-anchor
 Ours_44 / Ours_4) in PyTorch, served, evaluated and trained, and the
 baselines it is compared against (VideoINR, ZSM, TMNet, EDVR, Super-SloMo)
-served and evaluated, with hand-written CUDA kernels for Hopper (sm_90a).
+served and evaluated, PWC-Net, with hand-written CUDA kernels for Hopper
+(sm_90a) and a native C++ host core for the data pipeline (`native`).
 
 It mirrors `motif_tpu`'s module layout (`models/`, `ops/`, `data/`,
 `checkpoint.py`, `eval.py`, `trainer.py`) and is held against that package
@@ -10,8 +11,9 @@ keep `motif_tpu`'s NHWC layout; convolutions run NCHW views of the same
 memory (channels_last).
 
 Entry points (`models.motif.build_motif`, `eval.Evaluator`, the CLIs
-`test`, `train` and `precompute_flows`) run on CUDA unless the caller
-passes ``device="cpu"``; without CUDA they raise. On CPU
+`test`, `train`, `precompute_flows`, `demo`, `generate`, `flow` and
+`test_tmp`) run on CUDA unless the caller passes ``device="cpu"``;
+without CUDA they raise. On CPU
 tensors each kernel wrapper runs its plain PyTorch version; on CUDA tensors
 it launches its kernel or raises.
 """

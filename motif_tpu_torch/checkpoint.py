@@ -7,7 +7,8 @@ ModuleList indices merged into the preceding name ("net.0.linear" →
 ("L1_dcnpack_1" is an attribute, "flow_process_1" an index), so the bridge
 walks the port's own keys and maps each to its flax path:
 
-  * conv kernels HWIO → OIHW, linear kernels IO → OI;
+  * conv kernels HWIO → OIHW (PWC-Net's transposed convs → (in, out, kh,
+    kw)), linear kernels IO → OI;
   * EDVR's ModuleDict level keys merge like indices ("offset_conv1.l3" →
     "offset_conv1_l3");
   * the scanned `feature_extraction` / `recon_trunk` / `reconstruction`
@@ -73,8 +74,15 @@ def _lookup(params: Mapping, path: tuple) -> np.ndarray:
     return np.asarray(node)
 
 
+# the reference's transposed convs (PWC-Net's up-samplers), whose torch
+# weights are (in, out, kh, kw)
+TRANSPOSED_CONV_NAMES = ("moduleUpflow", "moduleUpfeat")
+
+
 def _to_torch_layout(path: tuple, a: np.ndarray) -> np.ndarray:
     if path[-1] == "kernel":
+        if a.ndim == 4 and any(n in path for n in TRANSPOSED_CONV_NAMES):
+            return np.transpose(a, (2, 3, 0, 1))   # HWIO → (in, out, kh, kw)
         if a.ndim == 4:      # conv HWIO → OIHW
             return np.transpose(a, (3, 2, 0, 1))
         if a.ndim == 2:      # linear IO → OI

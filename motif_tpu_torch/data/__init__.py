@@ -1,5 +1,6 @@
 """The port's data: the reference test datasets, the training sets (Vimeo
-septuplets, Adobe240 fixed and arbitrary scale, Vimeo arbitrary scale),
+septuplets, from frame folders or LMDB packs, Adobe240 fixed and
+arbitrary scale, Vimeo arbitrary scale),
 the arbitrary-scale collate, the threaded batch loader, a process's shard
 of a data-parallel run and the copy to the card."""
 

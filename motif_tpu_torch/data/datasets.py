@@ -7,7 +7,9 @@ where gt[0] / gt[-1] are the two anchor frames (the duplicated endpoints of
 the reference's gt_sampled_idx).
 
 Frames are decoded by cv2 (imported on first use, as in the JAX package),
-and the conversion to float is the JAX package's, bit for bit (`read_img`).
+and converted to float by the native core (`native.u8bgr_to_f32rgb`, its
+numpy version without a compiler), as the JAX package converts them
+(`read_img`).
 
 Windows follow Adobe_test* / Gopro_test (Adobe_test_3.py:88-109):
   inputs = frames[i : i + (1+interval)*(ref_num-1) + 1 : 1+interval]
@@ -27,7 +29,9 @@ draws, in the same order, so that both give the same items:
   * `Adobe_a` / `vimeo_a` (Adobe_arbitrary.py, Vimeo_dataset_arbitrary.py):
     the sampled times; the raw frames go to the batch collate
     (`pipeline.collate_adobe_arbitrary`), which draws the scale and crop.
-The LMDB packs (ROADMAP.md §A.9) are not ported.
+With `data_type: lmdb` the Vimeo septuplets are read from LMDB packs
+(`lmdb_io.LmdbFrameSource`, keys '{a}_{b}_{frame}'), as the JAX package
+reads them; the flow arrays stay files beside the pack.
 """
 
 from __future__ import annotations
@@ -49,12 +53,6 @@ GOPRO_VIDEOS = [  # Gopro_test.py:89-93
     "GOPR0410_11_00", "GOPR0854_11_00", "GOPR0862_11_00", "GOPR0868_11_00",
     "GOPR0869_11_00", "GOPR0871_11_00", "GOPR0881_11_01",
 ]
-# the JAX package's native core converts uint8 with `s * (1.0f / 255.0f)`
-# (a float32 multiply), which differs from `s / 255` by one float32 ulp for
-# about half of the byte values
-_INV255 = np.float32(1 / 255)
-
-
 def read_img(path: str) -> np.ndarray:
     """A frame as RGB float32 [0, 1] HWC (data/util.py:59-83 and the
     [2, 1, 0] reindex): gray is repeated to three channels, alpha dropped."""
@@ -68,8 +66,9 @@ def read_img(path: str) -> np.ndarray:
     if img.shape[2] > 3:
         img = img[:, :, :3]
     if img.dtype == np.uint8:
-        return np.ascontiguousarray(img[:, :, ::-1]).astype(np.float32) \
-            * _INV255
+        from motif_tpu_torch import native
+
+        return native.u8bgr_to_f32rgb(img)
     return (img.astype(np.float32) / 255.0)[:, :, ::-1].copy()
 
 
@@ -196,8 +195,14 @@ class Vimeo7Dataset:
 
     def __post_init__(self):
         if self.data_type == "lmdb":
-            raise NotImplementedError(
-                "Vimeo7Dataset: LMDB packs are not ported (ROADMAP.md §A.9)")
+            from motif_tpu_torch.data.lmdb_io import LmdbFrameSource
+
+            self._gt_src = LmdbFrameSource(self.gt_root)
+            self._lq_src = LmdbFrameSource(self.lq_root)
+            if self.keys is None or self.keys == "sep_trainlist.txt":
+                # the pack's own catalogue: its 'a_b_frame' keys' clips
+                self.keys = sorted({"_".join(k.split("_")[:2])
+                                    for k in self._gt_src.keys})
         if isinstance(self.keys, str):
             if osp.exists(self.keys) or osp.isabs(self.keys):
                 path = self.keys
@@ -222,10 +227,16 @@ class Vimeo7Dataset:
             neighbor.reverse()
         gt_dir = osp.join(self.gt_root, name_a, name_b)
         lq_dir = osp.join(self.lq_root, name_a, name_b)
-        gts = [read_img(osp.join(gt_dir, f"im{v}.png"))
-               for v in [1] + neighbor + [7]]
-        lqs = [read_img(osp.join(lq_dir, f"im{neighbor[i]}.png"))
-               for i in self.lr_index_list]
+        if self.data_type == "lmdb":
+            gts = [self._gt_src.read(name_a, name_b, v)
+                   for v in [1] + neighbor + [7]]
+            lqs = [self._lq_src.read(name_a, name_b, neighbor[i])
+                   for i in self.lr_index_list]
+        else:
+            gts = [read_img(osp.join(gt_dir, f"im{v}.png"))
+                   for v in [1] + neighbor + [7]]
+            lqs = [read_img(osp.join(lq_dir, f"im{neighbor[i]}.png"))
+                   for i in self.lr_index_list]
         times = np.asarray([(v - 1) / 6.0 for v in neighbor], np.float32)
         if self.load_flows:
             # channel-first (K, 2, h, w) as the reference writes them

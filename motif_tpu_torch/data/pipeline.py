@@ -4,10 +4,11 @@
 ahead of the consumer, and an error raised while loading is raised again
 in the consumer; `device_prefetch` copies them to the card ahead of use.
 
-The arbitrary-scale collate resizes with the port's own MATLAB bicubic
-(`ops/resize.py::imresize_matlab_np`), image by image in numpy: the JAX
-package's numpy fallback bit for bit (its native C++ core differs from
-that fallback by up to 2e-5). `Subset` is one process's shard of a
+The arbitrary-scale collate resizes with the port's native C++ core
+(`native.matlab_resize_batch`, as the JAX package resizes with its own),
+or, where no compiler is found, with the numpy MATLAB bicubic
+(`ops/resize.py::imresize_matlab_np`) image by image: each is the JAX
+package's same path bit for bit (the two paths differ by up to 2e-5). `Subset` is one process's shard of a
 data-parallel run (`parallel.host_shard_indices`).
 """
 
@@ -22,7 +23,7 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-from motif_tpu_torch.ops.resize import imresize_matlab_np
+from motif_tpu_torch import native
 
 
 def collate_stack(items: list[dict]) -> dict:
@@ -67,10 +68,8 @@ def collate_adobe_arbitrary(items: list[dict], lq_size: int = 64,
                                     for f in it[key]], 0)
                           for it in items], 0) * 255.0
         B, n = stack.shape[:2]
-        flat = np.ascontiguousarray(stack.reshape(B * n, *stack.shape[2:]),
-                                    np.float32)
-        out = np.stack([imresize_matlab_np(im, scale) for im in flat],
-                       0) / 255.0
+        out = native.matlab_resize_batch(
+            stack.reshape(B * n, *stack.shape[2:]), scale) / 255.0
         return out.reshape(B, n, *out.shape[1:])
 
     lqs = resized("lq_raw", 1 / (2 * d_scale))

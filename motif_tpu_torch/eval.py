@@ -128,6 +128,7 @@ class Evaluator:
         self._buckets: dict = {}
         self._stamp = None
         self._pool = None
+        self.captures = 0      # CUDA graphs captured over the life
 
     def _forward(self, lq, times, out_hw):
         """One call of the model in its family's way: (frames (N, B, HH,
@@ -205,8 +206,10 @@ class Evaluator:
         request)."""
         lq_p, chunks, n, hw = self._plan(lq, times)
         bucket = self._bucket(lq_p.shape, chunks[0].shape, hw)
+        captured = bucket.graph is not None
         frames, stats = bucket.request(
             lambda a, t: self._forward(a, t, hw), lq_p, np.stack(chunks))
+        self.captures += bucket.graph is not None and not captured
         return (frames[:n, :, :out_hw[0], :out_hw[1]],
                 tuple(np.mean(stats.astype(np.float64), 0))
                 if stats is not None else None)

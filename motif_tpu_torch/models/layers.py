@@ -157,6 +157,33 @@ class Conv2d(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class ConvTranspose2d(nn.Module):
+    """torch nn.ConvTranspose2d on NHWC tensors (PWC-Net's up-samplers):
+    `weight` (in, out, kh, kw) as torch stores it, `bias` (out,), both
+    U(±1/sqrt(out · kh · kw)) (torch's default). Output size (H - 1) ·
+    stride - 2 · padding + kernel; the JAX package computes it as a conv
+    of the dilated input with the flipped HWIO kernel."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        k = kernel_size
+        self.weight = nn.Parameter(torch.empty(cin, cout, k, k))
+        self.bias = nn.Parameter(torch.empty(cout))
+        bound = 1.0 / math.sqrt(cout * k * k)
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound)
+            self.bias.uniform_(-bound, bound)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
+                               cast_param(self, "weight", x.dtype),
+                               cast_param(self, "bias", x.dtype),
+                               self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
 class ResidualBlockNoBN(nn.Module):
     """ResidualBlock_noBN: x + conv2(relu(conv1(x))), kaiming fan_in x 0.1
     init with zero bias."""

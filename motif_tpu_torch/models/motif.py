@@ -1,11 +1,14 @@
 """MoTIF continuous space-time video super-resolution — the counterpart of
-motif_tpu/models/motif.py::MoTIF at groups=1, for both anchor families:
+motif_tpu/models/motif.py::MoTIF, for both anchor families:
 n_anchors=2 (the reference `Ours`: the two center frames anchor the
 flows) and n_anchors=4 (`Ours_44` / `Ours_4`: all four input frames
 anchor them, at positions 0, 2, 4, 6 of 6, and the residual is the
 encoder output at round(t·6) per target time), at every `setting` of the
 reference (1-6: the properties `input_Z`, `predict_Z`, `decoder_Z`,
-`warp_to_many`), and the linear-motion fork `Ours_7` (`linear_motion`).
+`warp_to_many`), the linear-motion fork `Ours_7` (`linear_motion`), and
+the fields that no reference config turns on, each off by default as in
+the JAX package (`groups`, `trans`, `res_liff`, `local_ensemble`,
+`siren`).
 With no knob given it runs the reference float-op order in the input's
 dtype; the serving knobs of the JAX package (`fused_decode`,
 `compute_dtype`, `splat_dtype`, `raft_resolution`, `decode_chunks`) are
@@ -126,6 +129,28 @@ class MoTIF(nn.Module):
     raft_resolution: RAFT runs on the HR grid times this factor (a multiple
       of 8, at least 64), the flow rescaled per component.
     decode_chunks: the SIRENs decode the HR tokens in this many pieces.
+
+    The fields (Ours.py:449-453; every reference config keeps them off):
+
+    groups: G > 1 splits the splat into G channel groups: the STINF gives
+      (dx, dy, z) per group (3·G wide), each group splats its channel
+      slice of the SINF and LR features along its own flow (B·N·G rows,
+      the teacher flow repeated per group), and the groups' warped
+      channels and extras are laid back side by side for the synthesis
+      net (`merge_groups`). Not with fused_decode or warp_to_many (raises
+      NotImplementedError, as the JAX package does).
+    trans: the flow context of each directed pair [flow / 20 | psi | rsd
+      row] through ungrouped convs, and a softmax over the targets j of
+      a per-group weight (`weight_generator`) sums each source's pairs.
+    res_liff: a fourth SIREN (`res_imnet`) decodes the residual at HR; the
+      synthesis net takes it beside the raw residual.
+    local_ensemble: the LIIF query at four shifted cells, each decode
+      weighted by the area of the diagonally opposite cell.
+    siren=False: the synthesis net is a conv stack (3 convs, 5 lateral
+      blocks, a reflect-padded conv) in place of the SIREN.
+    Each of these (but groups=1, siren=True) turns fused_decode off, as in
+    the JAX package.
+
     Every knob trains, as the JAX package's autodiff does: under autograd
     the bfloat16 casts of the float32 parameters carry their gradients
     (`cast_param`), and each kernel entry's backward is its plain version
@@ -138,7 +163,9 @@ class MoTIF(nn.Module):
                  splat_dtype: str | None = None,
                  raft_resolution: float = 1.0, decode_chunks: int = 1,
                  n_anchors: int = 2, setting: int = 5,
-                 linear_motion: bool = False):
+                 linear_motion: bool = False, groups: int = 1,
+                 trans: bool = False, res_liff: bool = False,
+                 local_ensemble: bool = False, siren: bool = True):
         super().__init__()
         if n_anchors not in POSITIONS:
             raise ValueError(f"MoTIF: n_anchors={n_anchors}: 2 (Ours) or 4 "
@@ -148,22 +175,39 @@ class MoTIF(nn.Module):
         if linear_motion and (n_anchors != 2 or setting >= 6):
             raise ValueError("MoTIF: linear_motion is the two-anchor Ours_7, "
                              "which merges its directions (setting <= 5)")
+        fields = (groups != 1 or trans or res_liff or local_ensemble
+                  or not siren)
+        if linear_motion and fields:
+            raise ValueError("MoTIF: the linear-motion Ours_7 takes none of "
+                             "groups, trans, res_liff, local_ensemble, "
+                             "siren=False")
+        if groups < 1 or 64 % groups or channel % groups:
+            raise ValueError(f"MoTIF: groups={groups} must divide 64 and the "
+                             f"channel {channel}")
         self.n_anchors, self.positions = n_anchors, POSITIONS[n_anchors]
         self.setting, self.linear_motion = setting, linear_motion
+        self.groups, self.trans, self.res_liff = groups, trans, res_liff
+        self.local_ensemble, self.siren = local_ensemble, siren
         ch = self.channel = channel
-        n = self.n_anchors
+        n, G = self.n_anchors, groups
         k_e = 3 if self.decoder_Z else 2           # the extras' channels
-        synth_in = 66 + ch + k_e
-        synth_in = (n * synth_in if self.warp_to_many else synth_in) + ch + 1
+        res_w = ch + 64 if res_liff else ch        # the residual's
+        synth_in = 64 + 2 * G + ch + G * k_e
+        synth_in = (n * synth_in if self.warp_to_many else synth_in) \
+            + res_w + 1
         self.flow_predictor = RAFT()
         self.encoder = ZSMEncoder(ch, front_rbs, back_rbs)
+        k_in = 7 if self.input_Z else 4        # per target (pair, with trans)
+        head = ([Conv2d(k_in, ch // 2, 3, 1, 1), Conv2d(ch // 2, ch, 3, 1, 1)]
+                if trans else [Conv2d(n * k_in, ch, 3, 1, 1, groups=n),
+                               Conv2d(ch, ch, 3, 1, 1, groups=2)])
         self.flow_process = nn.Sequential(
-            Conv2d(n * (7 if self.input_Z else 4), ch, 3, 1, 1, groups=n),
-            Conv2d(ch, ch, 3, 1, 1, groups=2),
-            LReLU(),
-            *[LateralBlock(ch) for _ in range(5)],
-            LReLU(),
+            *head, LReLU(), *[LateralBlock(ch) for _ in range(5)], LReLU(),
             Conv2d(ch, ch, 3, 1, 1, padding_mode="reflect"))
+        if trans:
+            self.weight_generator = nn.Sequential(
+                LateralBlock(ch), LReLU(),
+                Conv2d(ch, G, 3, 1, 1, padding_mode="reflect"))
         # checkpointed; alpha scales z, the norms and shuffle are unused by
         # this forward (reference Ours.py)
         self.alpha = nn.Parameter(torch.full((1,), -20.0))
@@ -174,9 +218,21 @@ class MoTIF(nn.Module):
         # reference's 64 + 3) whatever the width, as the JAX package
         # builds it (motif.py:779-780)
         self.flow_imnet = Siren(67 if linear_motion else ch + 3,
-                                [64, 64, 256], 2, 3)
+                                [64, 64, 256], 2, 3 * G)
         self.imnet = Siren(ch + 2, [64, 64, 256], 2, 64)
-        self.synth_net = Siren(synth_in, [64, 64, 64, 256], 3, 3)
+        if res_liff:
+            self.res_imnet = Siren(ch + 2, [64, 64, 256], 2, 64)
+        if siren:
+            self.synth_net = Siren(synth_in, [64, 64, 64, 256], 3, 3)
+        else:                  # synth_net.0 ... .10, as the reference's
+            self.synth_net = nn.Sequential(
+                Conv2d(synth_in, 2 * ch, 3, 1, 1),
+                Conv2d(2 * ch, 2 * ch, 3, 1, 1),
+                Conv2d(2 * ch, ch, 3, 1, 1),
+                LReLU(),
+                *[LateralBlock(ch) for _ in range(5)],
+                LReLU(),
+                Conv2d(ch, 3, 3, 1, 1, padding_mode="reflect"))
         self._tables: dict = {}
         self._alpha_sign = None
         self.configure(fused_decode=fused_decode, compute_dtype=compute_dtype,
@@ -205,9 +261,12 @@ class MoTIF(nn.Module):
         """Whether the forward folds the SIRENs' first layers: the
         fused_decode knob, which warp_to_many turns off (the fold of the
         synthesis net through the splat assumes the merged directions;
-        motif.py:423-425) and the linear-motion fork does not run."""
-        return self.fused_decode and not self.warp_to_many \
-            and not self.linear_motion
+        motif.py:423-425), as do the fields (groups > 1 raises instead)
+        and the linear-motion fork, which does not run it."""
+        return (self.fused_decode and not self.warp_to_many
+                and not self.linear_motion and self.siren
+                and self.groups == 1 and not self.local_ensemble
+                and not self.res_liff)
 
     def configure(self, fused_decode: bool = False,
                   compute_dtype: str | None = None,
@@ -229,7 +288,8 @@ class MoTIF(nn.Module):
         self.raft_resolution = float(raft_resolution)
         self.decode_chunks = int(decode_chunks)
         for net in (self.flow_imnet, self.imnet, self.synth_net):
-            net.skip_first_linear = self.use_fused
+            if isinstance(net, Siren):
+                net.skip_first_linear = self.use_fused
         return self
 
     def knobs(self) -> dict:
@@ -289,6 +349,50 @@ class MoTIF(nn.Module):
                                         device=device))
             self._tables[key] = hit
         return hit
+
+    @torch.inference_mode(False)
+    def _shift_tables(self, H, W, HH, WW, dtype, device):
+        """The local ensemble's four LIIF queries (shifts (-1, -1), (-1, 1),
+        (1, -1), (1, 1) of a cell, eps 1e-6 + v / size): per shift the
+        nearest indices and the relative coordinates (1, HH, WW, 2) in
+        `dtype`, kept as `_shape_tables` keeps its own."""
+        key = ("shifts", H, W, HH, WW, dtype, device)
+        hit = self._tables.get(key)
+        if hit is None:
+            hit = []
+            for vy, vx in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
+                iy, rel_y = liif_nearest_axis(H, HH, 1e-6 + vy * (1.0 / H))
+                ix, rel_x = liif_nearest_axis(W, WW, 1e-6 + vx * (1.0 / W))
+                ry, rx = np.meshgrid(rel_y, rel_x, indexing="ij")
+                hit.append((torch.as_tensor(iy, device=device),
+                            torch.as_tensor(ix, device=device),
+                            torch.as_tensor(np.stack([ry, rx], -1)[None],
+                                            device=device).to(dtype)))
+            self._tables[key] = hit
+        return hit
+
+    def _trans_context(self, flow, psies, tab, B, H, W, cd):
+        """The `trans` flow context: each directed pair's [flow / 20 | psi
+        (input_Z) | rsd row] through `flow_process` (n²B rows), and per
+        source frame i the softmax over its targets j of the per-group
+        weights of `weight_generator`, summing the pairs' features group
+        by group: (nB, H, W, ch).
+
+        The JAX package reshapes the weights to (n², n², B, ...) here
+        (motif.py:387-390), which holds n²·n²·B rows where there are n²·B,
+        so its `trans` raises at any size; the port reads them as (n, n,
+        B, ...), the one shape that gives the (nB, H, W, ch) features the
+        rest of the forward takes (ROADMAP.md)."""
+        n, G, ch = self.n_anchors, self.groups, self.channel
+        n2 = n * n
+        rsd = tab["r22"].reshape(n2, 1, 1, 1, 2).expand(n2, B, H, W, 2)
+        parts = [flow / 20.0] + ([psies] if self.input_Z else []) \
+            + [rsd.reshape(n2 * B, H, W, 2)]
+        ffe = self.flow_process(cd(torch.cat(parts, dim=-1)))
+        wgt = torch.softmax(self.weight_generator(ffe).reshape(
+            n, n, B, H, W, G, 1), dim=1)
+        ffg = ffe.reshape(n, n, B, H, W, G, ch // G)
+        return (ffg * wgt).sum(1).reshape(n * B, H, W, ch)
 
     def _motion(self, frames, tab, lr_hw, raft_hw, out_hw, iters, cd, cf,
                 lr_flow=None):
@@ -379,7 +483,12 @@ class MoTIF(nn.Module):
         HH, WW = out_hw
         N = target_t.shape[1]
         ch = self.channel
-        n = self.n_anchors
+        n, G = self.n_anchors, self.groups
+        if G != 1 and (self.fused_decode or self.warp_to_many):
+            raise NotImplementedError(
+                "MoTIF groups>1 is only supported with fused_decode=False "
+                "and warp_to_many=False (the fused splat-payload fold and "
+                "the warp_to_many merge, Ours.py:819-824, assume G=1).")
         if self.linear_motion:    # the first two (Ours_7.py:481-492)
             return self._linear_forward(x[:, 0], x[:, 1], target_t, out_hw,
                                         use_gt, iters, target_frames, train)
@@ -431,20 +540,26 @@ class MoTIF(nn.Module):
         feat = torch.cat([feat_t[:, 2 * i] for i in range(n)], 0)  # (nB,H,W,ch)
 
         # ---- flow-context encoder: per source frame i, the targets j of
-        # [flow_ij / 20 | psi_ij (input_Z) | rsd row] into a grouped conv --
-        f22 = (flow / 20.0).reshape(n, n, B, H, W, 2).permute(0, 2, 1, 3, 4, 5)
-        p22 = psies.reshape(n, n, B, H, W, 3).permute(0, 2, 1, 3, 4, 5)
-        r22 = tab["r22"].expand(n, B, n, H, W, 2)
-        ff = torch.cat([f22, p22, r22] if self.input_Z else [f22, r22],
-                       dim=-1)                               # (n,B,n,H,W,7|4)
-        k = ff.shape[-1]
-        ff = ff.reshape(n * B, n, H, W, k).permute(0, 2, 3, 1, 4)
-        flow_feat = self.flow_process(cd(ff.reshape(n * B, H, W, n * k)))
+        # [flow_ij / 20 | psi_ij (input_Z) | rsd row] into a grouped conv
+        # (or, with trans, each pair alone and a softmax over j) --
+        if self.trans:
+            flow_feat = self._trans_context(flow, psies, tab, B, H, W, cd)
+        else:
+            f22 = (flow / 20.0).reshape(n, n, B, H, W, 2).permute(
+                0, 2, 1, 3, 4, 5)
+            p22 = psies.reshape(n, n, B, H, W, 3).permute(0, 2, 1, 3, 4, 5)
+            r22 = tab["r22"].expand(n, B, n, H, W, 2)
+            ff = torch.cat([f22, p22, r22] if self.input_Z else [f22, r22],
+                           dim=-1)                           # (n,B,n,H,W,7|4)
+            k = ff.shape[-1]
+            ff = ff.reshape(n * B, n, H, W, k).permute(0, 2, 3, 1, 4)
+            flow_feat = self.flow_process(cd(ff.reshape(n * B, H, W, n * k)))
 
-        # ---- LIIF query as separable nearest takes (one shift, weight 1) --
+        # ---- LIIF query as separable nearest takes (one shift, weight 1;
+        # or the local ensemble's four) --
         iy_t, ix_t, rel = tab["iy"], tab["ix"], tab["rel"]   # rel (1,HH,WW,2)
 
-        def up(img):
+        def up(img, iy_t=iy_t, ix_t=ix_t):
             return img.index_select(1, iy_t).index_select(2, ix_t)
 
         def rep_n(a):                    # (nB, HH, WW, c) -> (nBN, HH, WW, c)
@@ -474,26 +589,67 @@ class MoTIF(nn.Module):
                 self.imnet, g0.reshape(n * B, HH * WW, -1), chunks
             ).reshape(n * B, HH, WW, 64)
         else:
-            q_feat = up(feat)                                # (nB,HH,WW,ch)
-            q_flow_feat = up(flow_feat)
-            q_residual = up(residual_bn)                     # (BN,HH,WW,ch)
-            sti = torch.cat([rep_n(q_flow_feat),
-                             t_tok.expand(n * B * N, HH, WW, 1),
-                             rel.expand(n * B * N, HH, WW, 2)], dim=-1)
-            si = torch.cat([q_feat, rel.expand(n * B, HH, WW, 2)], dim=-1)
-            q_flow_o = _chunked_tokens(
-                self.flow_imnet, sti.reshape(n * B * N, HH * WW, -1), chunks
-            ).reshape(n * B * N, HH, WW, 3)
-            q_feat_o = _chunked_tokens(
-                self.imnet, si.reshape(n * B, HH * WW, -1), chunks
-            ).reshape(n * B, HH, WW, 64)
-            # the single-shift LIIF area weight is area / area == 1 exactly,
-            # so the weighted sum of the JAX package is the identity here
+            shifts = (self._shift_tables(H, W, HH, WW, rel.dtype, x.device)
+                      if self.local_ensemble else [(iy_t, ix_t, rel)])
+            preds, areas = [], []
+            for iy_s, ix_s, rel_s in shifts:
+                q_feat = up(feat, iy_s, ix_s)                # (nB,HH,WW,ch)
+                q_flow_feat = up(flow_feat, iy_s, ix_s)
+                q_residual = up(residual_bn, iy_s, ix_s)     # (BN,HH,WW,ch)
+                sti = torch.cat([rep_n(q_flow_feat),
+                                 t_tok.expand(n * B * N, HH, WW, 1),
+                                 rel_s.expand(n * B * N, HH, WW, 2)], dim=-1)
+                si = torch.cat([q_feat, rel_s.expand(n * B, HH, WW, 2)],
+                               dim=-1)
+                sti_out = _chunked_tokens(
+                    self.flow_imnet, sti.reshape(n * B * N, HH * WW, -1),
+                    chunks).reshape(n * B * N, HH, WW, 3 * G)
+                si_out = _chunked_tokens(
+                    self.imnet, si.reshape(n * B, HH * WW, -1), chunks
+                ).reshape(n * B, HH, WW, 64)
+                pred = [si_out, q_feat, q_residual, sti_out]
+                if self.res_liff:
+                    ri = torch.cat([q_residual,
+                                    rel_s.expand(B * N, HH, WW, 2)], dim=-1)
+                    res_out = _chunked_tokens(
+                        self.res_imnet, ri.reshape(B * N, HH * WW, -1),
+                        chunks).reshape(B * N, HH, WW, 64)
+                    pred = [si_out, q_feat, res_out, sti_out, q_residual]
+                preds.append(pred)
+                areas.append((rel_s[..., 0] * rel_s[..., 1]).abs() + 1e-9)
+            if len(preds) == 1:
+                # one shift: its area weight is area / area == 1 exactly,
+                # so the JAX package's weighted sum is the identity
+                acc = preds[0]
+            else:
+                # each decode weighted by the diagonally opposite cell's
+                # area (Ours.py:758-764), summed in the JAX package's order
+                tot = areas[0] + areas[1] + areas[2] + areas[3]
+                acc = None
+                for pred, area in zip(preds, areas[::-1]):
+                    w = (area / tot)[..., None]
+                    terms = [p * w.to(p.dtype) for p in pred]
+                    acc = terms if acc is None else [
+                        a + t for a, t in zip(acc, terms)]
+            if self.res_liff:
+                q_feat_o, q_feat, q_res_liif, q_flow_o, q_res_low = acc
+                q_residual = torch.cat([q_res_liif, q_res_low], dim=-1)
+            else:
+                q_feat_o, q_feat, q_residual, q_flow_o = acc
 
         # ---- HR flow / z / features and the splat, in the input's dtype;
         # the payload's flow channels take no gradient (as in the JAX
-        # package) ----
-        flow_raw = cf(q_flow_o)
+        # package). With G groups each row splits into G rows, group g
+        # taking channel slice g of each part (the reference's NCHW
+        # channel split, Ours.py:783-791) ----
+        def split_groups(a, k):           # (M, HH, WW, G·k) -> (M·G, ..., k)
+            if G == 1:
+                return a
+            M = a.shape[0]
+            return a.reshape(M, HH, WW, G, k).permute(0, 3, 1, 2, 4).reshape(
+                M * G, HH, WW, k)
+
+        flow_raw = split_groups(cf(q_flow_o), 3)
         if fused:
             # The synthesis net's first layer folded through the splat,
             # which is linear in its payload: [q_feat_o | flow | q_feat]
@@ -515,15 +671,18 @@ class MoTIF(nn.Module):
             feat_hr = cf(pay) + torch.matmul(flow_raw[..., :2].detach(),
                                              ws_raw[64:66])  # (nBN,HH,WW,64)
         else:
-            feat_hr = torch.cat([rep_n(cf(q_feat_o)),
+            feat_hr = torch.cat([split_groups(rep_n(cf(q_feat_o)), 64 // G),
                                  flow_raw[..., :2].detach(),
-                                 rep_n(cf(q_feat))], dim=-1)
+                                 split_groups(rep_n(cf(q_feat)), ch // G)],
+                                dim=-1)
         flow_hr = flow_raw[..., :2] * 20.0 * (HH / H)
         z = torch.relu(flow_raw[..., 2:3]) * self.alpha
         if not self.predict_Z:
             z = torch.zeros_like(z)
+        if G > 1:        # every group splats along the same teacher flow
+            flow_gt = flow_gt.repeat_interleave(G, 0)
         output, extra = self._splat_merge(feat_hr, flow_gt if use_gt
-                                          else flow_hr, z, n, B * N)
+                                          else flow_hr, z, n, B * N * G)
 
         # ---- synthesis ----
         if fused:
@@ -538,12 +697,24 @@ class MoTIF(nn.Module):
             out = _chunked_tokens(self.synth_net,
                                   h.reshape(B * N, HH * WW, -1), chunks)
         else:
+            def merge_groups(a):     # (BNG, HH, WW, c) -> (BN, HH, WW, G·c)
+                if G == 1:
+                    return a
+                c = a.shape[-1]
+                return a.reshape(B * N, G, HH, WW, c).permute(
+                    0, 2, 3, 1, 4).reshape(B * N, HH, WW, G * c)
+
             tmap = cd(target_t.reshape(B * N, 1, 1, 1)
                       * x.new_ones((1, HH, WW, 1)))
-            synth_in = torch.cat([cd(output), cd(extra), q_residual, tmap],
+            synth_in = torch.cat([merge_groups(cd(output)),
+                                  merge_groups(cd(extra)), q_residual, tmap],
                                  dim=-1)
-            out = _chunked_tokens(self.synth_net,
-                                  synth_in.reshape(B * N, HH * WW, -1), chunks)
+            if self.siren:
+                out = _chunked_tokens(self.synth_net,
+                                      synth_in.reshape(B * N, HH * WW, -1),
+                                      chunks)
+            else:
+                out = self.synth_net(synth_in)
         frames_out = torch.clamp(cf(out).reshape(B, N, HH, WW, 3), 0.0, 1.0
                                  ).permute(1, 0, 2, 3, 4)
         flow_norm = flow_hr / 20.0 / (HH / H)
@@ -670,13 +841,15 @@ def _dtype(knob: str, name, allowed):
 def build_motif(channel: int = 64, front_rbs: int = 5, back_rbs: int = 40,
                 device=None, seed: int = 0, n_anchors: int = 2,
                 setting: int = 5, linear_motion: bool = False,
-                **knobs) -> MoTIF:
+                fields: dict | None = None, **knobs) -> MoTIF:
     """A MoTIF with `n_anchors` (2: Ours, 4: Ours_44) at `setting` (or the
     linear-motion Ours_7) and float32 random weights from `seed`, in eval
     mode, on `device` (CUDA unless the caller passes another device;
     raises without CUDA). `knobs` are MoTIF's serving knobs by name
     (`fused_decode`, `compute_dtype`, `splat_dtype`, `raft_resolution`,
-    `decode_chunks`); the weights depend on neither (both families draw
+    `decode_chunks`), `fields` its fields by name (`groups`, `trans`,
+    `res_liff`, `local_ensemble`, `siren`); the weights depend on neither
+    the knobs (both families draw
     the same weights from a seed; a setting changes the shapes of three
     of them). On CUDA the conv weights take the channels_last memory
     format."""
@@ -684,7 +857,8 @@ def build_motif(channel: int = 64, front_rbs: int = 5, back_rbs: int = 40,
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = MoTIF(channel, front_rbs, back_rbs, n_anchors=n_anchors,
-                      setting=setting, linear_motion=linear_motion, **knobs)
+                      setting=setting, linear_motion=linear_motion,
+                      **(fields or {}), **knobs)
     model = model.to(dev).eval()
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

@@ -1,5 +1,6 @@
-"""RAFT correlation — the counterpart of motif_tpu/ops/corr.py
-(all_pairs_corr, corr_pyramid, corr_lookup). These are XLA, not Pallas, in
+"""RAFT correlation and PWC-Net's local cost volume — the counterpart of
+motif_tpu/ops/corr.py (all_pairs_corr, corr_pyramid, corr_lookup,
+local_corr). These are XLA, not Pallas, in
 the JAX package, so plain PyTorch is their port.
 
 The lookup keeps the reference's delta pairing: the window's first axis
@@ -79,3 +80,19 @@ def corr_lookup(pyramid: list, coords: torch.Tensor,
         lvl = torch.bmm(t1.transpose(1, 2), vy)            # (P, n_a, n_b)
         out.append(lvl.reshape(B, H, W, n * n))
     return torch.cat(out, dim=-1)
+
+
+def local_corr(f1: torch.Tensor, f2: torch.Tensor,
+               max_disp: int = 4) -> torch.Tensor:
+    """PWC-Net's local cost volume (OpticalFlow/correlation.py): f1, f2 (B,
+    H, W, C) -> (B, H, W, (2d+1)²), channel (dy+d)·(2d+1) + (dx+d) =
+    mean over c of f1[y, x, c] · f2[y+dy, x+dx, c], zero outside f2."""
+    _, H, W, _ = f1.shape
+    d = max_disp
+    f2p = torch.nn.functional.pad(f2, (0, 0, d, d, d, d))
+    outs = []
+    for dy in range(-d, d + 1):
+        for dx in range(-d, d + 1):
+            shifted = f2p[:, dy + d:dy + d + H, dx + d:dx + d + W]
+            outs.append((f1 * shifted).mean(-1))
+    return torch.stack(outs, dim=-1)

@@ -1,7 +1,7 @@
 """Bilinear resize as two separable matrix products — the counterpart of
 motif_tpu/ops/resize.py (interpolate_bilinear, avg_pool2d) — and the
 MATLAB antialiased bicubic resize of the data pipeline, on the host
-(imresize_matlab_np).
+(imresize_matlab_np) or on a tensor's device (imresize_matlab).
 
 The (out, in) interpolation matrices are built on the host in float64 and
 cast to the image dtype, exactly as the JAX package does, so both packages
@@ -132,6 +132,21 @@ def matlab_resize_matrix(in_size: int, out_size: int, scale: float,
             j = min(max(j, 0), in_size - 1)
             m[i, j] += weights[i, k]
     return m
+
+
+def imresize_matlab(img: torch.Tensor, scale: float,
+                    antialiasing: bool = True) -> torch.Tensor:
+    """MATLAB imresize of NHWC images on their device (out = ceil(in *
+    scale) a side): the float64 matrices cast to the image dtype, rows
+    then columns, as the JAX package's `imresize_matlab`."""
+    _, H, W, _ = img.shape
+    OH, OW = int(math.ceil(H * scale)), int(math.ceil(W * scale))
+    mh = torch.as_tensor(matlab_resize_matrix(H, OH, scale, antialiasing),
+                         dtype=img.dtype, device=img.device)
+    mw = torch.as_tensor(matlab_resize_matrix(W, OW, scale, antialiasing),
+                         dtype=img.dtype, device=img.device)
+    out = torch.einsum("oh,bhwc->bowc", mh, img)
+    return torch.einsum("ow,bhwc->bhoc", mw, out)
 
 
 def imresize_matlab_np(img: np.ndarray, scale: float,

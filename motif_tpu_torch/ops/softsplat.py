@@ -370,3 +370,90 @@ def _splat_forward(img, flow, z, z_nonpositive, scatter_dtype):
                   + (f"/C={C}" if C in COMPILED_C else "/generic"))
     kernels.check(err, "splat_fused")
     return acc[..., :C], acc[..., C:C + 1], z_max, acc[..., C + 1:]
+
+
+# ---- the public splat ops of the JAX package (motif_tpu/ops/softsplat.py:
+# 78-121, 340-379): XLA scatters there, plain PyTorch here on any device.
+# They are not routed through `splat_fused`, whose contract (the fused sum,
+# norm, count and max) is another function.
+
+def _scatter_rows(values, flow, fill, reduce):
+    """values (B, H, W, C) times each corner's weight, scattered to the
+    corners' targets of `flow` with `reduce` ("sum" or "amax") into a (B,
+    H, W, C) output filled with `fill`; an out-of-image corner adds 0 to a
+    sum and -inf to a max."""
+    B, H, W, C = values.shape
+    corners = _corner_data(flow, H, W)
+    boff = (torch.arange(B, device=values.device) * (H * W))[:, None, None]
+    out = torch.full((B * H * W, C), fill, dtype=values.dtype,
+                     device=values.device)
+    drop = 0.0 if reduce == "sum" else -torch.inf
+    for idx, w, valid in corners:
+        vals = values * w[..., None].to(values.dtype)
+        vals = torch.where(valid[..., None], vals,
+                           torch.full_like(vals, drop)).reshape(-1, C)
+        rows = (idx + boff).reshape(-1)
+        if reduce == "sum":
+            out.index_add_(0, rows, vals)
+        else:
+            out.scatter_reduce_(0, rows[:, None].expand(-1, C), vals, "amax")
+    return out.reshape(B, H, W, C)
+
+
+def splat_sum(values: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Bilinear scatter-add forward warp: values (B, H, W, C), flow (B, H,
+    W, 2) -> (B, H, W, C)."""
+    return _scatter_rows(values, flow, 0.0, "sum")
+
+
+def splat_max(values: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Bilinear scatter-max forward warp into an output of ones:
+    out[q] = max(1, max_p values(p) · w(p, q)) (softsplat_max_cp.py); no
+    gradient, as the reference detaches it."""
+    with torch.no_grad():
+        return _scatter_rows(values, flow, 1.0, "amax")
+
+
+def splat_count(flow: torch.Tensor) -> torch.Tensor:
+    """In-image corner hits per target, unweighted (softsplat_count_cp.py):
+    (B, H, W, 1) float32, no gradient."""
+    B, H, W, _ = flow.shape
+    with torch.no_grad():
+        corners = _corner_data(flow, H, W)
+        boff = (torch.arange(B, device=flow.device) * (H * W))[:, None, None]
+        out = torch.zeros(B * H * W, dtype=torch.float32, device=flow.device)
+        for idx, _, valid in corners:
+            out.index_add_(0, (idx + boff).reshape(-1),
+                           valid.to(torch.float32).reshape(-1))
+    return out.reshape(B, H, W, 1)
+
+
+def function_softsplat(img: torch.Tensor, flow: torch.Tensor,
+                       z: torch.Tensor | None, mode: str = "softmax"):
+    """The reference's four-mode splat (FunctionSoftsplat,
+    softsplat_cp.py:320-347); img (B, H, W, C), flow (B, H, W, 2), z (B, H,
+    W, 1) (None for summation and average):
+
+      summation: splat_sum(img), None
+      average:   the splat of [img | 1]:         (out, normaliser)
+      linear:    the splat of [img · z | z]:     (out, normaliser)
+      softmax:   the splat of [img · e^z | e^z]: (out, normaliser)
+
+    Unnormalised, as the reference (its division is commented out)."""
+    assert mode in ("summation", "average", "linear", "softmax")
+    if mode == "summation":
+        return splat_sum(img, flow), None
+    if mode == "average":
+        w = torch.ones_like(img[..., :1])
+    else:
+        assert z is not None and z.shape[-1] == 1
+        w = z if mode == "linear" else torch.exp(z)
+    out = splat_sum(torch.cat([img * w, w], dim=-1), flow)
+    return out[..., :-1], out[..., -1:]
+
+
+def softmax_splat(img: torch.Tensor, flow: torch.Tensor, z: torch.Tensor):
+    """The reference's Softsplat module in softmax mode
+    (softsplat_cp.py:349): (the splat of img · e^z, the splat of e^z),
+    both unnormalised."""
+    return function_softsplat(img, flow, z, "softmax")

@@ -135,3 +135,20 @@ def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor,
         m = (xgrid > -1) & (ygrid > -1) & (xgrid < 1) & (ygrid < 1)
         return out, m.to(img.dtype)
     return out
+
+
+def flow_warp(x: torch.Tensor, flow: torch.Tensor,
+              interp_mode: str = "bilinear", padding_mode: str = "zeros",
+              align_corners: bool = False) -> torch.Tensor:
+    """The reference's module_util.flow_warp (module_util.py:55): x (B, H,
+    W, C) sampled at the pixel grid plus flow (B, H, W, 2) = (u, v) in
+    pixels, normalised by max(size - 1, 1)."""
+    _, H, W, _ = x.shape
+    gx, gy = pixel_grid(H, W, flow.device)
+    vx = gx + flow[..., 0]
+    vy = gy + flow[..., 1]
+    vx = 2.0 * vx / max(W - 1, 1) - 1.0
+    vy = 2.0 * vy / max(H - 1, 1) - 1.0
+    grid = torch.stack([vx, vy], dim=-1)
+    return grid_sample(x, grid, mode=interp_mode, padding_mode=padding_mode,
+                       align_corners=align_corners)

@@ -1,2 +1,3 @@
-"""Host-side utilities of the port: the evaluation metrics and the yml
-configuration."""
+"""Host-side utilities of the port: the evaluation metrics, the yml
+configuration, frame folders and ffmpeg (`video`) and optical-flow files
+(`flow_io`)."""

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from motif_tpu import native
+from motif_tpu_torch import native as tnative
 from motif_tpu.data import datasets as jdatasets
 from motif_tpu.data import pipeline as jpipeline
 from motif_tpu.models import factory as jfactory
@@ -171,7 +172,8 @@ BUCKETS = list(range(128, 257, 16))     # LQ_size 64: crops 128 .. 256
 def test_collate_matches_motif_tpu_in_every_bucket(gt_size, monkeypatch):
     """LQ_size 64, d_scale pinned inside the bucket (each seed's own
     corner and flips): bit for bit against motif_tpu's collate on its
-    numpy fallback, within 2e-5 against its native core."""
+    numpy fallback (the port's native core unloaded too), within 2e-5
+    against its native core (the port's on its own native core)."""
     rng = np.random.default_rng(gt_size)
     items = [{"lq_raw": [rng.random((262, 270, 3), dtype=np.float32)
                          for _ in range(4)],
@@ -190,6 +192,8 @@ def test_collate_matches_motif_tpu_in_every_bucket(gt_size, monkeypatch):
         for k in ("lq", "gt"):
             np.testing.assert_allclose(got[k], near[k], rtol=0, atol=2e-5)
     monkeypatch.setattr(native, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    got = pipeline.collate_adobe_arbitrary(items, 64, _Pinned(gt_size, d))
     want = jpipeline.collate_adobe_arbitrary(items, 64, _Pinned(gt_size, d))
     _equal(got, want)
 
@@ -217,24 +221,28 @@ def test_grid_counts():
 
 @contextlib.contextmanager
 def _resize_fallback():
-    """motif_tpu's MATLAB resize on its numpy fallback (its native core
-    unloaded for that call only, as tests/test_native.py unloads it); its
-    frame decoding keeps the native core, which the port matches bit for
-    bit."""
-    real = native.matlab_resize_batch
+    """Both packages' MATLAB resize on its numpy fallback (each native core
+    unloaded for that call only, as tests/test_native.py unloads
+    motif_tpu's); the frame decoding keeps the native cores, which agree
+    bit for bit."""
+    reals = [(mod, mod.matlab_resize_batch) for mod in (native, tnative)]
 
-    def fallback(*a, **kw):
-        saved = native._load
-        native._load = lambda: None
-        try:
-            return real(*a, **kw)
-        finally:
-            native._load = saved
-    native.matlab_resize_batch = fallback
+    def fallback(mod, real):
+        def resize(*a, **kw):
+            saved = mod._load
+            mod._load = lambda: None
+            try:
+                return real(*a, **kw)
+            finally:
+                mod._load = saved
+        return resize
+    for mod, real in reals:
+        mod.matlab_resize_batch = fallback(mod, real)
     try:
         yield
     finally:
-        native.matlab_resize_batch = real
+        for mod, real in reals:
+            mod.matlab_resize_batch = real
 
 
 @pytest.mark.parametrize("path", TRAINED,
@@ -273,8 +281,9 @@ def test_grid_yml_builds_and_batches_as_motif_tpu(path, trees):
                                            lq_size=lq, rng=_Pinned(0, 4.0))
     ds = dataclasses.replace(datasets.create_dataset(dopt), seed=0)
     jds = dataclasses.replace(jdatasets.create_dataset(dopt), seed=0)
-    got = next(iter(pipeline.BatchLoader(ds, batch_size=1, **kw).epoch(0)))
     with _resize_fallback():
+        got = next(iter(pipeline.BatchLoader(ds, batch_size=1,
+                                             **kw).epoch(0)))
         want = next(iter(jpipeline.BatchLoader(jds, batch_size=1,
                                                **jkw).epoch(0)))
     _equal(got, want, os.path.basename(path))

@@ -85,7 +85,8 @@ def test_eval_datasets_match_motif_tpu(opt):
 def test_training_modes_raise(mode, tmp_path):
     """The training modes the port once refused now build as motif_tpu's
     do (their items: tests/test_torch_adobe_data.py); an unknown mode
-    raises in both, and LMDB packs, which the port does not read, raise."""
+    raises in both, and so does an LMDB pack without its meta_info.pkl
+    (LMDB packs read as motif_tpu's: tests/test_torch_lmdb_native.py)."""
     import cv2
 
     vimeo = mode.startswith("vimeo")
@@ -106,8 +107,9 @@ def test_training_modes_raise(mode, tmp_path):
                                                        None)
     with pytest.raises(NotImplementedError, match="not recognized"):
         datasets.create_dataset({"mode": "no_such_mode"})
-    with pytest.raises(NotImplementedError, match="LMDB"):
-        datasets.create_dataset({**opt, "mode": "vimeo", "data_type": "lmdb"})
+    for create in (datasets.create_dataset, jdatasets.create_dataset):
+        with pytest.raises(FileNotFoundError, match="meta_info.pkl"):
+            create({**opt, "mode": "vimeo", "data_type": "lmdb"})
 
 
 @pytest.mark.parametrize("shape,scale", [((32, 48, 3), 0.25), ((33, 47, 3), 0.5),

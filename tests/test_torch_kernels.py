@@ -1711,3 +1711,129 @@ def test_settings_forward_matches_the_plain_versions(dev, setting, linear):
     for a, b in zip(stats, want_stats):
         assert abs(a - b) <= 1e-5 * max(abs(b), 1e-12)
 
+
+
+FIELDS = {"groups2": {"groups": 2}, "trans": {"trans": True},
+          "res_liff": {"res_liff": True},
+          "local_ensemble": {"local_ensemble": True},
+          "conv_synth": {"siren": False}}
+FIELD_SIRENS = {"groups2": 3, "trans": 3, "res_liff": 4,
+                "local_ensemble": 9, "conv_synth": 2}
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_fields_forward_matches_the_plain_versions(dev, field):
+    """Each MoTIF field at channel 16 (1 / 2 blocks, DCN offsets perturbed,
+    alpha > 0) through Evaluator.infer on LR 16² -> 64², 3 times: its
+    kernels launch as counted (one splat at a generic width, 42 DCNs, the
+    SIRENs it runs), the frames hold against the plain versions to 1e-5,
+    captured and replayed."""
+    from motif_tpu_torch.eval import Evaluator
+    from motif_tpu_torch.models.motif import build_motif
+    from motif_tpu_torch.models.pcd import DCNSep
+
+    model = build_motif(16, 1, 2, device=dev, seed=0, fields=FIELDS[field])
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        model.alpha.fill_(0.5)
+        for mod in model.modules():
+            if isinstance(mod, DCNSep):
+                w, b = mod.conv_offset_mask.weight, mod.conv_offset_mask.bias
+                w.copy_(torch.randn(w.shape, generator=g) * 0.01)
+                b.copy_(torch.randn(b.shape, generator=g))
+    ev = Evaluator(model, iters=2, device=dev)
+    lq = np.random.default_rng(0).random((1, 4, 16, 16, 3), np.float32)
+    times = np.float32([[0.1, 0.5, 0.75]])
+    before = dict(kernels.ENTRY_LAUNCHES)
+    got, _ = ev.infer(lq, times, (64, 64))
+    launched = {k: v - before.get(k, 0)
+                for k, v in kernels.ENTRY_LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert launched == {"dcn_im2col/float32": 42,
+                        "siren_mlp/float32/whole": FIELD_SIRENS[field],
+                        "splat_fused/float32/generic": 1}
+    again, _ = ev.infer(lq, times, (64, 64))           # replayed
+    with _plain_versions():
+        want, _ = ev._infer_eager(lq, times, (64, 64))
+    assert got.shape == (3, 1, 64, 64, 3) and np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 1e-5
+    assert float(np.abs(again - want).max()) <= 1e-5
+    assert ev.captures == 1
+
+
+def test_demo_captures_once_and_matches_eager(dev, tmp_path):
+    """The demo CLI on 3 frames of 16x24 at x4 space, x2 time on the card:
+    one capture for the stream, 4 PNGs; pair 0 replayed against the eager
+    forward and the plain versions to 1e-5."""
+    from motif_tpu_torch import demo
+    from motif_tpu_torch import eval as eval_mod
+    from motif_tpu_torch.models import factory
+    from motif_tpu_torch.models.motif import build_motif
+    from motif_tpu_torch.utils.video import read_seq_imgs, save_img
+
+    rng = np.random.default_rng(2)
+    (tmp_path / "in").mkdir()
+    for k in range(3):
+        save_img(rng.random((16, 24, 3)), str(tmp_path / "in" / f"{k}.png"))
+    made = []
+
+    class Recorded(eval_mod.Evaluator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    with mock.patch.object(eval_mod, "Evaluator", Recorded), \
+            mock.patch.object(factory, "define_g", lambda opt, device=None:
+                              build_motif(16, 1, 2, device=device)):
+        res = demo.main(["--frames_dir", str(tmp_path / "in"), "--out_dir",
+                         str(tmp_path / "out"), "--time_scale", "2"])
+    assert res["captures"] == 1 and res["frames"] == 4
+    assert len(list((tmp_path / "out").glob("*.png"))) == 4
+    ev = made[0]
+    f = read_seq_imgs(str(tmp_path / "in"))
+    x = np.stack([f[0], f[0], f[1], f[1]])[None]
+    t = np.float32([[0.0, 0.5]])
+    got, _ = ev.infer(x, t, (64, 96))
+    eager, _ = ev._infer_eager(x, t, (64, 96))
+    with _plain_versions():
+        want, _ = ev._infer_eager(x, t, (64, 96))
+    assert float(np.abs(got - eager).max()) <= 1e-5
+    assert float(np.abs(got - want).max()) <= 1e-5
+    assert ev.captures == 1
+
+
+@pytest.mark.parametrize("which", ["PWCNet", "PWCNetLight"])
+def test_pwcnet_on_the_card_matches_the_cpu(dev, which):
+    from motif_tpu_torch.models import pwcnet
+
+    torch.manual_seed(0)
+    cpu = getattr(pwcnet, which)().eval()
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.random((1, 64, 128, 3), dtype=np.float32))
+    b = torch.from_numpy(rng.random((1, 64, 128, 3), dtype=np.float32))
+    with torch.no_grad():
+        want = cpu(a, b)
+        got = copy.deepcopy(cpu).to(dev)(a.to(dev), b.to(dev)).cpu()
+    assert got.shape == (1, 16, 32, 2)
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+def test_public_splat_ops_run_on_the_card(dev):
+    """splat_sum / splat_max / splat_count / softmax_splat are plain
+    PyTorch on any device: on the card as on the CPU (sums to 1e-5, the
+    max and the count exact)."""
+    from motif_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(0)
+    img = torch.randn((2, 20, 24, 5), generator=g)
+    flow = torch.randn((2, 20, 24, 2), generator=g) * 3
+    z = torch.randn((2, 20, 24, 1), generator=g)
+    for fn, args in ((ops.splat_sum, (img, flow)), (ops.splat_max,
+                                                    (img, flow)),
+                     (ops.splat_count, (flow,)),
+                     (ops.softmax_splat, (img, flow, z))):
+        want = fn(*args)
+        got = fn(*[a.to(dev) for a in args])
+        for w, gg in zip(want if isinstance(want, tuple) else (want,),
+                         got if isinstance(got, tuple) else (got,)):
+            assert float((gg.cpu() - w).abs().max()) <= 1e-5

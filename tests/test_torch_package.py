@@ -200,3 +200,23 @@ def test_splat_plan_halves_a_compiled_tile_that_does_not_fit(monkeypatch):
 def test_splat_plan_raises_when_one_pixel_does_not_fit():
     with pytest.raises(ValueError, match="shared memory"):
         softsplat.plan(60_000)
+
+
+def test_the_last_modules_leave_jax_unimported():
+    """Importing the port's newest modules (the native core, LMDB packs,
+    PWC-Net, the CLIs and their I/O) in a fresh process brings in neither
+    JAX nor motif_tpu (the test process itself has JAX from conftest)."""
+    import subprocess
+    import sys
+
+    mods = ["motif_tpu_torch.native", "motif_tpu_torch.data.lmdb_io",
+            "motif_tpu_torch.models.pwcnet", "motif_tpu_torch.demo",
+            "motif_tpu_torch.generate", "motif_tpu_torch.flow",
+            "motif_tpu_torch.test_tmp", "motif_tpu_torch.utils.video",
+            "motif_tpu_torch.utils.flow_io", "motif_tpu_torch.ops"]
+    code = (f"import sys\nimport {', '.join(mods)}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nassert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr

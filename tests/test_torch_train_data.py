@@ -85,11 +85,12 @@ def test_vimeo_without_augmentation_outside_the_train_phase():
 
 
 @pytest.mark.parametrize("kw,what", [({"load_flows": True}, "hr_gt_flow"),
-                                     ({"data_type": "lmdb"}, "A.9")])
+                                     ({"data_type": "lmdb"}, "meta_info")])
 def test_vimeo_flows_and_lmdb_raise(kw, what):
-    """LMDB packs are not ported; flows are (tests/test_torch_flows.py),
-    and an item whose flow files are missing (the repository's data/vimeo
-    ships none) raises, naming the file, as motif_tpu's does."""
+    """An item whose flow files are missing (the repository's data/vimeo
+    ships none; flows: tests/test_torch_flows.py) raises, naming the file,
+    as motif_tpu's does; so does an LMDB dataset over a folder that is not
+    a pack (no meta_info.pkl; packs: tests/test_torch_lmdb_native.py)."""
     if "load_flows" in kw:
         ds = datasets.create_dataset(_vimeo_opt(**kw))
         with pytest.raises(FileNotFoundError, match=what):
@@ -97,8 +98,9 @@ def test_vimeo_flows_and_lmdb_raise(kw, what):
         with pytest.raises(FileNotFoundError, match=what):
             jdatasets.create_dataset(_vimeo_opt(**kw))[0]
         return
-    with pytest.raises(NotImplementedError, match=what):
-        datasets.create_dataset(_vimeo_opt(**kw))
+    for create in (datasets.create_dataset, jdatasets.create_dataset):
+        with pytest.raises(FileNotFoundError, match=what):
+            create(_vimeo_opt(**kw))
 
 
 YMLS = ["configs/train_smoke.yml", "configs/train_Ours_vimeo.yml",
