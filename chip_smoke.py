@@ -20,7 +20,11 @@ Phases, each fatal on failure:
      SIREN entries contract on the tensor cores, which sum in another order
      than the plain version: they are held by accuracy against a float64
      evaluation (whole MLPs) and, layer by layer, by the share of bit-equal
-     outputs and the reach of one flipped rounding. The DCN im2col also
+     outputs and the reach of one flipped rounding. The float32 SIREN's
+     streamed-weight layer (entry float32/layer, csrc/siren_layer.cu: a
+     layer that runs alone in an MLP cut into launches) is held bit-equal
+     to F.linear + sin at each shape its paths give it (LAYER_SHAPES) and
+     timed beside addmm + sin and its bound. The DCN im2col also
      with the L2 cold, and the whole dcn_v2 (kernel + addmm) at L1 (and in
      bfloat16 at L1 - L3 with the whole op's bound and library time); the
      splat also by phase (memset, count, scan, fill, accumulate), at other
@@ -62,7 +66,9 @@ Phases, each fatal on failure:
      SIREN of setting 6's synthesis net cut into two launches in either
      type), and at phase 11's (VideoINR's SIRENs at 4 LQ frames; the
      float16-sum splat, the bfloat16 DCN and SIREN at the knobs' training
-     shapes, each with its plain backward's time);
+     shapes, each with its plain backward's time); and the float32
+     streamed-weight layer, a row for each path that launches it (a
+     VideoINR request, a LIIF step, setting 6's synthesis net);
   7. training the two-anchor Ours (run before phase 6's lines): the CLI
      (motif_tpu_torch.train.main) on configs/train_smoke.yml with the
      shapes of the reference recipe train_Ours_vimeo.yml (nf 64, 5 + 40
@@ -97,13 +103,15 @@ Phases, each fatal on failure:
      EDVR and Super-SloMo at their configs/test_vid4_*.yml widths and
      depths (EDVR nf 128), random weights, DCN offsets perturbed: a request
      each (2 LQ frames 64x112 -> 256x448, 3 times) counted alone (the
-     family's DCNs; VideoINR's SIRENs, cut into 8 launches a time), held
+     family's DCNs; VideoINR's SIRENs, cut into 7 launches a time: 4
+     single layers on the streamed-weight kernel), held
      against its plain versions (1e-5), timed; the eval CLI
      over the family's yml on one Vid4 clip from a reference-format .pth
      against its plain versions (EVAL_GATES fp32); then the DCN at EDVR's
      16 channels a group (L1 - L3) and the float32 SIREN at VideoINR's
      three widths over a request's 114,688 tokens (a cut MLP also launch
-     by launch);
+     by launch, beside addmm + sin and its bound, and replayed from a CUDA
+     graph);
  10. the Adobe and arbitrary-scale recipes, the MoTIF settings, Ours_7 and
      Ours_flow (before phase 6's lines): an Adobe240-shaped tree (data/Vid4's
      clips ping-ponged to 32 frames, resized to 256x448, LR by MATLAB
@@ -125,7 +133,8 @@ Phases, each fatal on failure:
      LIIF (VideoINR at nf 64, 5 + 40 blocks, on the 4 LQ frames every
      training mode gives) through the training CLI on copies of
      train_INR_adobe.yml and train_INR_adobe_a.yml (LQ_size 64), counted
-     alone (90 DCNs, 30 float32 SIREN launches a step; use_gt always
+     alone (90 DCNs, 24 float32 SIREN launches a step, 15 of them single
+     layers on the streamed-weight kernel; use_gt always
      False), a recipe step by part at batch 24, the gradient gate from the
      deterministic state, the eval CLI on the trained models root, step
      file and init (test_vid4_liif.yml at ref_num 4), VideoINR's SIRENs at
@@ -773,6 +782,12 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
                                  f"(tol {tol}), bit-equal share {exact}, "
                                  f"accuracy {held}")
         worst = max(worst, err)
+        replay = None
+        if launches > 1 and not bf:
+            replay = replay_holds(run, run_plain, x)
+            if not replay["ok"]:
+                raise AssertionError(f"siren_mlp {name}: the cut MLP "
+                                     f"replayed from a graph: {replay}")
         ms = device_ms(run, reps=10)
         eager = cuda_ms(run, reps=10)
         plain = device_ms(run_plain, reps=10)
@@ -805,6 +820,7 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
               "peak": "bf16 tensor cores" if bf else "fp32",
               "library": "addmm + sin per layer (cuBLAS)", **line,
               **({"accuracy_vs_float64": held} if bf else {}),
+              **({"replay": replay} if replay else {}),
               **({"by_launch": siren_launch_ms(siren_kernel, x, ws, bs,
                                                skip_first)}
                  if launches > 1 and not bf else {})})
@@ -812,17 +828,36 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
     return dict(max_abs_err=worst, **first)
 
 
+def replay_holds(run, run_plain, x):
+    """run() (reading x) captured in a CUDA graph, replayed on -x written
+    into x in place: bit-equal to run() eagerly on -x and within 1e-5 of
+    the plain version; x restored after."""
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out = run()
+    x.neg_()
+    graph.replay()
+    eager = run()
+    err = max_err(out, run_plain())
+    equal = bool(torch.equal(out, eager))
+    x.neg_()
+    del graph, out, eager
+    return {"bit_equal_to_eager": equal, "max_abs_err": err, "tol": 1e-5,
+            "ok": equal and err <= 1e-5}
+
+
 def siren_launch_ms(siren_kernel, x, ws, bs, skip_first):
     """A float32 MLP cut into launches (`siren_kernel.segments`), each
     launch's layers timed as an MLP of their own on the input the launch
     reads (the plain version's activation before it), beside `addmm` +
-    `sin` of the same layers: device ms."""
+    `sin` of the same layers and the launch's bound: device ms, the bound's
+    share of each."""
     dims = [x.shape[-1]] + [w.shape[0] for w in ws]
     h, rows = x, []
     for s in siren_kernel.segments(dims):
-        lw, lb = list(ws[s.first:s.last]), list(bs[s.first:s.last])
-        lw[-1] = lw[-1][s.cols[0]:s.cols[1]].contiguous()
-        lb[-1] = lb[-1][s.cols[0]:s.cols[1]].contiguous()
+        lw, lb = ws[s.first:s.last], bs[s.first:s.last]
         sine = s.last < len(ws)
         skip = skip_first and s.first == 0
 
@@ -836,15 +871,95 @@ def siren_launch_ms(siren_kernel, x, ws, bs, skip_first):
                 if i < len(lw) - 1 or sine:
                     y = torch.sin(30.0 * y)
             return y
-        rows.append({"layers": [s.first, s.last], "cols": list(s.cols),
-                     "dims": s.dims, "smem": s.smem,
-                     "ms": device_ms(kernel, reps=10),
-                     "library_ms": device_ms(library, reps=10)})
-        if s.cols[1] == dims[s.last]:
-            h = siren_kernel.siren_mlp_plain(
-                h, ws[s.first:s.last], bs[s.first:s.last], 30.0, sine,
-                skip)
+        b_ms, b_by = siren_bound(h.shape[0], s.dims, sine, skip)
+        ms = device_ms(kernel, reps=10)
+        lib_ms = device_ms(library, reps=10)
+        rows.append({"layers": [s.first, s.last], "dims": s.dims,
+                     "kernel": "siren_layer" if s.layer else "resident",
+                     "smem": s.smem, "ms": ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "share": b_ms / ms, "library_share": b_ms / lib_ms})
+        h = siren_kernel.siren_mlp_plain(h, lw, lb, 30.0, sine, skip)
     return rows
+
+
+def siren_bound(n_tok, dims, sine_last, skip_first):
+    """The float32 bound of an MLP of widths `dims` over `n_tok` tokens:
+    x read once, the result written once, the weights and biases read
+    once; 2 flops a multiply-add and a sine."""
+    macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    sines = (sum(dims[1:-1]) + (dims[-1] if sine_last else 0)
+             + (dims[0] if skip_first else 0))
+    nbytes = 4 * (n_tok * (dims[0] + dims[-1]) + sum(
+        (a + 1) * b for a, b in zip(dims[:-1], dims[1:])))
+    return bound(nbytes, n_tok * (2 * macs + 2 * sines))
+
+
+# siren_layer at its launches' shapes (K, N, tokens, sine): VideoINR's
+# request (114,688 tokens a time at 256x448), LIIF training (393,216 a
+# time at batch 24 x 128²), setting 6's synthesis net (344,064), and a
+# layer no block held 8 columns of before (6000 -> 8)
+LAYER_SHAPES = {
+    "liif_train_1049x64": (1049, 64, 393216, True),
+    "liif_train_525x64": (525, 64, 393216, True),
+    "liif_train_463x64": (463, 64, 393216, True),
+    "liif_train_256x256": (256, 256, 393216, True),
+    "liif_train_256x3": (256, 3, 393216, False),
+    "request_201x64": (201, 64, 114688, True),
+    "request_525x64": (525, 64, 114688, True),
+    "request_256x256": (256, 256, 114688, True),
+    "request_256x3": (256, 3, 114688, False),
+    "synth_s6_331x64": (331, 64, 344064, True),
+    "wide_6000x8": (6000, 8, 114688, False),
+}
+
+
+def check_siren_layers_f32(dev, siren_kernel, kernels, shapes=LAYER_SHAPES):
+    """The streamed-weight kernel (siren_mlp's "float32/layer" entry, one
+    layer alone) at each shape of `shapes`: one launch, bit-equal to
+    F.linear + sin (max abs err 0: the same FMA chain in ascending k, the
+    bias, sinf's arithmetic), timed beside the plain version, `addmm` +
+    `sin` and its bound. Returns {name: row}."""
+    out = {}
+    for name, (K, N, n_tok, sine) in shapes.items():
+        x, ws, bs = siren_case(dev, [K, N], n_tok, torch.float32, False)
+
+        def run():
+            return siren_kernel.siren_mlp(x, ws, bs, 30.0, sine)
+
+        def run_plain():
+            return siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, sine)
+
+        def library():
+            y = torch.addmm(bs[0], x, ws[0].t())
+            return torch.sin(30.0 * y) if sine else y
+        n0 = kernels.ENTRY_LAUNCHES.get("siren_mlp/float32/layer", 0)
+        got = run()
+        launches = kernels.ENTRY_LAUNCHES.get("siren_mlp/float32/layer",
+                                              0) - n0
+        want = run_plain()
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        equal = bool(torch.equal(got, want))
+        del got, want
+        if launches != 1 or not equal:
+            raise AssertionError(f"siren_layer {K} -> {N} sine={sine}: "
+                                 f"{launches} launches, err {err}")
+        b_ms, b_by = siren_bound(n_tok, [K, N], sine, False)
+        ms = device_ms(run, reps=10)
+        lib_ms = device_ms(library, reps=10)
+        row = dict(ms=ms, plain_ms=device_ms(run_plain, reps=10),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   eager_ms=cuda_ms(run, reps=10), max_abs_err=err)
+        emit({"check": "siren_layer", "case": name, "K": K, "N": N,
+              "tokens": n_tok, "sine": sine, "launches": launches,
+              "bit_equal": equal, "share": b_ms / ms,
+              "library_share": b_ms / lib_ms, "vs_library": ms / lib_ms,
+              "library": "addmm + sin (cuBLAS)", **row})
+        out[name] = row
+        del x, ws, bs
+        torch.cuda.empty_cache()
+    return out
 
 
 def siren_case(dev, dims, n_tok, dtype, skip_first, scale=1.0):
@@ -2442,10 +2557,12 @@ def run_four_anchor(dev, card, args, mods, Siren):
 # (2 LQ frames 64x112 -> 256x448, 3 times): the ZSM trunk's 42 DCNs (6 in
 # the PCD, 36 in the ConvLSTM's), TMNet's 2 more in its comparison stage,
 # EDVR's 4 (its PCD and cascade, the frames batched), VideoINR's SIRENs
-# per time in 2 + 1 + 5 launches (siren_kernel.segments)
+# per time in 2 + 1 + 4 launches (siren_kernel.segments): 4 single layers
+# on the streamed-weight kernel, 3 resident runs
 BASELINES = {
     "LIIF": ("test_vid4_liif.yml", {"dcn_im2col/float32": 42,
-                                    "siren_mlp/float32/whole": 24}),
+                                    "siren_mlp/float32/whole": 9,
+                                    "siren_mlp/float32/layer": 12}),
     "ZSM": ("test_vid4_zsm.yml", {"dcn_im2col/float32": 42}),
     "TMNet": ("test_vid4_tmnet.yml", {"dcn_im2col/float32": 44}),
     "EDVR": ("test_vid4_edvr.yml", {"dcn_im2col/float32": 4}),
@@ -2625,12 +2742,16 @@ class PinnedScale(random.Random):
 def recipe_entries(which: str, setting: int) -> dict:
     """What one training step of a recipe launches: one splat at C = 130,
     the DCNs of 2 or 4 frames, the SIRENs it runs (setting 6's synthesis
-    net in two launches; Ours_7 has no STINF)."""
+    net in two launches: its 331 -> 64 layer alone, then the resident rest;
+    Ours_7 has no STINF and its synthesis net fits one block)."""
     four = which in ("Ours_44", "Ours_4")
-    sirens = 2 if which == "Ours_7" else 4 if setting >= 6 else 3
+    if which == "Ours_7":
+        return {"splat_fused/float32/C=130": 1, "dcn_im2col/float32": 42,
+                "siren_mlp/float32/whole": 2}
     return {"splat_fused/float32/C=130": 1,
             "dcn_im2col/float32": 90 if four else 42,
-            "siren_mlp/float32/whole": sirens}
+            "siren_mlp/float32/whole": 3,
+            **({"siren_mlp/float32/layer": 1} if setting >= 6 else {})}
 
 
 def make_trees(tmp: str, seed: int) -> dict:
@@ -3019,8 +3140,10 @@ def run_recipe_phase(dev, card, args, mods, Siren, tmp):
 LIIF_RECIPES = ("train_INR_adobe.yml", "train_INR_adobe_a.yml")
 # a LIIF step: VideoINR on the 4 LQ frames every training mode gives (3
 # frame pairs, 7 fused frames): 90 DCNs, and its three float32 SIRENs, cut
-# into 2 + 2 + 6 launches, at each of 3 times; no splat
-LIIF_ENTRIES = {"dcn_im2col/float32": 90, "siren_mlp/float32/whole": 30}
+# into 2 + 2 + 4 launches (5 single layers, 3 resident runs), at each of 3
+# times; no splat
+LIIF_ENTRIES = {"dcn_im2col/float32": 90, "siren_mlp/float32/whole": 9,
+                "siren_mlp/float32/layer": 15}
 # VideoINR's SIRENs at 4 LQ frames and nf 64 over one time of a recipe
 # step (batch 24 at 128²)
 LIIF_TOKENS = 24 * 128 * 128
@@ -3661,23 +3784,28 @@ def field_entries(name: str, model, siren_kernel) -> dict:
     launches of the MLPs it runs (`segments` of each: STINF and SINF, four
     times each under the local ensemble; res_liff's residual SIREN; the
     synthesis net unless it is the conv stack; at width 64 res_liff's 262
-    inputs cut the synthesis net into two launches)."""
+    inputs cut the synthesis net into two launches, its first layer alone
+    on the streamed-weight kernel)."""
     from motif_tpu_torch.models.siren import Siren
 
-    def launches(net):
+    counts = {"siren_mlp/float32/whole": 0, "siren_mlp/float32/layer": 0}
+
+    def add(net, times=1):
         ws = [m.weight for m in net._linears()]
-        return len(siren_kernel.segments([ws[0].shape[1]]
-                                         + [w.shape[0] for w in ws]))
-    sirens = (4 if model.local_ensemble else 1) * (
-        launches(model.flow_imnet) + launches(model.imnet))
+        for s in siren_kernel.segments([ws[0].shape[1]]
+                                       + [w.shape[0] for w in ws]):
+            counts["siren_mlp/float32/" + ("layer" if s.layer
+                                           else "whole")] += times
+    for net in (model.flow_imnet, model.imnet):
+        add(net, 4 if model.local_ensemble else 1)
     if model.res_liff:
-        sirens += launches(model.res_imnet)
+        add(model.res_imnet)
     if isinstance(model.synth_net, Siren):
-        sirens += launches(model.synth_net)
+        add(model.synth_net)
     splat = ("splat_fused/float32/generic" if name == "groups2"
              else "splat_fused/float32/C=130")
     return {splat: 1, "dcn_im2col/float32": 42,
-            "siren_mlp/float32/whole": sirens}
+            **{k: v for k, v in counts.items() if v}}
 
 
 def demo_frames(folder: str, seed: int) -> None:
@@ -4024,6 +4152,21 @@ def run_phase12(dev, card, args, mods, Siren):
 
 # ---------------------------------------------------------------------------
 
+LAYER_SRC = "motif_tpu_torch/csrc/siren_layer.cu"
+
+
+def f32_entries(entries: dict) -> dict:
+    """The float32 SIREN launches of `entries` by entry."""
+    return {k: entries.get(k, 0) for k in ("siren_mlp/float32/whole",
+                                           "siren_mlp/float32/layer")}
+
+
+def f32_sirens(entries: dict) -> int:
+    """Every float32 SIREN launch of `entries`: resident runs and single
+    layers."""
+    return sum(f32_entries(entries).values())
+
+
 def card_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -4097,6 +4240,7 @@ def main() -> int:
             dev, siren_kernel, Siren, kernels, bf16, True),
     }
     check_siren_layers(dev, siren_kernel)
+    layer_rows = check_siren_layers_f32(dev, siren_kernel, kernels)
     check_dcn_v2(dev, dcn)
     if set(results) != set(ENTRIES):
         raise AssertionError("an entry was not held against its plain version")
@@ -4191,8 +4335,10 @@ def main() -> int:
     worst = max(sirens.values(), key=lambda r: r["bound_ms"])
     rows.append({
         "name": "siren_mlp[float32/whole/VideoINR]", "kernel": "siren_mlp",
-        "route": "cuda", "source": src, "replaces": replaces,
-        "launches": base["LIIF"]["request"]["siren_mlp/float32/whole"],
+        "route": "cuda", "source": f"{src} + {LAYER_SRC}",
+        "replaces": replaces,
+        "launches": f32_sirens(base["LIIF"]["request"]),
+        "launches_by_entry": f32_entries(base["LIIF"]["request"]),
         "max_abs_err": max(r["max_abs_err"] for r in sirens.values()),
         **{k: sum(r[k] for r in sirens.values())
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "eager_ms")},
@@ -4224,8 +4370,8 @@ def main() -> int:
             "replaces": meta["siren_mlp"][1],
             "launches": (setting_requests["s6_serving"][
                 "siren_mlp/bfloat16/whole"] if dt == "bfloat16" else
-                int(RECIPE_CLI_STEPS * recipes["train_OursZSM_adobe_a.yml"][
-                    "siren_mlp/float32/whole"])),
+                int(RECIPE_CLI_STEPS * f32_sirens(
+                    recipes["train_OursZSM_adobe_a.yml"]))),
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms", "eager_ms")},
             "shape": "setting 6 synthesis net 331->64->64->64->256->3, "
@@ -4239,9 +4385,10 @@ def main() -> int:
     liif = LIIF_RECIPES[0]
     rows.append({
         "name": "siren_mlp[float32/whole/LIIF train]", "kernel": "siren_mlp",
-        "route": "cuda", "source": src, "replaces": replaces,
-        "launches": int(RECIPE_CLI_STEPS
-                        * liif_steps[liif]["siren_mlp/float32/whole"]),
+        "route": "cuda", "source": f"{src} + {LAYER_SRC}",
+        "replaces": replaces,
+        "launches": int(RECIPE_CLI_STEPS * f32_sirens(liif_steps[liif])),
+        "launches_by_entry": f32_entries(liif_steps[liif]),
         **{k: liif_row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "eager_ms", "backward_ms_encode_imnet")},
@@ -4292,6 +4439,40 @@ def main() -> int:
         **{k: p12["demo_stinf"][k] for k in keys},
         "shape": "STINF 67->64->64->256->3, 6,635,520 tokens (one demo "
                  "pair: 2 directions x 8 times x 576x720)"})
+    # the streamed-weight layer at its paths' shapes, one row a path: a
+    # time's single layers summed (their launches: the path's, counted
+    # alone in its phase)
+    layer_paths = (
+        ("VideoINR request", ("request_201x64", "request_525x64",
+                              "request_256x256", "request_256x3"),
+         base["LIIF"]["request"]["siren_mlp/float32/layer"],
+         "201->64 + 525->64 + 256->256 + 256->3, 114,688 tokens each (one "
+         "time of a 256x448 request)"),
+        ("LIIF train", ("liif_train_463x64", "liif_train_525x64",
+                        "liif_train_1049x64", "liif_train_256x256",
+                        "liif_train_256x3"),
+         int(RECIPE_CLI_STEPS * liif_steps[liif]["siren_mlp/float32/layer"]),
+         "463->64 + 525->64 + 1049->64 + 256->256 + 256->3, 393,216 tokens "
+         "each (one time of a LIIF step at batch 24, 128²)"),
+        ("setting 6 synth", ("synth_s6_331x64",),
+         int(RECIPE_CLI_STEPS * recipes["train_OursZSM_adobe_a.yml"][
+             "siren_mlp/float32/layer"]),
+         "331->64, 344,064 tokens (the first layer of setting 6's synthesis "
+         "net)"))
+    for path, cases, launches, shape in layer_paths:
+        rs = [layer_rows[c] for c in cases]
+        rows.append({
+            "name": f"siren_mlp[float32/layer/{path}]", "kernel": "siren_mlp",
+            "route": "cuda", "source": LAYER_SRC, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            **{k: sum(r[k] for r in rs)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                         "eager_ms")},
+            "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
+            "by_launch_ms": [r["ms"] for r in rs],
+            "by_launch_library_ms": [r["library_ms"] for r in rs],
+            "shape": shape})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

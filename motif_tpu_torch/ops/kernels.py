@@ -1,7 +1,8 @@
 """Build, load and count the package's CUDA kernels.
 
-Each kernel is one or two CUDA C++ sources under `motif_tpu_torch/csrc/`
-(`SOURCES`; `siren_mlp` has one per element type) with a plain C
+Each kernel is one or more CUDA C++ sources under `motif_tpu_torch/csrc/`
+(`SOURCES`; `siren_mlp` has three: the resident float32 kernel, the
+streamed-weight float32 layer and the bfloat16 one) with a plain C
 interface. At first use a source is compiled with `nvcc` for `sm_90a`
 into `build/kernels/` at the repository root (listed in `.gitignore`),
 under a name that carries a hash of the source, of every header under
@@ -33,7 +34,8 @@ from pathlib import Path
 import torch
 
 KERNELS = ("splat_fused", "dcn_im2col", "siren_mlp")     # the counters
-SOURCES = ("splat_fused", "dcn_im2col", "siren_mlp", "siren_mlp_bf16")
+SOURCES = ("splat_fused", "dcn_im2col", "siren_mlp", "siren_layer",
+           "siren_mlp_bf16")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

@@ -1,7 +1,7 @@
 """The fused SIREN MLP — the counterpart of motif_tpu/ops/siren_kernel.py,
-with the CUDA kernel `siren_mlp` (csrc/siren_mlp.cu for float32,
-csrc/siren_mlp_bf16.cu for bfloat16), which replaces the TPU kernel
-motif_tpu/ops/siren_kernel.py::_kernel.
+with the CUDA kernel `siren_mlp` (csrc/siren_mlp.cu and csrc/siren_layer.cu
+for float32, csrc/siren_mlp_bf16.cu for bfloat16), which replaces the TPU
+kernel motif_tpu/ops/siren_kernel.py::_kernel.
 
 Layout: x (..., Cin) row-major tokens; weights as torch stores them,
 (out, in) per layer; biases (out,). Returns (..., Cout).
@@ -13,9 +13,12 @@ starts with sin(omega0 * x) and is given the layers after it). In bfloat16
 the products accumulate in float32 and a value is rounded where the JAX
 package's composed bfloat16 path rounds: after the product, after the
 bias, after omega0 * and after the sine. The float32 entries are bit-equal
-to `F.linear` + `sin`; an MLP too large for one block's shared memory runs
-in several launches (`segments`), and is bit-equal all the same. The
-bfloat16 entries contract on the tensor cores,
+to `F.linear` + `sin`. In float32 an MLP whose weights fit one block's
+shared memory (every MoTIF SIREN) runs whole on the resident kernel
+(siren_mlp.cu); a larger one is cut by `segments` into runs of at least
+two layers on that kernel and single layers on the streamed-weight kernel
+(siren_layer.cu, counted as the entry "float32/layer"), bit-equal all the
+same. The bfloat16 entries contract on the tensor cores,
 which sum in another order than the plain version: they are held to it by
 accuracy against `siren_mlp_reference64` (`accuracy`, `layer_gate`,
 `mlp_gate`), not by equality.
@@ -59,6 +62,10 @@ _SIGNATURES = {"siren_mlp_forward": [
     ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p]}
+_SIGNATURES_LAYER = {"siren_layer_forward": [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 _SIGNATURES_BF16 = {"siren_mlp_bf16_forward": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -92,76 +99,55 @@ def plan(dims):
             if l < L - 1:
                 rows = max(rows, _pad8(dims[l + 1]))
             l += 1
-    return fused, rows, 4 * (_pack_size_one(dims) + 2 * rows * TILE)
+    return fused, rows, 4 * (layer_offsets(dims)[-1] + 2 * rows * TILE)
 
 
 class Launch(NamedTuple):
-    """One launch of the float32 kernel within an MLP (`segments`): layers
-    `first` .. `last` - 1, and of the last of them the output columns
-    `cols` (all of them unless the layer is cut into column slices);
-    `dims` its widths, and `fused`, `rows`, `smem` its `plan`."""
+    """One float32 launch within an MLP (`segments`): layers `first` ..
+    `last` - 1 with widths `dims`. `layer`: one layer on the
+    streamed-weight kernel (csrc/siren_layer.cu; `fused`, `rows` and `smem`
+    are None); else a run of the resident kernel (csrc/siren_mlp.cu) with
+    its `plan`: `fused`, `rows`, `smem`."""
     first: int
     last: int
-    cols: tuple
     dims: list
-    fused: list
-    rows: int
-    smem: int
+    layer: bool
+    fused: list | None
+    rows: int | None
+    smem: int | None
 
 
-def _launch(dims, first, last, cols=None):
-    cols = cols or (0, dims[last])
-    sub = dims[first:last] + [cols[1] - cols[0]]
-    return Launch(first, last, cols, sub, *plan(sub))
-
-
-def _column_slices(dims, l):
-    """Layer l alone in the fewest column slices whose launches fit (each
-    a multiple of 8 columns but the last), or None."""
-    n = dims[l + 1]
-    for parts in range(1, -(-n // 8) + 1):
-        w = _pad8(-(-n // parts))
-        if _launch(dims, l, l + 1, (0, w)).smem <= SMEM_LIMIT:
-            return [_launch(dims, l, l + 1, (c, min(c + w, n)))
-                    for c in range(0, n, w)]
-    return None
+def _launch(dims, first, last):
+    sub = dims[first:last + 1]
+    if last == first + 1:
+        return Launch(first, last, sub, True, None, None, None)
+    return Launch(first, last, sub, False, *plan(sub))
 
 
 def segments(dims):
-    """The float32 kernel's launches for layer widths `dims` (d[0] .. d[L];
-    from the pre-activation for the skip-first entry): a list of `Launch`.
-    An MLP whose weights and buffers fit one block's shared memory (every
-    MoTIF SIREN) is one launch. Otherwise it is cut into runs of whole
-    layers that each fit, the activation between two runs written to and
-    read from global memory, and a layer too large alone into column
-    slices, each a launch that reads the layer's whole input and writes its
-    columns of the activation. Of the cuts, the one that moves the fewest
-    activation elements per token (a cut at width d writes d and reads d,
-    a slice reads the input once more), then the fewest launches. Raises
-    where no cut fits (a layer whose input is too wide for even 8 columns
-    of weights)."""
+    """The float32 launches for layer widths `dims` (d[0] .. d[L]; from the
+    pre-activation for the skip-first entry): a list of `Launch`. A run of
+    at least two layers goes to the resident kernel where its weights and
+    buffers fit one block's shared memory (every MoTIF SIREN is one such
+    launch); a layer launched alone goes to the streamed-weight kernel,
+    which takes any width. The activation between two launches is written
+    to and read from global memory. Of the covers, the one that moves the
+    fewest activation elements per token (a cut at width d writes d and
+    reads d), then the one of fewest launches, then the first found (a
+    single layer before a resident run)."""
     L = len(dims) - 1
     best = [None] * (L + 1)     # (cost, launches) of the cheapest cover
     best[0] = (0, [])
     for j in range(1, L + 1):
         for i in range(j):
-            if best[i] is None:
+            run = _launch(dims, i, j)
+            if not run.layer and run.smem > SMEM_LIMIT:
                 continue
-            run = [_launch(dims, i, j)]
-            if run[0].smem > SMEM_LIMIT:
-                run = _column_slices(dims, i) if j == i + 1 else None
-                if run is None:
-                    continue
-            cost = (best[i][0] + (len(run) - 1) * dims[i]
-                    + (2 * dims[j] if j < L else 0))
-            cand = (cost, best[i][1] + run)
+            cost = best[i][0] + (2 * dims[j] if j < L else 0)
+            cand = (cost, best[i][1] + [run])
             if best[j] is None or (cand[0], len(cand[1])) < (
                     best[j][0], len(best[j][1])):
                 best[j] = cand
-    if best[L] is None:
-        raise ValueError(
-            f"siren_mlp: widths {dims} cannot be cut into launches that fit "
-            f"the {SMEM_LIMIT} B of shared memory a block may use")
     return best[L][1]
 
 
@@ -190,20 +176,26 @@ def siren_mlp_plain(x: torch.Tensor, weights, biases, omega0: float = 30.0,
 
 
 def pack_params(weights, biases) -> torch.Tensor:
-    """The float32 kernel's parameter buffer: per launch of `segments`, per
-    layer of it, the weight (its launch's columns) transposed to (in, out)
-    and zero-padded to a multiple of 8 columns, then the bias zero-padded
-    likewise. For an MLP of one launch: every layer so, back to back."""
-    dims = [weights[0].shape[1]] + [w.shape[0] for w in weights]
+    """The float32 kernels' parameter buffer: per layer, the weight
+    transposed to (in, out) and zero-padded to a multiple of 8 columns, then
+    the bias zero-padded likewise, back to back. Each launch of `segments`
+    reads its layers where they lie (`layer_offsets`): every layer starts
+    on a 32-byte boundary."""
     parts = []
-    for s in segments(dims):
-        for l in range(s.first, s.last):
-            c0, c1 = s.cols if l == s.last - 1 else (0, dims[l + 1])
-            w, b = weights[l][c0:c1], biases[l][c0:c1]
-            n = c1 - c0
-            parts.append(F.pad(w.t(), (0, _pad8(n) - n)).reshape(-1))
-            parts.append(F.pad(b, (0, _pad8(n) - n)))
+    for w, b in zip(weights, biases):
+        n = w.shape[0]
+        parts.append(F.pad(w.t(), (0, _pad8(n) - n)).reshape(-1))
+        parts.append(F.pad(b, (0, _pad8(n) - n)))
     return torch.cat(parts).contiguous()
+
+
+def layer_offsets(dims) -> list:
+    """Where layer l of widths `dims` starts in `pack_params`' buffer, in
+    elements, for each l, and the buffer's length last."""
+    offs = [0]
+    for k, n in zip(dims[:-1], dims[1:]):
+        offs.append(offs[-1] + (k + 1) * _pad8(n))
+    return offs
 
 
 def layout_bf16(dims):
@@ -412,37 +404,67 @@ def _mlp_forward(x, weights, biases, omega0, sine_last, skip_first, packed):
             kernels.check(err, "siren_mlp")
             h = out
         return out.reshape(*lead, dims[-1])
-    lib = kernels.load("siren_mlp", _SIGNATURES)
-    h, offset, L = xf, 0, len(weights)
+    offs = layer_offsets(dims)
+    h, L = xf, len(weights)
     for s in launches:
-        if s.cols[0] == 0:      # a new activation (the output at the end)
-            out = torch.empty((xf.shape[0], dims[s.last]), dtype=dtype,
-                              device=x.device)
-        n = len(s.dims) - 1
-        err = lib.siren_mlp_forward(
-            h.data_ptr(), packed.data_ptr() + 4 * offset,
-            out.data_ptr() + 4 * s.cols[0], xf.shape[0], dims[s.last],
-            (ctypes.c_int * len(s.dims))(*s.dims),
-            (ctypes.c_int * n)(*s.fused), n, s.rows, n_sm, float(omega0),
-            int(sine_last or s.last < L), int(skip_first and s.first == 0),
-            0, stream)
-        kernels.count("siren_mlp", entry)
-        kernels.check(err, "siren_mlp")
-        offset += _pack_size_one(s.dims)
-        if s.cols[1] == dims[s.last]:
-            h = out
+        out = torch.empty((xf.shape[0], dims[s.last]), dtype=dtype,
+                          device=x.device)
+        sine = sine_last or s.last < L
+        skip = skip_first and s.first == 0
+        if s.layer:
+            _layer_launch(h, packed, offs[s.first], out, omega0, sine, skip)
+        else:
+            lib = kernels.load("siren_mlp", _SIGNATURES)
+            n = len(s.dims) - 1
+            err = lib.siren_mlp_forward(
+                h.data_ptr(), packed.data_ptr() + 4 * offs[s.first],
+                out.data_ptr(), xf.shape[0], dims[s.last],
+                (ctypes.c_int * len(s.dims))(*s.dims),
+                (ctypes.c_int * n)(*s.fused), n, s.rows, n_sm,
+                float(omega0), int(sine), int(skip), 0, stream)
+            kernels.count("siren_mlp", entry)
+            kernels.check(err, "siren_mlp")
+        h = out
     return out.reshape(*lead, dims[-1])
 
 
-def _pack_size_one(dims) -> int:
-    return sum((k + 1) * _pad8(n) for k, n in zip(dims[:-1], dims[1:]))
+def _pitch(t: torch.Tensor) -> int | None:
+    """The row pitch of a 2-D tensor whose columns are adjacent and whose
+    rows do not overlap, else None."""
+    n, k = t.shape
+    if k > 1 and t.stride(1) != 1:
+        return None
+    if n <= 1:
+        return k
+    return t.stride(0) if t.stride(0) >= k else None
+
+
+def _layer_launch(x, packed, offset, out, omega0, sine, in_sine):
+    """One launch of the streamed-weight kernel (csrc/siren_layer.cu) on
+    float32 CUDA tensors: out = [sin(omega0 *)](x W^T + b), from sin(omega0
+    * x) with `in_sine`, for the layer whose parameters start `offset`
+    elements into `packed` (`pack_params`' layout). x (tokens, K) and out
+    (tokens, N) are 2-D with adjacent columns; their rows may lie further
+    apart (out may be columns of a wider activation), and the kernel reads
+    and writes them at that pitch. Counted as the entry "float32/layer"."""
+    ldx, ldo = _pitch(x), _pitch(out)
+    if ldx is None or ldo is None or x.shape[0] != out.shape[0]:
+        raise ValueError("siren_mlp: a layer launch takes 2-D rows of "
+                         "adjacent columns, as many in as out")
+    lib = kernels.load("siren_layer", _SIGNATURES_LAYER)
+    err = lib.siren_layer_forward(
+        x.data_ptr(), ldx, packed.data_ptr() + 4 * offset, out.data_ptr(),
+        ldo, x.shape[0], x.shape[1], out.shape[1], float(omega0), int(sine),
+        int(in_sine), kernels.stream_handle(x.device))
+    kernels.count("siren_mlp", "float32/layer")
+    kernels.check(err, "siren_mlp")
 
 
 def pack_size(dims, dtype: torch.dtype) -> int:
     """The length of `pack`'s buffer for widths `dims`."""
     if dtype == torch.bfloat16:
         return layout_bf16(dims)[1]
-    return sum(_pack_size_one(s.dims) for s in segments(dims))
+    return layer_offsets(dims)[-1]
 
 
 # ---------------------------------------------------------------------------

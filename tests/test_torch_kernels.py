@@ -674,16 +674,130 @@ def test_siren_mlp_other_widths(dev, dims, sine_last):
         rtol=0, atol=1e-5)
 
 
-def test_siren_mlp_too_wide_raises(dev):
+def test_siren_mlp_too_wide_runs_as_layers(dev):
     """A layer whose input is too wide for even 8 columns of weights in a
-    block cannot be cut into launches: it raises before any launch (an MLP
-    merely too large for one block runs in several, below)."""
-    ws, bs, g = _siren(dev, [6000, 8])
-    x = torch.zeros((10, 6000), device=dev)
-    before = kernels.LAUNCHES["siren_mlp"]
-    with pytest.raises(ValueError, match="shared memory"):
-        siren_kernel.siren_mlp(x, ws, bs)
-    assert kernels.LAUNCHES["siren_mlp"] == before
+    block (which raised before the streamed-weight kernel) runs as one
+    launch of that kernel per layer, bit-equal to the FMA chain in
+    ascending k (`_fma_chain`) and within 1e-5 of the plain version (over
+    3001 tokens cuBLAS does not sum 6000 inputs in ascending k)."""
+    for dims in ([6000, 8], [64, 6000, 8]):
+        ws, bs, g = _siren(dev, dims)
+        x = torch.rand((3001, dims[0]), device=dev, generator=g) * 2 - 1
+        before = kernels.ENTRY_LAUNCHES.get("siren_mlp/float32/layer", 0)
+        got = siren_kernel.siren_mlp(x, ws, bs)
+        assert kernels.ENTRY_LAUNCHES["siren_mlp/float32/layer"] - before \
+            == len(dims) - 1
+        h = x
+        for i, (w, b) in enumerate(zip(ws, bs)):
+            h = _fma_chain(h, w, b, i < len(ws) - 1)
+        assert torch.equal(got, h)
+        torch.testing.assert_close(
+            got, siren_kernel.siren_mlp_plain(x, ws, bs), rtol=0, atol=1e-5)
+
+
+# The streamed-weight kernel (csrc/siren_layer.cu): one layer, held bit for
+# bit to its definition, each output one chain of fp32 FMAs in ascending k,
+# then the bias, then sinf's own arithmetic (`_fma_chain`), and to F.linear
+# + sin, which sums so wherever cuBLAS takes the k in ascending order: at
+# every K here but 6000 (over 5001 tokens cuBLAS sums 6000 -> 32 and
+# 6000 -> 256 in another order: up to 1.24e-5 from the chain after the
+# sine on one H100).
+LAYER_K = [201, 263, 331, 463, 525, 1049, 6000]
+LAYER_N = [3, 4, 32, 64, 256]
+
+
+def _fma_chain(x, w, b, sine, omega0=30.0, in_sine=False):
+    """[sin(omega0 *)](x W^T + b) with each output summed by one chain of
+    float32 FMAs in ascending k from 0 (torch.addcmul with value 1: acc +
+    x * w rounded once), then the bias added; from sin(omega0 * x) with
+    `in_sine`."""
+    if in_sine:
+        x = torch.sin(omega0 * x)
+    acc = torch.zeros((x.shape[0], w.shape[0]), device=x.device)
+    for k in range(x.shape[1]):
+        acc = torch.addcmul(acc, x[:, k:k + 1], w[:, k])
+    acc = acc + b
+    return torch.sin(omega0 * acc) if sine else acc
+
+
+def _layer_launches(fn):
+    key = "siren_mlp/float32/layer"
+    before = kernels.ENTRY_LAUNCHES.get(key, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.ENTRY_LAUNCHES.get(key, 0) - before
+
+
+@pytest.mark.parametrize("N", LAYER_N)
+@pytest.mark.parametrize("K", LAYER_K)
+def test_siren_layer(dev, K, N):
+    """One layer K -> N alone, with and without the sine, over 5001 tokens
+    (not a multiple of any tile): one launch of the streamed-weight kernel,
+    bit-equal to the FMA chain in ascending k and, where cuBLAS sums in
+    that order (K < 6000), to the plain version."""
+    ws, bs, g = _siren(dev, [K, N])
+    x = torch.rand((5001, K), device=dev, generator=g) * 2 - 1
+    for sine in (False, True):
+        got, n = _layer_launches(lambda: siren_kernel.siren_mlp(
+            x, ws, bs, 30.0, sine))
+        assert n == 1
+        assert torch.equal(got, _fma_chain(x, ws[0], bs[0], sine))
+        if K < 6000:
+            assert torch.equal(got, siren_kernel.siren_mlp_plain(
+                x, ws, bs, 30.0, sine))
+
+
+@pytest.mark.parametrize("N", [3, 13, 32, 100])
+@pytest.mark.parametrize("K", [20, 64])
+def test_siren_layer_skip_first(dev, K, N):
+    """A skip-first MLP of one layer: the kernel takes sin(omega0 * x) of
+    the pre-activation first; bit-equal, with and without the last sine."""
+    ws, bs, g = _siren(dev, [K, N])
+    x = (torch.rand((5001, K), device=dev, generator=g) * 2 - 1) * 0.6
+    for sine in (False, True):
+        got, n = _layer_launches(lambda: siren_kernel.siren_mlp(
+            x, ws, bs, 30.0, sine, True))
+        assert n == 1
+        assert torch.equal(got, siren_kernel.siren_mlp_plain(
+            x, ws, bs, 30.0, sine, True))
+
+
+@pytest.mark.parametrize("K,N", [(525, 64), (331, 256), (256, 3)])
+def test_siren_layer_pitches(dev, K, N):
+    """x at a row pitch ldx from an address that is not 16-byte aligned,
+    the result written through ldo into columns of a wider activation
+    (also not 16-byte aligned): bit-equal, the other columns untouched,
+    and `siren_mlp` on such an x (which it copies) gives the same."""
+    ws, bs, g = _siren(dev, [K, N])
+    big = torch.rand((4097, K + 7), device=dev, generator=g) * 2 - 1
+    x = big[:, 1:K + 1]
+    want = siren_kernel.siren_mlp_plain(x.contiguous(), ws, bs, 30.0, True)
+    wide = torch.full((4097, N + 9), float("nan"), device=dev)
+    packed = siren_kernel.pack(ws, bs)
+    _, n = _layer_launches(lambda: siren_kernel._layer_launch(
+        x, packed, 0, wide[:, 5:N + 5], 30.0, True, False))
+    assert n == 1
+    assert torch.equal(wide[:, 5:N + 5], want)
+    assert wide[:, :5].isnan().all() and wide[:, N + 5:].isnan().all()
+    assert torch.equal(siren_kernel.siren_mlp(x, ws, bs, 30.0, True), want)
+
+
+def test_siren_layer_replays_from_a_cuda_graph(dev):
+    """1049 -> 64, 256 -> 256 and 256 -> 3 alone, captured in one CUDA graph
+    and replayed on new tokens written in place: bit-equal."""
+    cases = []
+    for K, N in ((1049, 64), (256, 256), (256, 3)):
+        ws, bs, g = _siren(dev, [K, N])
+        cases.append((torch.rand((3001, K), device=dev, generator=g), ws, bs))
+    static = [x.clone() for x, _, _ in cases]
+    new = [[x * sc for x, _, _ in cases] for sc in (1.0, -0.5)]
+    runs = _replayed(lambda: [siren_kernel.siren_mlp(s_, ws, bs, 30.0, True)
+                              for s_, (_, ws, bs) in zip(static, cases)],
+                     static, new)
+    for xs, outs in zip(new, runs):
+        for x, out, (_, ws, bs) in zip(xs, outs, cases):
+            assert torch.equal(out, siren_kernel.siren_mlp_plain(
+                x, ws, bs, 30.0, True))
 
 
 def test_wrappers_reject_float64(dev):
@@ -1368,28 +1482,41 @@ def test_siren_mlp_at_the_ours44_training_step(dev):
 # ---------------------------------------------------------------------------
 
 VIDEOINR_MLPS = [[201, 64, 64, 256, 64], [263, 64, 64, 256, 4],
-                 [525, 64, 64, 256, 256, 3]]
+                 [525, 64, 64, 256, 256, 3], [463, 64, 64, 256, 64],
+                 [525, 64, 64, 256, 4], [1049, 64, 64, 256, 256, 3]]
 
 
 @pytest.mark.parametrize("dims", VIDEOINR_MLPS,
                          ids=lambda d: "-".join(map(str, d)))
 @pytest.mark.parametrize("sine_last", [False, True])
 def test_siren_mlp_videoinr_widths(dev, dims, sine_last):
-    """VideoINR's SIRENs, two of them larger than one block's shared
-    memory, over a token count that is not a tile multiple: one launch per
-    entry of `segments`, each counted; the result within 1e-5 of the
-    plain version (the cut keeps every output's k order)."""
+    """VideoINR's SIRENs at two LQ frames and at the four of LIIF training,
+    all but one larger than one block's shared memory, over a token count
+    that is not a tile multiple: one launch per entry of `segments`, each
+    counted under its entry (a single layer "float32/layer", a resident
+    run "float32/whole"); the result within 1e-5 of the plain version (the
+    cut keeps every output's k order)."""
     ws, bs, g = _siren(dev, dims)
     x = torch.rand((5001, dims[0]), device=dev, generator=g) * 2 - 1
+    before = dict(kernels.ENTRY_LAUNCHES)
     got, n = _launches("siren_mlp", lambda: siren_kernel.siren_mlp(
         x, ws, bs, 30.0, sine_last))
-    assert n == len(siren_kernel.segments(dims))
+    launched = {k: v - before.get(k, 0)
+                for k, v in kernels.ENTRY_LAUNCHES.items()
+                if v != before.get(k, 0)}
+    plan = siren_kernel.segments(dims)
+    want_n = {"siren_mlp/float32/layer": sum(s.layer for s in plan),
+              "siren_mlp/float32/whole": sum(not s.layer for s in plan)}
+    assert n == len(plan)
+    assert launched == {k: v for k, v in want_n.items() if v}
     want = siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, sine_last)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 def test_siren_mlp_cut_replays_from_a_cuda_graph(dev):
-    """encode_imnet's five launches captured and replayed on new tokens."""
+    """encode_imnet's four launches (two single layers on the
+    streamed-weight kernel, one resident run, one more single layer)
+    captured and replayed on new tokens."""
     dims = VIDEOINR_MLPS[2]
     ws, bs, g = _siren(dev, dims)
     x = torch.rand((3000, dims[0]), device=dev, generator=g) * 2 - 1
@@ -1419,7 +1546,7 @@ def test_dcn_im2col_edvr_groups(dev, H, W):
 
 
 BASELINE_LAUNCHES = {  # one forward on 2 frames of 16x24, 3 times
-    "LIIF": {"dcn_im2col": 42, "siren_mlp": 3 * 8},
+    "LIIF": {"dcn_im2col": 42, "siren_mlp": 3 * 7},
     "ZSM": {"dcn_im2col": 42}, "TMNet": {"dcn_im2col": 44},
     "EDVR": {"dcn_im2col": 4}, "Super_SloMo": {}}
 

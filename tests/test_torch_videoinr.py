@@ -1,9 +1,10 @@
 """VideoINR (the reference's `LIIF`) against motif_tpu's on one flax init,
 bridged with motif_tpu_torch.checkpoint, in float64 on the CPU (plain kernel
 versions), at nf 16 with 1 / 1 residual blocks; and the float32
-`siren_mlp`'s cut of an MLP too large for one block (`segments`) at
+`siren_mlp`'s cut of an MLP too large for one block (`segments`: runs of
+the resident kernel and single layers on the streamed-weight kernel) at
 VideoINR's full widths, replayed launch by launch with the plain version on
-the parameters as the kernel reads them from its packed buffer.
+the parameters as the kernels read them from the packed buffer.
 
 Tolerances: the model 1e-9 (the same float64 formulas on both sides, the
 recurrent alignment amplifying summation-order differences of ~1e-15 a few
@@ -40,6 +41,13 @@ NF = 16
 FULL = {"feat_imnet": [201, 64, 64, 256, 64],
         "flow_imnet": [263, 64, 64, 256, 4],
         "encode_imnet": [525, 64, 64, 256, 256, 3]}
+# the same at the four LQ frames every training mode gives (LIIF training)
+TRAIN = {"train_feat_imnet": [463, 64, 64, 256, 64],
+         "train_flow_imnet": [525, 64, 64, 256, 4],
+         "train_encode_imnet": [1049, 64, 64, 256, 256, 3]}
+# single layers no block could hold 8 columns of before the
+# streamed-weight kernel
+WIDE = {"wide_6000": [6000, 8], "wide_64_6000": [64, 6000, 8]}
 MOTIF = [[67, 64, 64, 256, 3], [66, 64, 64, 256, 64],
          [198, 64, 64, 64, 256, 3], [64, 64, 256, 3]]
 
@@ -108,61 +116,75 @@ def test_full_width_sirens_have_the_planned_widths():
 
 @pytest.mark.parametrize("dims", MOTIF, ids=lambda d: "-".join(map(str, d)))
 def test_segments_keep_a_motif_mlp_in_one_launch(dims):
-    """Every MoTIF SIREN fits one block: one launch, its plan unchanged."""
+    """Every MoTIF SIREN fits one block: one launch of the resident kernel,
+    its plan unchanged."""
     (s,) = sk.segments(dims)
-    assert (s.first, s.last, s.cols, s.dims) == (0, len(dims) - 1,
-                                                (0, dims[-1]), dims)
+    assert (s.first, s.last, s.dims, s.layer) == (0, len(dims) - 1, dims,
+                                                  False)
     assert (s.fused, s.rows, s.smem) == sk.plan(dims)
     assert sk.pack_size(dims, torch.float32) == sum(
         (k + 1) * (-(-n // 8) * 8) for k, n in zip(dims[:-1], dims[1:]))
 
 
-@pytest.mark.parametrize("name", list(FULL))
+@pytest.mark.parametrize("name", list(FULL) + list(TRAIN))
 def test_segments_take_videoinr_widths(name):
-    """Each launch fits a block; the launches cover every layer once and
-    each cut layer's columns once. feat_imnet: its first layer alone, then
-    the fused rest; flow_imnet: one launch; encode_imnet: the first layer,
-    the next two, the 256 -> 256 layer in two column halves, the last."""
-    dims = FULL[name]
+    """Each resident launch fits a block, each other launch is one layer on
+    the streamed-weight kernel; the launches cover every layer once, in
+    order. feat_imnet: its first layer alone, then the fused rest;
+    flow_imnet: one launch at two frames, its first layer alone then the
+    rest at four; encode_imnet: the first layer, the next two, the
+    256 -> 256 layer and the last, each alone."""
+    dims = {**FULL, **TRAIN}[name]
     launches = sk.segments(dims)
-    want = {"feat_imnet": [(0, 1), (1, 4)], "flow_imnet": [(0, 4)],
-            "encode_imnet": [(0, 1), (1, 3), (3, 4), (3, 4), (4, 5)]}[name]
-    assert [(s.first, s.last) for s in launches] == want
-    assert all(s.smem <= sk.SMEM_LIMIT for s in launches)
+    L, W = "layer", "resident"
+    want = {"feat_imnet": [(0, 1, L), (1, 4, W)],
+            "flow_imnet": [(0, 4, W)],
+            "encode_imnet": [(0, 1, L), (1, 3, W), (3, 4, L), (4, 5, L)],
+            "train_feat_imnet": [(0, 1, L), (1, 4, W)],
+            "train_flow_imnet": [(0, 1, L), (1, 4, W)],
+            "train_encode_imnet": [(0, 1, L), (1, 3, W), (3, 4, L),
+                                   (4, 5, L)]}[name]
+    assert [(s.first, s.last, L if s.layer else W) for s in launches] == want
     assert sk.plan(dims)[2] > sk.SMEM_LIMIT or len(launches) == 1
-    layer, col = 0, 0
+    layer = 0
     for s in launches:
-        assert s.first == layer and s.cols[0] == col
-        assert s.dims == dims[s.first:s.last] + [s.cols[1] - s.cols[0]]
-        assert (s.fused, s.rows, s.smem) == sk.plan(s.dims)
-        col = s.cols[1] % dims[s.last]
-        layer = s.last if col == 0 else s.first
-    assert (layer, col) == (len(dims) - 1, 0)
+        assert s.first == layer and s.dims == dims[s.first:s.last + 1]
+        if s.layer:
+            assert s.last == s.first + 1
+            assert (s.fused, s.rows, s.smem) == (None, None, None)
+        else:
+            assert s.last >= s.first + 2
+            assert (s.fused, s.rows, s.smem) == sk.plan(s.dims)
+            assert s.smem <= sk.SMEM_LIMIT
+        layer = s.last
+    assert layer == len(dims) - 1
 
 
 def _unpack(buf, dims):
-    """The (weight (out, in), bias) of each layer of one launch, read back
-    from its part of the packed buffer."""
-    ws, bs, off = [], [], 0
-    for k, n in zip(dims[:-1], dims[1:]):
+    """The (weight (out, in), bias) of each layer, read back from the packed
+    buffer at the offsets `layer_offsets` gives."""
+    offs = sk.layer_offsets(dims)
+    ws, bs = [], []
+    for l, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
         np_ = -(-n // 8) * 8
+        off = offs[l]
+        assert offs[l + 1] == off + (k + 1) * np_
         w = buf[off:off + k * np_].view(k, np_)
-        assert not w[:, n:].any()
+        assert not w[:, n:].any() and not buf[off + k * np_ + n:
+                                              off + (k + 1) * np_].any()
         ws.append(w[:, :n].t())
         bs.append(buf[off + k * np_:off + k * np_ + n])
-        off += (k + 1) * np_
-    return ws, bs, off
+    return ws, bs
 
 
 @pytest.mark.parametrize("sine_last", [False, True])
-@pytest.mark.parametrize("name", list(FULL))
+@pytest.mark.parametrize("name", list(FULL) + list(TRAIN) + list(WIDE))
 def test_segments_reproduce_the_plain_mlp(name, sine_last):
     """The launches of `segments` replayed with `siren_mlp_plain`: each on
     its input (x, or the previous launch's activation), with the weights
-    read from its part of `pack`'s buffer, a sine after its last layer
-    unless that is the MLP's last linear one, its columns written into the
-    activation. Equals the plain MLP to 1e-12."""
-    dims = FULL[name]
+    read from the packed buffer, a sine after its last layer unless that
+    is the MLP's last linear one. Equals the plain MLP to 1e-12."""
+    dims = {**FULL, **TRAIN, **WIDE}[name]
     g = torch.Generator().manual_seed(2)
     ws = [(torch.rand((o, i), generator=g, dtype=torch.float64) * 2 - 1)
           * hidden_bound(i, 30.0) for i, o in zip(dims[:-1], dims[1:])]
@@ -171,27 +193,23 @@ def test_segments_reproduce_the_plain_mlp(name, sine_last):
     x = torch.rand((257, dims[0]), generator=g, dtype=torch.float64) * 2 - 1
     buf = sk.pack(ws, bs)
     assert buf.numel() == sk.pack_size(dims, torch.float32)
-    h, off, L = x, 0, len(ws)
+    lws, lbs = _unpack(buf, dims)
+    h, L = x, len(ws)
     for s in sk.segments(dims):
-        lws, lbs, n = _unpack(buf[off:], s.dims)
-        off += n
-        if s.cols[0] == 0:
-            out = torch.full((x.shape[0], dims[s.last]), float("nan"),
-                             dtype=x.dtype)
-        out[:, s.cols[0]:s.cols[1]] = sk.siren_mlp_plain(
-            h, lws, lbs, 30.0, sine_last or s.last < L)
-        if s.cols[1] == dims[s.last]:
-            h = out
-    assert off == buf.numel()
+        h = sk.siren_mlp_plain(h, lws[s.first:s.last], lbs[s.first:s.last],
+                               30.0, sine_last or s.last < L)
     want = sk.siren_mlp_plain(x, ws, bs, 30.0, sine_last)
     np.testing.assert_allclose(h.numpy(), want.numpy(), rtol=0, atol=1e-12)
 
 
-def test_segments_refuse_what_cannot_be_cut():
-    """A layer whose input is too wide for 8 columns of weights in a block
-    raises, as an MLP that did not fit raised before; 5215 inputs fit."""
-    with pytest.raises(ValueError, match="shared memory"):
-        sk.segments([6000, 8])
-    with pytest.raises(ValueError, match="shared memory"):
-        sk.segments([64, 6000, 8])
-    assert sk.segments([5215, 8])[0].smem == sk.SMEM_LIMIT
+@pytest.mark.parametrize("name", list(WIDE))
+def test_segments_refuse_what_cannot_be_cut(name):
+    """What no launch could hold before the streamed-weight kernel (a layer
+    whose input is too wide for 8 columns of weights in a block, which
+    raised) now plans: each such layer one launch of that kernel, which
+    streams its weights; nothing raises."""
+    dims = WIDE[name]
+    launches = sk.segments(dims)
+    assert [(s.first, s.last, s.layer) for s in launches] == [
+        (l, l + 1, True) for l in range(len(dims) - 1)]
+    assert sk.plan(dims)[2] > sk.SMEM_LIMIT
