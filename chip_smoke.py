@@ -23,8 +23,11 @@ Phases, each fatal on failure:
      outputs and the reach of one flipped rounding. The float32 SIREN's
      streamed-weight layer (entry float32/layer, csrc/siren_layer.cu: a
      layer that runs alone in an MLP cut into launches) is held bit-equal
-     to F.linear + sin at each shape its paths give it (LAYER_SHAPES) and
-     timed beside addmm + sin and its bound. The DCN im2col also
+     to its definition, one chain of float32 FMAs in ascending k then the
+     bias and sinf (`fma_chain`), at each shape its paths give it
+     (LAYER_SHAPES), its distance from F.linear + sin and from the plain
+     version printed beside it, and timed beside addmm + sin and its
+     bound. The DCN im2col also
      with the L2 cold, and the whole dcn_v2 (kernel + addmm) at L1 (and in
      bfloat16 at L1 - L3 with the whole op's bound and library time); the
      splat also by phase (memset, count, scan, fill, accumulate), at other
@@ -57,7 +60,7 @@ Phases, each fatal on failure:
      of four wrong kernel outputs planted, printing which the serving gate
      refuses: it must refuse the splat's targets half a pixel off;
   6. a {"kernels": [...]} line, the card line, and the result line, printed
-     last, after phases 7 to 11; each kernel row also carries its
+     last, after phases 7 to 13; each kernel row also carries its
      launches on every path (requests, eval CLIs, training steps of both
      models, the baselines, the recipes of phase 10) and its plain
      backward's device ms in one two-anchor step; more rows hold the
@@ -166,7 +169,20 @@ Phases, each fatal on failure:
      data/Vid4 clip, counted (their PNGs, .flo files read back, the
      summary); the native host core built, and the `_a` collate at batch
      24 with it and with numpy (COLLATE_GATE); PWCNet and PWCNetLight on
-     a seeded 448x256 pair against the CPU in float32 (PWC_RTOL).
+     a seeded 448x256 pair against the CPU in float32 (PWC_RTOL);
+ 13. motif_tpu's orbax train states, read without JAX (before phase 6's
+     lines): the committed state tests/fixtures/orbax_state, which
+     motif_tpu wrote, read by checkpoint.read_orbax_tree, every leaf's
+     dtype, shape and sha256 against the list orbax's own restore made,
+     the zstd library that decoded it and the read's ms; phase 7's
+     full-width Ours trainer after one step, its TrainState laid out as
+     motif_tpu saves it and mapped by checkpoint.load_optax_train_state
+     (the function restore_train_state uses) onto a fresh trainer, the
+     launch counters set to 0 before the step and read after request
+     (a)'s inputs served from the restored model; the next step of both
+     trainers on the plain versions under the deterministic algorithms
+     bit-equal (loss and every parameter), and the request held against
+     its plain versions at request (a)'s gate.
 Every request goes through Evaluator.infer, which on CUDA replays one
 captured CUDA graph per shape bucket: each request of phases 4, 8 and 9 is
 also held, replayed, against the same request run eagerly (`_infer_eager`,
@@ -194,6 +210,7 @@ import hashlib
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -914,12 +931,27 @@ LAYER_SHAPES = {
 }
 
 
+def fma_chain(x, w, b, sine, omega0=30.0):
+    """The streamed-weight layer's definition, as the card tests hold it
+    (tests/test_torch_kernels.py::_fma_chain): [sin(omega0 *)](x W^T + b)
+    with each output one chain of float32 FMAs in ascending k from 0
+    (torch.addcmul with value 1: acc + x * w rounded once), then the bias
+    added, then torch.sin (sinf's arithmetic)."""
+    acc = torch.zeros((x.shape[0], w.shape[0]), device=x.device)
+    for k in range(x.shape[1]):
+        acc.addcmul_(x[:, k:k + 1], w[:, k])
+    acc += b
+    return torch.sin(omega0 * acc) if sine else acc
+
+
 def check_siren_layers_f32(dev, siren_kernel, kernels, shapes=LAYER_SHAPES):
     """The streamed-weight kernel (siren_mlp's "float32/layer" entry, one
-    layer alone) at each shape of `shapes`: one launch, bit-equal to
-    F.linear + sin (max abs err 0: the same FMA chain in ascending k, the
-    bias, sinf's arithmetic), timed beside the plain version, `addmm` +
-    `sin` and its bound. Returns {name: row}."""
+    layer alone) at each shape of `shapes`: one launch, bit-equal to the
+    ascending-k FMA chain (`fma_chain`: max abs err 0), which does not
+    depend on the order cuBLAS picks; its distance from F.linear + sin and
+    from the plain version (siren_mlp_plain) printed beside it; timed
+    beside the plain version, `addmm` + `sin` and its bound. Returns
+    {name: row}."""
     out = {}
     for name, (K, N, n_tok, sine) in shapes.items():
         x, ws, bs = siren_case(dev, [K, N], n_tok, torch.float32, False)
@@ -937,23 +969,33 @@ def check_siren_layers_f32(dev, siren_kernel, kernels, shapes=LAYER_SHAPES):
         got = run()
         launches = kernels.ENTRY_LAUNCHES.get("siren_mlp/float32/layer",
                                               0) - n0
-        want = run_plain()
+        chain = fma_chain(x, ws[0], bs[0], sine)
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        equal = bool(torch.equal(got, want))
-        del got, want
+        err = max_err(got, chain)
+        equal = bool(torch.equal(got, chain))
+        del chain
+        linear = torch.nn.functional.linear(x, ws[0], bs[0])
+        linear = torch.sin(30.0 * linear) if sine else linear
+        err_linear = max_err(got, linear)
+        del linear
+        err_plain = max_err(got, run_plain())
+        del got
         if launches != 1 or not equal:
             raise AssertionError(f"siren_layer {K} -> {N} sine={sine}: "
-                                 f"{launches} launches, err {err}")
+                                 f"{launches} launches, {err} from the "
+                                 "ascending-k FMA chain")
         b_ms, b_by = siren_bound(n_tok, [K, N], sine, False)
         ms = device_ms(run, reps=10)
         lib_ms = device_ms(library, reps=10)
         row = dict(ms=ms, plain_ms=device_ms(run_plain, reps=10),
                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                   eager_ms=cuda_ms(run, reps=10), max_abs_err=err)
+                   eager_ms=cuda_ms(run, reps=10), max_abs_err=err,
+                   max_abs_err_vs_plain=err_plain,
+                   max_abs_err_vs_linear=err_linear)
         emit({"check": "siren_layer", "case": name, "K": K, "N": N,
               "tokens": n_tok, "sine": sine, "launches": launches,
-              "bit_equal": equal, "share": b_ms / ms,
+              "bit_equal": equal, "reference": "ascending-k FMA chain",
+              "share": b_ms / ms,
               "library_share": b_ms / lib_ms, "vs_library": ms / lib_ms,
               "library": "addmm + sin (cuBLAS)", **row})
         out[name] = row
@@ -4151,6 +4193,223 @@ def run_phase12(dev, card, args, mods, Siren):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: motif_tpu's orbax train states, read without JAX
+# ---------------------------------------------------------------------------
+
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "orbax_state")
+
+
+def leaf_digests(tree, at=()) -> dict:
+    """{key path: (dtype, shape, sha256 of the C-order bytes)} of a tree
+    `read_orbax_tree` gives (a list index as its decimal string, a
+    bfloat16 tensor as its uint16 bits), None for an empty leaf: the form
+    of tests/fixtures/orbax_state/leaves.json."""
+    if isinstance(tree, dict) and tree:
+        return {p: d for k, v in tree.items()
+                for p, d in leaf_digests(v, at + (k,)).items()}
+    if isinstance(tree, list) and tree:
+        return {p: d for i, v in enumerate(tree)
+                for p, d in leaf_digests(v, at + (str(i),)).items()}
+    if tree is None or isinstance(tree, (dict, list)):
+        return {at: None}
+    if isinstance(tree, torch.Tensor):
+        raw, dtype = tree.view(torch.int16).numpy().view(np.uint16), \
+            "bfloat16"
+    else:
+        raw = np.asarray(tree)
+        dtype = raw.dtype.name
+    return {at: (dtype, list(raw.shape), hashlib.sha256(
+        np.ascontiguousarray(raw).tobytes()).hexdigest())}
+
+
+def read_fixture(card) -> float:
+    """The committed state motif_tpu wrote (tools/make_orbax_fixture.py)
+    read by `read_orbax_tree` on this machine: every leaf's dtype, shape
+    and sha256 as orbax's own restore listed them, the same keys stored out
+    of line. Returns the read's milliseconds."""
+    from motif_tpu_torch import checkpoint, ocdbt
+    from motif_tpu_torch.utils import zstd
+
+    with open(os.path.join(FIXTURE, "leaves.json")) as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    tree = checkpoint.read_orbax_tree(FIXTURE)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    got = leaf_digests(tree)
+    want = {tuple(r["path"]): None if r["dtype"] is None else
+            (r["dtype"], r["shape"], r["sha256"]) for r in spec["leaves"]}
+    bad = sorted("/".join(p) for p in set(got) | set(want)
+                 if got.get(p, "absent") != want.get(p, "absent"))
+    store = ocdbt.OcdbtStore(os.path.join(FIXTURE, spec["step_dir"]))
+    out_of_line = sorted(k.decode() for k, v in store.entries.items()
+                         if not isinstance(v, bytes))
+    emit({"phase": "orbax_fixture", "card": card,
+          "zstd": f"ctypes {zstd.LIBRARY} {zstd.version()}",
+          "read_ms": read_ms, "leaves": len(want),
+          "leaves_equal": len(want) - len(bad), "mismatched": bad[:10],
+          "out_of_line": out_of_line, "nodes": store.nodes,
+          "written_by": f"orbax {spec['orbax']}"})
+    if bad or out_of_line != spec["out_of_line"]:
+        raise AssertionError(f"orbax fixture: leaves {bad[:10]} differ from "
+                             f"leaves.json; out of line {out_of_line}")
+    return read_ms
+
+
+def flax_tree(tensors: dict) -> dict:
+    """motif_tpu's flax tree of a {port key: tensor} map, numpy on the
+    host: the inverse of checkpoint.state_dict_from_flax (the flax path of
+    each key, kernels HWIO / IO, the scanned families' blocks stacked on a
+    leading axis under <family>/block, as
+    motif_tpu/checkpoint.py::_stack_scanned_blocks lays them)."""
+    from motif_tpu_torch import checkpoint
+
+    tree: dict = {}
+    for key, t in tensors.items():
+        path = checkpoint.torch_key_to_flax_path(key)
+        a = t.detach().cpu().numpy()
+        if path[-1] == "kernel" and a.ndim == 4:
+            a = a.transpose((2, 3, 0, 1) if any(
+                n in path for n in checkpoint.TRANSPOSED_CONV_NAMES)
+                else (2, 3, 1, 0))
+        elif path[-1] == "kernel" and a.ndim == 2:
+            a = a.T
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return _stack_blocks(tree, checkpoint.SCANNED_BLOCK_FAMILIES)
+
+
+def _stack_blocks(tree, families):
+    if not isinstance(tree, dict):
+        return tree
+    for fam in families:
+        idx = sorted(int(m.group(1)) for k in tree
+                     if (m := re.fullmatch(re.escape(fam) + r"_(\d+)", k)))
+        if idx and idx == list(range(len(idx))):
+            tree[fam] = {"block": _stack_leaves(
+                [tree.pop(f"{fam}_{i}") for i in idx])}
+    return {k: _stack_blocks(v, families) for k, v in tree.items()}
+
+
+def _stack_leaves(blocks):
+    if isinstance(blocks[0], dict):
+        return {k: _stack_leaves([b[k] for b in blocks]) for k in blocks[0]}
+    return np.stack(blocks)
+
+
+def optax_tree(trainer) -> dict:
+    """The tree motif_tpu would have saved for `trainer` (Adam): its
+    TrainState as orbax's raw restore gives it back, {params, opt_state:
+    [scale_by_adam's {count, mu, nu}, the schedule's {count}], step},
+    int32 counts and step."""
+    names = [n for n, _ in trainer.model.named_parameters()]
+    state = trainer.optimizer.state_dict()["state"]
+    counts = {int(float(s["step"])) for s in state.values()}
+    if len(counts) != 1 or len(state) != len(names):
+        raise AssertionError(f"optimiser state: counts {counts}, "
+                             f"{len(state)} of {len(names)} parameters")
+    count = np.asarray(counts.pop(), np.int32)
+    moments = {m: flax_tree({n: state[i][key] for i, n in enumerate(names)})
+               for m, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
+    return {"params": flax_tree(trainer.model.state_dict()),
+            "opt_state": [{"count": count, **moments},
+                          {"count": count.copy()}],
+            "step": np.asarray(trainer.step_count, np.int32)}
+
+
+def run_orbax(dev, card, mods):
+    """Phase 13. (a) The committed fixture read on this machine
+    (`read_fixture`). (b) The full-width two-anchor Ours of phase 7's yml
+    after one step on its first batch, with the launch counters set to 0
+    before the step: its TrainState in motif_tpu's layout (`optax_tree`)
+    mapped onto a fresh trainer whose weights were zeroed by the function
+    `restore_train_state` uses (`checkpoint.load_optax_train_state`);
+    the next step of both trainers on the plain versions under the
+    deterministic algorithms (the kernels' float sums are not run to run
+    bit-equal) equal bit for bit, loss and every parameter, the restored
+    trainer's generator aligned with the first's (a resumed run draws
+    from a fresh one, as motif_tpu's does); request (a)'s inputs served
+    from the restored model through Evaluator.infer, the counters read
+    after it, then held against its plain versions at request (a)'s gate.
+    Returns the launches by entry of the step and the request."""
+    from motif_tpu_torch import checkpoint, train
+    from motif_tpu_torch.data import device_prefetch
+    from motif_tpu_torch.eval import Evaluator
+    from motif_tpu_torch.utils import config as cfg
+
+    softsplat, dcn, siren_kernel, kernels = mods
+    t0 = time.perf_counter()
+    read_ms = read_fixture(card)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        opt = cfg.parse(train_yml(tmp), is_train=True)
+        model, loader, tr = train.setup(opt, dev, dataset_seed=0)
+        batches = device_prefetch(loader.epoch(0), dev)
+        b1, b2 = next(batches), next(batches)
+        batches.close()
+        _, _, tr2 = train.setup(opt, dev, dataset_seed=0)
+    with torch.no_grad():
+        for p in tr2.params:
+            p.zero_()
+
+    # ---- the main path: counters to 0, a step, the mapping, a request --
+    kernels.reset_launches()
+    tr.step(b1)
+    tree = optax_tree(tr)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter()
+    checkpoint.load_optax_train_state(tr2, tree, "the phase-13 TrainState")
+    torch.cuda.synchronize()
+    map_ms = (time.perf_counter() - t_map) * 1e3
+    rng = np.random.default_rng(0)
+    lq_a = rng.random((1, 4, 64, 112, 3), dtype=np.float32)
+    t3 = np.linspace(0, 1, 3, dtype=np.float32)[None]
+    restored = tr2.model
+    ev = Evaluator(restored, scale=4, iters=4, chunk=3, device=dev)
+    frames, _ = ev.infer(lq_a, t3, (256, 448))
+    entries = {k: v for k, v in kernels.ENTRY_LAUNCHES.items() if v}
+    want_entries = {k: TRAIN_ENTRIES[k] + EVAL_ENTRIES["fp32"][k]
+                    for k in TRAIN_ENTRIES}
+    check_frames("orbax_a", frames, (3, 1, 256, 448, 3))
+    slice_vs_plain(ev, restored, lq_a, t3, "orbax_a", 1e-5, 1e-5, mods)
+
+    # ---- the next step of both trainers, bit for bit ----
+    tr2._rng.setstate(tr._rng.getstate())
+    same_state = (tr2.step_count == tr.step_count and all(
+        torch.equal(a, b) for a, b in zip(tr.params, tr2.params)))
+    with plain_versions(softsplat, dcn, siren_kernel), deterministic():
+        aux = tr.step(b2)
+        aux2 = tr2.step(b2)
+    torch.cuda.synchronize()
+    equal = [torch.equal(a, b) for a, b in zip(tr.params, tr2.params)]
+    emit({"phase": "orbax_resume", "card": card,
+          "params": sum(p.numel() for p in tr.params),
+          "tensors": len(tr.params), "step_count": tr2.step_count,
+          "adam_count": int(tree["opt_state"][0]["count"]),
+          "fixture_read_ms": read_ms, "map_ms": map_ms,
+          "restored_bit_equal": same_state,
+          "next_step_loss": float(aux["loss"]),
+          "next_step_loss_restored": float(aux2["loss"]),
+          "next_step_use_gt": [aux["use_gt"], aux2["use_gt"]],
+          "next_step_params_bit_equal": sum(equal),
+          "entries": entries, "entries_wanted": want_entries,
+          "seconds": time.perf_counter() - t0})
+    if not same_state or not all(equal) or \
+            float(aux["loss"]) != float(aux2["loss"]):
+        raise AssertionError(
+            f"orbax resume: restored state equal {same_state}, "
+            f"{len(equal) - sum(equal)} parameters differ after the next "
+            f"step, loss {float(aux['loss'])} vs {float(aux2['loss'])}")
+    if entries != want_entries:
+        raise AssertionError(f"orbax resume launched {entries}, wanted "
+                             f"{want_entries}")
+    del tr, tr2, model, restored, ev
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
 
 LAYER_SRC = "motif_tpu_torch/csrc/siren_layer.cu"
 
@@ -4259,6 +4518,7 @@ def main() -> int:
         liif_steps, liif_row, bf16_steps, bf16_rows = run_phase11(
             dev, card, mods, Siren, tmp, trees, recipe_lines)
     p12 = run_phase12(dev, card, args, mods, Siren)
+    orbax_entries = run_orbax(dev, card, mods)
 
     meta = {
         "splat_fused": ("motif_tpu_torch/csrc/splat_fused.cu",
@@ -4314,6 +4574,7 @@ def main() -> int:
                                   for f, e in p12["fields"].items()}
         row["launches_entry_clis"] = {c: e.get(entry, 0)
                                       for c, e in p12["clis"].items()}
+        row["launches_orbax_resume"] = orbax_entries.get(entry, 0)
         if "device_kernels_per_call" in r:
             row["device_kernels_per_call"] = r["device_kernels_per_call"]
         if name in also:
@@ -4466,6 +4727,9 @@ def main() -> int:
             "route": "cuda", "source": LAYER_SRC, "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "max_abs_err_reference": "ascending-k FMA chain",
+            "max_abs_err_vs_plain": max(r["max_abs_err_vs_plain"]
+                                        for r in rs),
             **{k: sum(r[k] for r in rs)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                          "eager_ms")},

@@ -47,10 +47,12 @@
 //   broadcast float4s.
 // - Order of the sums: every output is one chain of fp32 FMAs in
 //   ascending k from 0, then + bias, no split-K and no zero terms (the last
-//   K tile runs only its k): the order of cuBLAS's fp32 GEMM, so a launch
-//   is bit-equal to F.linear (+ sin). No TF32, no tensor cores. The sine
-//   is sin_rr (sine.cuh): sinf bit for bit, branch-free; the motion SIRENs'
-//   outputs place splat pixels by floor().
+//   K tile runs only its k). That chain is the contract: a launch is
+//   bit-equal to it, and to F.linear (+ sin) only where cuBLAS's fp32 GEMM
+//   sums in the same order, which it need not (a split k at some shapes).
+//   No TF32, no tensor cores. The sine is sin_rr (sine.cuh): sinf bit for
+//   bit, branch-free; the motion SIRENs' outputs place splat pixels by
+//   floor().
 //
 // Layout (float32):
 //   x       (n_tok, K) in rows ldx >= K elements apart

@@ -12,8 +12,8 @@ The frames are cropped to a multiple of 4 (after `--downsample`, a MATLAB
 bicubic resize); a pair (f0, f1) goes in as the four LQ frames [f0, f0,
 f1, f1]. The model is the yml-less `define_g({"which_model_G": model})`,
 with random weights from seed 0 unless `--checkpoint` names a reference
-`.pth`, a `step_<n>` train state or a models root
-(`checkpoint.load_checkpoint`). Every pair goes through one
+`.pth`, a `step_<n>` train state (the port's, or `motif_tpu`'s orbax
+directory) or a models root (`checkpoint.load_checkpoint`). Every pair goes through one
 `Evaluator.infer` bucket: on CUDA one graph, captured at the first pair
 and replayed for each pair after (the JAX package jits one forward for
 the stream's one shape). The model runs on CUDA unless `--device` names

@@ -12,13 +12,18 @@ pre-activation (the caller has applied layer 0's linear map; the kernel
 starts with sin(omega0 * x) and is given the layers after it). In bfloat16
 the products accumulate in float32 and a value is rounded where the JAX
 package's composed bfloat16 path rounds: after the product, after the
-bias, after omega0 * and after the sine. The float32 entries are bit-equal
-to `F.linear` + `sin`. In float32 an MLP whose weights fit one block's
+bias, after omega0 * and after the sine. In float32 each output of a layer
+is one chain of float32 FMAs in ascending k from 0, then the bias, then
+sinf's arithmetic: the order cuBLAS's float32 GEMM takes at the shapes
+checked, where a launch is bit-equal to `F.linear` + `sin`, but cuBLAS may
+pick another (a split k) elsewhere. An MLP whose weights fit one block's
 shared memory (every MoTIF SIREN) runs whole on the resident kernel
 (siren_mlp.cu); a larger one is cut by `segments` into runs of at least
 two layers on that kernel and single layers on the streamed-weight kernel
-(siren_layer.cu, counted as the entry "float32/layer"), bit-equal all the
-same. The bfloat16 entries contract on the tensor cores,
+(siren_layer.cu, counted as the entry "float32/layer"), which keeps the
+same chain; the card's checks hold a layer to that chain bit for bit and
+to `F.linear` + `sin` by accuracy. The bfloat16 entries contract on the
+tensor cores,
 which sum in another order than the plain version: they are held to it by
 accuracy against `siren_mlp_reference64` (`accuracy`, `layer_gate`,
 `mlp_gate`), not by equality.

@@ -5,7 +5,7 @@ formulas, with the port's RAFT-small:
 
     python -m motif_tpu_torch.precompute_flows --gt_root data/vimeo/GT \\
         --lq_root data/vimeo/LR --keys data/vimeo/keys.txt \\
-        [--checkpoint best.pth] [--iters 12] [--overwrite] [--device cpu]
+        [--checkpoint best.pth|orbax_dir] [--iters 12] [--overwrite] [--device cpu]
 
 Written per clip `<a>/<b>` of `--keys` (a .txt of a/b lines or a .pkl of
 a_b keys), channel-first float32:
@@ -19,7 +19,9 @@ a_b keys), channel-first float32:
       it to (7, 4, 2, H, W)).
 
 RAFT's weights come from a reference-format `.pth` (a whole model's
-`flow_predictor.*` keys or a bare RAFT's keys); without `--checkpoint` it
+`flow_predictor.*` keys or a bare RAFT's keys) or from the JAX package's
+orbax directory of a RAFT params tree, as its tool takes one
+(`checkpoint.load_checkpoint`); without `--checkpoint` it
 is a RAFT with random weights from seed 0, good for smoke runs only, with
 the JAX tool's warning. A clip whose two files exist is skipped unless
 `--overwrite`. RAFT runs on CUDA unless `--device` names another device.
@@ -28,6 +30,7 @@ the JAX tool's warning. A clip whose two files exist is skipped unless
 from __future__ import annotations
 
 import argparse
+import os
 import os.path as osp
 
 import numpy as np
@@ -53,12 +56,17 @@ def raft_state_dict(path: str) -> dict:
 def build_raft(checkpoint: str | None, device) -> torch.nn.Module:
     """The port's RAFT-small in eval mode on `device`: strictly loaded from
     `checkpoint`, else random weights from seed 0 (with a warning)."""
+    from motif_tpu_torch.checkpoint import load_checkpoint
     from motif_tpu_torch.models.raft import RAFT
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         raft = RAFT()
-    if checkpoint:
+    if checkpoint and os.path.isdir(checkpoint):
+        # motif_tpu's orbax directory of RAFT's params tree, as its
+        # tools/precompute_flows.py takes one
+        load_checkpoint(raft, checkpoint)
+    elif checkpoint:
         raft.load_state_dict(raft_state_dict(checkpoint), strict=True)
     else:
         print("WARNING: no --checkpoint given; using a randomly "

@@ -6,8 +6,9 @@
 
 It builds the yml's `network_G` (`define_g`), loads `--checkpoint` (else
 the yml's `path.pretrain_model_G`): a reference `.pth`, a `step_<n>` train
-state of `python -m motif_tpu_torch.train` or its models root
-(`experiments/<name>/models`, read at its newest step), strictly
+state of `python -m motif_tpu_torch.train` or of `motif_tpu` (an orbax
+directory), or their models root (`experiments/<name>/models`, read at its
+newest step), strictly
 (`checkpoint.load_checkpoint`; a path that does not exist leaves the
 random init from seed 0, with a warning), evaluates the
 `datasets.train` section clip by clip and writes the per-clip PSNRs and

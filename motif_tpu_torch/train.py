@@ -21,7 +21,9 @@ multiple of 8 from LQ_size to 2·LQ_size, LQ_size / 2 at the input), read
 from its GT. RAFT needs 64 px a side at the output, so `LQ_size: 32`
 (every `_a` yml of configs/grid/) fails at the first step in both
 packages; `LQ_size: 64` runs. The CLI resumes from the latest `step_<n>`
-under `path.models`, trains to `train.niter` steps (or `--max_steps`),
+under `path.models` (the port's own train state, or `motif_tpu`'s orbax
+step directory: `checkpoint.restore_train_state`), trains to
+`train.niter` steps (or `--max_steps`),
 appends a JSON line to `<experiments_root>/train_log.jsonl` every
 `logger.print_freq` steps and saves the train state every
 `logger.save_checkpoint_freq` steps and at the end. The model runs on CUDA

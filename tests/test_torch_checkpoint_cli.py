@@ -3,8 +3,9 @@ backwards the training gates' state is reached with.
 
 `python -m motif_tpu_torch.test --checkpoint` takes a models root (read at
 its newest `step_<n>`, as motif_tpu's test.py resolves a checkpoint root),
-a `step_<n>` train state of `python -m motif_tpu_torch.train`, or a
-reference `.pth`, each loaded strictly (`checkpoint.load_checkpoint`):
+a `step_<n>` train state of `python -m motif_tpu_torch.train`, a
+reference `.pth`, or motif_tpu's orbax train state (its step directory or
+its models root), each loaded strictly (`checkpoint.load_checkpoint`):
 `train.main` runs two steps of configs/train_smoke.yml at width 16 on the
 CPU, then the CLI evaluates one data/Vid4 clip through test.yml cut to the
 same width from the models root and from its step file, and gives the
@@ -111,6 +112,28 @@ def test_cli_evaluates_the_trained_weights(trained, init_frames, which,
     assert np.abs(got - init_frames).max() > 1e-4
 
 
+@pytest.mark.parametrize("which", ["root", "step_dir"])
+def test_cli_evaluates_an_orbax_state(which, tmp_path, monkeypatch):
+    """motif_tpu's orbax train state of the width-16 model the CLI builds
+    (its weights moved off the init, with seeded Adam moments, written by
+    motif_tpu.checkpoint.save_train_state): `--checkpoint <models>` and
+    `--checkpoint <models>/step_3` give that model's frames."""
+    import jax
+    from _orbax_parity import optax_state
+    from motif_tpu import checkpoint as jckpt
+
+    model = _state(0.25)
+    tree = jax.tree.map(np.asarray, jckpt.port_torch_state_dict(
+        model.state_dict()))
+    models = tmp_path / "models"
+    jckpt.save_train_state(str(models), 3, optax_state(tree, 0.0, step=3))
+    ckpt = models if which == "root" else models / "step_3"
+    lq, times, out_hw, got = _cli_frames(tmp_path, monkeypatch, ckpt)
+    want, _ = Evaluator(model, iters=4, device="cpu").infer(lq, times,
+                                                            out_hw)
+    np.testing.assert_array_equal(got, want)
+
+
 def _state(seed=0):
     model = define_g({"which_model_G": "Ours", "nf": NF, "setting": 5},
                      device="cpu")
@@ -167,9 +190,9 @@ def test_a_mismatched_step_file_names_its_keys(tmp_path):
 def test_what_is_not_a_train_state_raises(tmp_path, what):
     if what == "empty_root":
         err, path = FileNotFoundError, tmp_path
-    elif what == "orbax_step":
+    elif what == "orbax_step":      # a directory without orbax's _METADATA
         (tmp_path / "step_5").mkdir()
-        err, path = NotImplementedError, tmp_path
+        err, path = FileNotFoundError, tmp_path
     else:
         path = tmp_path / "step_1"
         torch.save({"weights": torch.zeros(2)}, path)

@@ -219,11 +219,44 @@ def test_train_cli_raises_for_what_is_not_ported(tmp_path, over, what,
         _train(tmp_path, 1, **over)
 
 
-def test_orbax_train_state_raises(tmp_path):
-    (tmp_path / "step_5").mkdir()
-    assert checkpoint.latest_step(str(tmp_path)) == 5
-    with pytest.raises(NotImplementedError, match="A.9"):
-        checkpoint.restore_train_state(str(tmp_path), 5, None)
+def test_orbax_train_state_raises(tmp_path, one_torch_thread):
+    """A models root whose newest step is motif_tpu's orbax step_3 (an Adam
+    TrainState of the model train_smoke.yml builds at width 16, with
+    seeded moments, written by motif_tpu.checkpoint.save_train_state):
+    `python -m motif_tpu_torch.train` resumes from it at step 3 and goes
+    on to step 4, saved in the port's own format, each parameter's Adam
+    step one past optax's count. An AdamW trainer refuses the same
+    directory, and an orbax directory without `_METADATA` raises naming
+    it."""
+    import jax
+    from _orbax_parity import optax_state
+    from motif_tpu import checkpoint as jckpt
+    from motif_tpu_torch.models.factory import define_g
+    from motif_tpu_torch.trainer import Trainer, TrainerConfig
+
+    models = tmp_path / "experiments" / "smoke" / "models"
+    model = define_g({"which_model_G": "Ours", "nf": 16, "groups": 8,
+                      "setting": 5, "iters": 2}, device="cpu", n_frames=4)
+    tree = jax.tree.map(np.asarray, jckpt.port_torch_state_dict(
+        model.state_dict()))
+    jckpt.save_train_state(str(models), 3, optax_state(tree, 0.0, step=3),
+                           meta={"epoch": 5})
+    assert checkpoint.latest_step(str(models)) == 3
+    aux = _train(tmp_path, 4)
+    assert np.isfinite(float(aux["loss"]))
+    exp = tmp_path / "experiments" / "smoke"
+    lines = [json.loads(ln) for ln in (exp / "train_log.jsonl").open()]
+    assert [(ln["step"], ln["epoch"]) for ln in lines] == [(4, 5)]
+    state = torch.load(models / "step_4")
+    assert state["step"] == 4
+    steps = {float(s["step"]) for s in state["optimizer"]["state"].values()}
+    assert steps == {4.0}
+    with pytest.raises(ValueError, match="AdamW"):
+        checkpoint.restore_train_state(str(models), 3, Trainer(
+            model, TrainerConfig(weight_decay=1e-2)))
+    (models / "step_5").mkdir()
+    with pytest.raises(FileNotFoundError, match="step_5"):
+        checkpoint.restore_train_state(str(models), 5, None)
 
 
 def test_trainer_config_fields_match_motif_tpu():
