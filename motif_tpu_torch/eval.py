@@ -26,6 +26,17 @@ fails raises with the bucket's key: there is no eager fallback. When the
 model's weights change (a load, an optimiser step, a move), the buckets
 are dropped and captured anew. On the CPU a bucket runs the eager forward
 over the same buffers; the rest of `infer` is the same code.
+
+Under a profiler a request is the span `infer` (attrs: `n` times, `chunks`,
+`bucket`, `frames` returned, and after a replayed MoTIF request `parts_ms`
+and `forwards`) over its children `infer.plan`, `infer.bucket`,
+`infer.copy_in`, per chunk `infer.replay` and `infer.gather`,
+`infer.copy_out`, `infer.wait`, on a replayed MoTIF request `infer.marks`
+(reading its marks), and `infer.unpad`; a capture is the span
+`eval.capture`. A MoTIF graph holds its forward's marks (`obs.marking`):
+`parts_ms` are the device milliseconds of each of MoTIF's `PARTS` in the
+request's last replay. Counters: `eval.captures`, `eval.replays` and
+`eval.bucket_resets` (every graph dropped for new weights).
 """
 
 from __future__ import annotations
@@ -37,9 +48,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from motif_tpu_torch import resolve_device
+from motif_tpu_torch import obs, resolve_device
 from motif_tpu_torch.models.factory import BASELINES, FOUR_ANCHOR
-from motif_tpu_torch.ops import kernels
+from motif_tpu_torch.models.motif import PARTS
 from motif_tpu_torch.utils import metrics
 
 
@@ -188,6 +199,8 @@ class Evaluator:
         if stamp != self._stamp:       # the weights changed: every graph
             self._buckets.clear()      # holds the old ones' derived copies
             self._pool = None
+            if self._stamp is not None:
+                obs.count("eval.bucket_resets")
             self._stamp = stamp
         key = self._key(lq_shape, t_shape, out_hw)
         if key not in self._buckets:
@@ -204,15 +217,28 @@ class Evaluator:
         the Ours family, else None). Through the request's bucket: on CUDA
         its graph replayed per chunk (captured at the bucket's first
         request)."""
-        lq_p, chunks, n, hw = self._plan(lq, times)
-        bucket = self._bucket(lq_p.shape, chunks[0].shape, hw)
-        captured = bucket.graph is not None
-        frames, stats = bucket.request(
-            lambda a, t: self._forward(a, t, hw), lq_p, np.stack(chunks))
-        self.captures += bucket.graph is not None and not captured
-        return (frames[:n, :, :out_hw[0], :out_hw[1]],
-                tuple(np.mean(stats.astype(np.float64), 0))
-                if stats is not None else None)
+        with obs.span("infer", n=times.shape[1]) as sp:
+            with obs.span("infer.plan"):
+                lq_p, chunks, n, hw = self._plan(lq, times)
+                chunks = np.stack(chunks)
+            with obs.span("infer.bucket"):
+                bucket = self._bucket(lq_p.shape, chunks[0].shape, hw)
+            sp.set(chunks=len(chunks), bucket=bucket.serial,
+                   frames=n * lq.shape[0])
+            captured = bucket.graph is not None
+            frames, stats = bucket.request(
+                lambda a, t: self._forward(a, t, hw), lq_p, chunks)
+            self.captures += bucket.graph is not None and not captured
+            if captured and obs.enabled():
+                with obs.span("infer.marks"):
+                    parts = bucket.marks.elapsed()
+                    if parts is not None:
+                        sp.set(parts_ms=dict(zip(PARTS, parts)),
+                               forwards=len(chunks))
+            with obs.span("infer.unpad"):
+                return (frames[:n, :, :out_hw[0], :out_hw[1]],
+                        tuple(np.mean(stats.astype(np.float64), 0))
+                        if stats is not None else None)
 
     @torch.inference_mode()
     def _infer_eager(self, lq: np.ndarray, times: np.ndarray, out_hw):
@@ -285,19 +311,23 @@ class Evaluator:
         return res
 
 
+_serials = itertools.count()
+
+
 class _Bucket:
     """One shape bucket of `Evaluator.infer`: static device inputs (the
     padded LQ, one chunk's times) and, on CUDA, the graph of the forward
     captured over them, with its outputs (the frames, the flow statistics)
-    static too, and the launches its capture recorded (`kernels.recording`:
-    each replay counts them). On the CPU the forward runs eagerly over the
-    same buffers."""
+    static too, the launches its capture recorded (`obs.recording`: each
+    replay counts them) and its marks (`obs.marking`). On the CPU the
+    forward runs eagerly over the same buffers."""
 
     def __init__(self, key, lq_shape, t_shape, dtype, device, pool):
         self.key, self.device, self.pool = key, device, pool
+        self.serial = next(_serials)
         self.lq = torch.zeros(lq_shape, dtype=dtype, device=device)
         self.t = torch.zeros(t_shape, dtype=dtype, device=device)
-        self.graph, self.tape = None, {}
+        self.graph, self.tape, self.marks = None, {}, None
         self.frames = self.stats = None
 
     def _run(self, forward):
@@ -309,22 +339,26 @@ class _Bucket:
             return forward(self.lq, self.t)
         if self.graph is not None:
             self.graph.replay()
-            kernels.count_replay(self.tape)
+            obs.count_replay(self.tape)
+            obs.count("eval.replays")
             return self.frames, self.stats
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            warm = forward(self.lq, self.t)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with kernels.recording() as tape, \
-                    torch.cuda.graph(graph, pool=self.pool):
-                self.frames, self.stats = forward(self.lq, self.t)
-        except Exception as e:
-            raise RuntimeError(f"Evaluator: the capture of bucket {self.key} "
-                               f"failed: {e}") from e
-        self.graph, self.tape = graph, tape
+        with obs.span("eval.capture", bucket=self.serial):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                warm = forward(self.lq, self.t)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with obs.marking(len(PARTS) + 1) as marks, \
+                        obs.recording() as tape, \
+                        torch.cuda.graph(graph, pool=self.pool):
+                    self.frames, self.stats = forward(self.lq, self.t)
+            except Exception as e:
+                raise RuntimeError(f"Evaluator: the capture of bucket "
+                                   f"{self.key} failed: {e}") from e
+        obs.count("eval.captures")
+        self.graph, self.tape, self.marks = graph, tape, marks
         return warm
 
     def request(self, forward, lq_p: np.ndarray, chunks: np.ndarray):
@@ -334,32 +368,35 @@ class _Bucket:
         device, then copied out once. Returns numpy (frames (k * step, B,
         HH, WW, 3), statistics (k, 2) or None)."""
         cuda = self.device.type == "cuda"
-        lq_h = torch.from_numpy(lq_p)
-        t_h = torch.from_numpy(chunks)
-        if cuda:
-            lq_h, t_h = lq_h.pin_memory(), t_h.pin_memory()
-        self.lq.copy_(lq_h, non_blocking=True)
-        t_dev = t_h.to(self.device, non_blocking=True)
+        with obs.span("infer.copy_in"):
+            lq_h = torch.from_numpy(lq_p)
+            t_h = torch.from_numpy(chunks)
+            if cuda:
+                lq_h, t_h = lq_h.pin_memory(), t_h.pin_memory()
+            self.lq.copy_(lq_h, non_blocking=True)
+            t_dev = t_h.to(self.device, non_blocking=True)
         frames = stats = None
         for k in range(len(chunks)):
-            self.t.copy_(t_dev[k])
-            f, s = self._run(forward)
-            if frames is None:
-                step = f.shape[0]
-                frames = f.new_empty((len(chunks) * step, *f.shape[1:]))
-                stats = None if s is None else s.new_empty((len(chunks), 2))
-            frames[k * step:(k + 1) * step] = f
-            if s is not None:
-                stats[k] = s
-        if not cuda:
-            return frames.numpy(), None if stats is None else stats.numpy()
-        out = [torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)]
-        out[0].copy_(frames, non_blocking=True)
-        if stats is not None:
-            out.append(torch.empty(stats.shape, dtype=stats.dtype,
-                                   pin_memory=True))
-            out[1].copy_(stats, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        done.synchronize()
+            with obs.span("infer.replay", chunk=k):
+                self.t.copy_(t_dev[k])
+                f, s = self._run(forward)
+            with obs.span("infer.gather", chunk=k):
+                if frames is None:
+                    step = f.shape[0]
+                    frames = f.new_empty((len(chunks) * step, *f.shape[1:]))
+                    stats = (None if s is None
+                             else s.new_empty((len(chunks), 2)))
+                frames[k * step:(k + 1) * step] = f
+                if s is not None:
+                    stats[k] = s
+        with obs.span("infer.copy_out"):
+            out = [frames] if stats is None else [frames, stats]
+            if cuda:
+                out = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True
+                                   ).copy_(a, non_blocking=True) for a in out]
+                done = torch.cuda.Event()
+                done.record()
+        with obs.span("infer.wait"):
+            if cuda:
+                done.synchronize()
         return out[0].numpy(), out[1].numpy() if stats is not None else None

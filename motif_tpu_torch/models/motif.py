@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from motif_tpu_torch import resolve_device
+from motif_tpu_torch import obs, resolve_device
 from motif_tpu_torch.models.encoder import ZSMEncoder
 from motif_tpu_torch.models.layers import Conv2d, LateralBlock, LReLU
 from motif_tpu_torch.models.raft import RAFT
@@ -39,6 +39,10 @@ from motif_tpu_torch.models.siren import Siren
 from motif_tpu_torch.ops import softsplat
 from motif_tpu_torch.ops.resize import interpolate_bilinear
 from motif_tpu_torch.ops.warp import backwarp
+
+# the parts of a forward, each a span `motif.<part>` and the interval
+# between marks i and i + 1 (`obs.mark`) on the device
+PARTS = ("motion", "encoder", "decode", "splat", "synth")
 
 
 def make_coord_1d(n: int) -> np.ndarray:
@@ -515,7 +519,8 @@ class MoTIF(nn.Module):
         tab = self._shape_tables(H, W, HH, WW, RH, RW, x.dtype, cdt, x.device)
         # motion, reliability and teacher take no gradient (the JAX
         # package's stop_gradients)
-        with torch.no_grad():
+        obs.mark(0)
+        with obs.span("motif.motion"), torch.no_grad():
             flow, psies = self._motion(frames, tab, (H, W), (RH, RW), (HH, WW),
                                        iters, cd, cf, lr_flow)
             if flow_gt is not None:       # (B, N, n, HH, WW, 2), anchor-major
@@ -528,195 +533,213 @@ class MoTIF(nn.Module):
                 flow_gt = x.new_zeros((n * B * N, HH, WW, 2))
 
         # ---- encoder: 2n - 1 fused frames ----
-        feat_t = self.encoder(cd(torch.stack(frames, 1)))  # (B, 2n-1, H, W, ch)
-        if n == 2:       # the middle fused frame for every time
-            residual = feat_t[:, feat_t.shape[1] // 2][:, None].expand(
-                B, N, H, W, ch)
-        else:            # the fused frame at round(t·6) per time (Ours_44.py)
-            idx = torch.round(target_t * 6.0).long().clamp(
-                0, feat_t.shape[1] - 1)
-            residual = feat_t[torch.arange(B, device=x.device)[:, None], idx]
-        residual_bn = residual.reshape(B * N, H, W, ch)
-        feat = torch.cat([feat_t[:, 2 * i] for i in range(n)], 0)  # (nB,H,W,ch)
+        obs.mark(1)
+        with obs.span("motif.encoder"):
+            # (B, 2n-1, H, W, ch)
+            feat_t = self.encoder(cd(torch.stack(frames, 1)))
+            if n == 2:       # the middle fused frame for every time
+                residual = feat_t[:, feat_t.shape[1] // 2][:, None].expand(
+                    B, N, H, W, ch)
+            else:    # the fused frame at round(t·6) per time (Ours_44.py)
+                idx = torch.round(target_t * 6.0).long().clamp(
+                    0, feat_t.shape[1] - 1)
+                residual = feat_t[torch.arange(B, device=x.device)[:, None],
+                                  idx]
+            residual_bn = residual.reshape(B * N, H, W, ch)
+            # (nB, H, W, ch)
+            feat = torch.cat([feat_t[:, 2 * i] for i in range(n)], 0)
 
-        # ---- flow-context encoder: per source frame i, the targets j of
-        # [flow_ij / 20 | psi_ij (input_Z) | rsd row] into a grouped conv
-        # (or, with trans, each pair alone and a softmax over j) --
-        if self.trans:
-            flow_feat = self._trans_context(flow, psies, tab, B, H, W, cd)
-        else:
-            f22 = (flow / 20.0).reshape(n, n, B, H, W, 2).permute(
-                0, 2, 1, 3, 4, 5)
-            p22 = psies.reshape(n, n, B, H, W, 3).permute(0, 2, 1, 3, 4, 5)
-            r22 = tab["r22"].expand(n, B, n, H, W, 2)
-            ff = torch.cat([f22, p22, r22] if self.input_Z else [f22, r22],
-                           dim=-1)                           # (n,B,n,H,W,7|4)
-            k = ff.shape[-1]
-            ff = ff.reshape(n * B, n, H, W, k).permute(0, 2, 3, 1, 4)
-            flow_feat = self.flow_process(cd(ff.reshape(n * B, H, W, n * k)))
+        obs.mark(2)
+        with obs.span("motif.decode"):
+            # ---- flow-context encoder: per source frame i, the targets j of
+            # [flow_ij / 20 | psi_ij (input_Z) | rsd row] into a grouped conv
+            # (or, with trans, each pair alone and a softmax over j) --
+            if self.trans:
+                flow_feat = self._trans_context(flow, psies, tab, B, H, W, cd)
+            else:
+                f22 = (flow / 20.0).reshape(n, n, B, H, W, 2).permute(
+                    0, 2, 1, 3, 4, 5)
+                p22 = psies.reshape(n, n, B, H, W, 3).permute(0, 2, 1, 3, 4, 5)
+                r22 = tab["r22"].expand(n, B, n, H, W, 2)
+                ff = torch.cat([f22, p22, r22] if self.input_Z else [f22, r22],
+                               dim=-1)                   # (n,B,n,H,W,7|4)
+                k = ff.shape[-1]
+                ff = ff.reshape(n * B, n, H, W, k).permute(0, 2, 3, 1, 4)
+                flow_feat = self.flow_process(
+                    cd(ff.reshape(n * B, H, W, n * k)))
 
-        # ---- LIIF query as separable nearest takes (one shift, weight 1;
-        # or the local ensemble's four) --
-        iy_t, ix_t, rel = tab["iy"], tab["ix"], tab["rel"]   # rel (1,HH,WW,2)
+            # ---- LIIF query as separable nearest takes (one shift, weight 1;
+            # or the local ensemble's four) --
+            # rel (1, HH, WW, 2)
+            iy_t, ix_t, rel = tab["iy"], tab["ix"], tab["rel"]
 
-        def up(img, iy_t=iy_t, ix_t=ix_t):
-            return img.index_select(1, iy_t).index_select(2, ix_t)
+            def up(img, iy_t=iy_t, ix_t=ix_t):
+                return img.index_select(1, iy_t).index_select(2, ix_t)
 
-        def rep_n(a):                    # (nB, HH, WW, c) -> (nBN, HH, WW, c)
-            return a.repeat_interleave(N, 0)
+            def rep_n(a):            # (nB, HH, WW, c) -> (nBN, HH, WW, c)
+                return a.repeat_interleave(N, 0)
 
-        t_tok = cd(target_t.reshape(B * N, 1, 1, 1).repeat(n, 1, 1, 1))
-        chunks = self.decode_chunks
-        fused = self.use_fused
-        if fused:
-            # Each SIREN's first layer folded through the takes: a channel
-            # product commutes with a spatial take, so the feature products
-            # run at LR and sti / si never exist. net.0's rows follow the
-            # original concats [flow_feat | t | rel] and [feat | rel]; the
-            # terms are added in the JAX package's order.
-            wq, bq = self.flow_imnet.first_linear(rel.dtype)
-            wq = wq.t()                                      # (ch + 3, 64)
-            h0 = rep_n(up(torch.matmul(flow_feat, wq[:ch])))
-            h0 = h0 + t_tok * wq[ch] + torch.matmul(rel, wq[ch + 1:]) + bq
-            q_flow_o = _chunked_tokens(
-                self.flow_imnet, h0.reshape(n * B * N, HH * WW, -1), chunks
-            ).reshape(n * B * N, HH, WW, 3)
-            wi, bi = self.imnet.first_linear(rel.dtype)
-            wi = wi.t()                                      # (ch + 2, 64)
-            g0 = up(torch.matmul(feat, wi[:ch]))
-            g0 = g0 + torch.matmul(rel, wi[ch:]) + bi
-            q_feat_o = _chunked_tokens(
-                self.imnet, g0.reshape(n * B, HH * WW, -1), chunks
-            ).reshape(n * B, HH, WW, 64)
-        else:
-            shifts = (self._shift_tables(H, W, HH, WW, rel.dtype, x.device)
-                      if self.local_ensemble else [(iy_t, ix_t, rel)])
-            preds, areas = [], []
-            for iy_s, ix_s, rel_s in shifts:
-                q_feat = up(feat, iy_s, ix_s)                # (nB,HH,WW,ch)
-                q_flow_feat = up(flow_feat, iy_s, ix_s)
-                q_residual = up(residual_bn, iy_s, ix_s)     # (BN,HH,WW,ch)
-                sti = torch.cat([rep_n(q_flow_feat),
-                                 t_tok.expand(n * B * N, HH, WW, 1),
-                                 rel_s.expand(n * B * N, HH, WW, 2)], dim=-1)
-                si = torch.cat([q_feat, rel_s.expand(n * B, HH, WW, 2)],
-                               dim=-1)
-                sti_out = _chunked_tokens(
-                    self.flow_imnet, sti.reshape(n * B * N, HH * WW, -1),
-                    chunks).reshape(n * B * N, HH, WW, 3 * G)
-                si_out = _chunked_tokens(
-                    self.imnet, si.reshape(n * B, HH * WW, -1), chunks
+            t_tok = cd(target_t.reshape(B * N, 1, 1, 1).repeat(n, 1, 1, 1))
+            chunks = self.decode_chunks
+            fused = self.use_fused
+            if fused:
+                # Each SIREN's first layer folded through the takes: a channel
+                # product commutes with a spatial take, so the feature products
+                # run at LR and sti / si never exist. net.0's rows follow the
+                # original concats [flow_feat | t | rel] and [feat | rel]; the
+                # terms are added in the JAX package's order.
+                wq, bq = self.flow_imnet.first_linear(rel.dtype)
+                wq = wq.t()                                      # (ch + 3, 64)
+                h0 = rep_n(up(torch.matmul(flow_feat, wq[:ch])))
+                h0 = h0 + t_tok * wq[ch] + torch.matmul(rel, wq[ch + 1:]) + bq
+                q_flow_o = _chunked_tokens(
+                    self.flow_imnet, h0.reshape(n * B * N, HH * WW, -1), chunks
+                ).reshape(n * B * N, HH, WW, 3)
+                wi, bi = self.imnet.first_linear(rel.dtype)
+                wi = wi.t()                                      # (ch + 2, 64)
+                g0 = up(torch.matmul(feat, wi[:ch]))
+                g0 = g0 + torch.matmul(rel, wi[ch:]) + bi
+                q_feat_o = _chunked_tokens(
+                    self.imnet, g0.reshape(n * B, HH * WW, -1), chunks
                 ).reshape(n * B, HH, WW, 64)
-                pred = [si_out, q_feat, q_residual, sti_out]
+            else:
+                shifts = (self._shift_tables(H, W, HH, WW, rel.dtype, x.device)
+                          if self.local_ensemble else [(iy_t, ix_t, rel)])
+                preds, areas = [], []
+                for iy_s, ix_s, rel_s in shifts:
+                    q_feat = up(feat, iy_s, ix_s)            # (nB,HH,WW,ch)
+                    q_flow_feat = up(flow_feat, iy_s, ix_s)
+                    q_residual = up(residual_bn, iy_s, ix_s)  # (BN,HH,WW,ch)
+                    sti = torch.cat([rep_n(q_flow_feat),
+                                     t_tok.expand(n * B * N, HH, WW, 1),
+                                     rel_s.expand(n * B * N, HH, WW, 2)],
+                                    dim=-1)
+                    si = torch.cat([q_feat, rel_s.expand(n * B, HH, WW, 2)],
+                                   dim=-1)
+                    sti_out = _chunked_tokens(
+                        self.flow_imnet, sti.reshape(n * B * N, HH * WW, -1),
+                        chunks).reshape(n * B * N, HH, WW, 3 * G)
+                    si_out = _chunked_tokens(
+                        self.imnet, si.reshape(n * B, HH * WW, -1), chunks
+                    ).reshape(n * B, HH, WW, 64)
+                    pred = [si_out, q_feat, q_residual, sti_out]
+                    if self.res_liff:
+                        ri = torch.cat([q_residual,
+                                        rel_s.expand(B * N, HH, WW, 2)],
+                                       dim=-1)
+                        res_out = _chunked_tokens(
+                            self.res_imnet, ri.reshape(B * N, HH * WW, -1),
+                            chunks).reshape(B * N, HH, WW, 64)
+                        pred = [si_out, q_feat, res_out, sti_out, q_residual]
+                    preds.append(pred)
+                    areas.append((rel_s[..., 0] * rel_s[..., 1]).abs() + 1e-9)
+                if len(preds) == 1:
+                    # one shift: its area weight is area / area == 1 exactly,
+                    # so the JAX package's weighted sum is the identity
+                    acc = preds[0]
+                else:
+                    # each decode weighted by the diagonally opposite cell's
+                    # area (Ours.py:758-764), summed in the JAX package's order
+                    tot = areas[0] + areas[1] + areas[2] + areas[3]
+                    acc = None
+                    for pred, area in zip(preds, areas[::-1]):
+                        w = (area / tot)[..., None]
+                        terms = [p * w.to(p.dtype) for p in pred]
+                        acc = terms if acc is None else [
+                            a + t for a, t in zip(acc, terms)]
                 if self.res_liff:
-                    ri = torch.cat([q_residual,
-                                    rel_s.expand(B * N, HH, WW, 2)], dim=-1)
-                    res_out = _chunked_tokens(
-                        self.res_imnet, ri.reshape(B * N, HH * WW, -1),
-                        chunks).reshape(B * N, HH, WW, 64)
-                    pred = [si_out, q_feat, res_out, sti_out, q_residual]
-                preds.append(pred)
-                areas.append((rel_s[..., 0] * rel_s[..., 1]).abs() + 1e-9)
-            if len(preds) == 1:
-                # one shift: its area weight is area / area == 1 exactly,
-                # so the JAX package's weighted sum is the identity
-                acc = preds[0]
-            else:
-                # each decode weighted by the diagonally opposite cell's
-                # area (Ours.py:758-764), summed in the JAX package's order
-                tot = areas[0] + areas[1] + areas[2] + areas[3]
-                acc = None
-                for pred, area in zip(preds, areas[::-1]):
-                    w = (area / tot)[..., None]
-                    terms = [p * w.to(p.dtype) for p in pred]
-                    acc = terms if acc is None else [
-                        a + t for a, t in zip(acc, terms)]
-            if self.res_liff:
-                q_feat_o, q_feat, q_res_liif, q_flow_o, q_res_low = acc
-                q_residual = torch.cat([q_res_liif, q_res_low], dim=-1)
-            else:
-                q_feat_o, q_feat, q_residual, q_flow_o = acc
+                    q_feat_o, q_feat, q_res_liif, q_flow_o, q_res_low = acc
+                    q_residual = torch.cat([q_res_liif, q_res_low], dim=-1)
+                else:
+                    q_feat_o, q_feat, q_residual, q_flow_o = acc
 
-        # ---- HR flow / z / features and the splat, in the input's dtype;
-        # the payload's flow channels take no gradient (as in the JAX
-        # package). With G groups each row splits into G rows, group g
-        # taking channel slice g of each part (the reference's NCHW
-        # channel split, Ours.py:783-791) ----
-        def split_groups(a, k):           # (M, HH, WW, G·k) -> (M·G, ..., k)
-            if G == 1:
-                return a
-            M = a.shape[0]
-            return a.reshape(M, HH, WW, G, k).permute(0, 3, 1, 2, 4).reshape(
-                M * G, HH, WW, k)
-
-        flow_raw = split_groups(cf(q_flow_o), 3)
-        if fused:
-            # The synthesis net's first layer folded through the splat,
-            # which is linear in its payload: [q_feat_o | flow | q_feat]
-            # goes through net.0's matching rows before it is scattered
-            # (130 -> 64 channels); the rows of the extras, the residual
-            # and the time are added after the merge. The flow's two rows
-            # stay in the input's dtype.
-            ws_raw, _ = self.synth_net.first_linear(x.dtype)
-            ws, bs = self.synth_net.first_linear(rel.dtype)
-            ws_raw, ws = ws_raw.t(), ws.t()                  # (198, 64)
-            k_e = 3 if self.decoder_Z else 2
-            w_a, w_b = ws[:64], ws[66:66 + ch]
-            off = 66 + ch
-            w_e = ws[off:off + k_e]
-            w_r = ws[off + k_e:off + k_e + ch]
-            w_t = ws[off + k_e + ch]
-            pay = rep_n(torch.matmul(q_feat_o, w_a)
-                        + up(torch.matmul(feat, w_b)))
-            feat_hr = cf(pay) + torch.matmul(flow_raw[..., :2].detach(),
-                                             ws_raw[64:66])  # (nBN,HH,WW,64)
-        else:
-            feat_hr = torch.cat([split_groups(rep_n(cf(q_feat_o)), 64 // G),
-                                 flow_raw[..., :2].detach(),
-                                 split_groups(rep_n(cf(q_feat)), ch // G)],
-                                dim=-1)
-        flow_hr = flow_raw[..., :2] * 20.0 * (HH / H)
-        z = torch.relu(flow_raw[..., 2:3]) * self.alpha
-        if not self.predict_Z:
-            z = torch.zeros_like(z)
-        if G > 1:        # every group splats along the same teacher flow
-            flow_gt = flow_gt.repeat_interleave(G, 0)
-        output, extra = self._splat_merge(feat_hr, flow_gt if use_gt
-                                          else flow_hr, z, n, B * N * G)
-
-        # ---- synthesis ----
-        if fused:
-            # net.0's pre-activation: the merged splat output (already
-            # through w_a, the flow rows and w_b) + the extras', the
-            # residual's and the time's rows + the bias
-            h = (cd(output).reshape(B * N, HH, WW, 64)
-                 + torch.matmul(cd(extra).reshape(B * N, HH, WW, -1), w_e)
-                 + up(torch.matmul(cd(residual_bn), w_r))
-                 + cd(target_t).reshape(B * N, 1, 1, 1) * w_t[None, None, None]
-                 + bs)
-            out = _chunked_tokens(self.synth_net,
-                                  h.reshape(B * N, HH * WW, -1), chunks)
-        else:
-            def merge_groups(a):     # (BNG, HH, WW, c) -> (BN, HH, WW, G·c)
+            # ---- HR flow / z / features and the splat, in the input's dtype;
+            # the payload's flow channels take no gradient (as in the JAX
+            # package). With G groups each row splits into G rows, group g
+            # taking channel slice g of each part (the reference's NCHW
+            # channel split, Ours.py:783-791) ----
+            def split_groups(a, k):   # (M, HH, WW, G·k) -> (M·G, ..., k)
                 if G == 1:
                     return a
-                c = a.shape[-1]
-                return a.reshape(B * N, G, HH, WW, c).permute(
-                    0, 2, 3, 1, 4).reshape(B * N, HH, WW, G * c)
+                M = a.shape[0]
+                return a.reshape(M, HH, WW, G, k).permute(
+                    0, 3, 1, 2, 4).reshape(M * G, HH, WW, k)
 
-            tmap = cd(target_t.reshape(B * N, 1, 1, 1)
-                      * x.new_ones((1, HH, WW, 1)))
-            synth_in = torch.cat([merge_groups(cd(output)),
-                                  merge_groups(cd(extra)), q_residual, tmap],
-                                 dim=-1)
-            if self.siren:
-                out = _chunked_tokens(self.synth_net,
-                                      synth_in.reshape(B * N, HH * WW, -1),
-                                      chunks)
+            flow_raw = split_groups(cf(q_flow_o), 3)
+            if fused:
+                # The synthesis net's first layer folded through the splat,
+                # which is linear in its payload: [q_feat_o | flow | q_feat]
+                # goes through net.0's matching rows before it is scattered
+                # (130 -> 64 channels); the rows of the extras, the residual
+                # and the time are added after the merge. The flow's two rows
+                # stay in the input's dtype.
+                ws_raw, _ = self.synth_net.first_linear(x.dtype)
+                ws, bs = self.synth_net.first_linear(rel.dtype)
+                ws_raw, ws = ws_raw.t(), ws.t()                  # (198, 64)
+                k_e = 3 if self.decoder_Z else 2
+                w_a, w_b = ws[:64], ws[66:66 + ch]
+                off = 66 + ch
+                w_e = ws[off:off + k_e]
+                w_r = ws[off + k_e:off + k_e + ch]
+                w_t = ws[off + k_e + ch]
+                pay = rep_n(torch.matmul(q_feat_o, w_a)
+                            + up(torch.matmul(feat, w_b)))
+                # (nBN, HH, WW, 64)
+                feat_hr = cf(pay) + torch.matmul(flow_raw[..., :2].detach(),
+                                                 ws_raw[64:66])
             else:
-                out = self.synth_net(synth_in)
-        frames_out = torch.clamp(cf(out).reshape(B, N, HH, WW, 3), 0.0, 1.0
-                                 ).permute(1, 0, 2, 3, 4)
+                feat_hr = torch.cat(
+                    [split_groups(rep_n(cf(q_feat_o)), 64 // G),
+                     flow_raw[..., :2].detach(),
+                     split_groups(rep_n(cf(q_feat)), ch // G)], dim=-1)
+            flow_hr = flow_raw[..., :2] * 20.0 * (HH / H)
+            z = torch.relu(flow_raw[..., 2:3]) * self.alpha
+            if not self.predict_Z:
+                z = torch.zeros_like(z)
+            if G > 1:        # every group splats along the same teacher flow
+                flow_gt = flow_gt.repeat_interleave(G, 0)
+        obs.mark(3)
+        with obs.span("motif.splat"):
+            output, extra = self._splat_merge(feat_hr, flow_gt if use_gt
+                                              else flow_hr, z, n, B * N * G)
+
+        # ---- synthesis ----
+        obs.mark(4)
+        with obs.span("motif.synth"):
+            if fused:
+                # net.0's pre-activation: the merged splat output (already
+                # through w_a, the flow rows and w_b) + the extras', the
+                # residual's and the time's rows + the bias
+                h = (cd(output).reshape(B * N, HH, WW, 64)
+                     + torch.matmul(cd(extra).reshape(B * N, HH, WW, -1), w_e)
+                     + up(torch.matmul(cd(residual_bn), w_r))
+                     + cd(target_t).reshape(B * N, 1, 1, 1)
+                     * w_t[None, None, None]
+                     + bs)
+                out = _chunked_tokens(self.synth_net,
+                                      h.reshape(B * N, HH * WW, -1), chunks)
+            else:
+                def merge_groups(a):  # (BNG, HH, WW, c) -> (BN, HH, WW, G·c)
+                    if G == 1:
+                        return a
+                    c = a.shape[-1]
+                    return a.reshape(B * N, G, HH, WW, c).permute(
+                        0, 2, 3, 1, 4).reshape(B * N, HH, WW, G * c)
+
+                tmap = cd(target_t.reshape(B * N, 1, 1, 1)
+                          * x.new_ones((1, HH, WW, 1)))
+                synth_in = torch.cat([merge_groups(cd(output)),
+                                      merge_groups(cd(extra)), q_residual,
+                                      tmap], dim=-1)
+                if self.siren:
+                    out = _chunked_tokens(self.synth_net,
+                                          synth_in.reshape(B * N, HH * WW, -1),
+                                          chunks)
+                else:
+                    out = self.synth_net(synth_in)
+            frames_out = torch.clamp(cf(out).reshape(B, N, HH, WW, 3), 0.0, 1.0
+                                     ).permute(1, 0, 2, 3, 4)
+        obs.mark(5)
         flow_norm = flow_hr / 20.0 / (HH / H)
         flow_gt_norm = flow_gt / 20.0 / (HH / H)
         return frames_out, flow_norm, flow_gt_norm

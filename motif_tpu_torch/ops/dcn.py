@@ -49,6 +49,7 @@ import ctypes
 
 import torch
 
+from motif_tpu_torch import obs
 from motif_tpu_torch.ops import kernels
 
 _SIGNATURES = {"dcn_im2col_forward": [
@@ -225,7 +226,7 @@ class _DcnIm2col(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_cols):
         x, offset, mask = ctx.saved_tensors
-        with torch.profiler.record_function("dcn_im2col.backward"):
+        with obs.span("dcn_im2col.backward"):
             grads = dcn_im2col_backward_plain(x, offset, mask, g_cols,
                                               *ctx.conv)
         return (*grads, None, None, None, None, None)

@@ -11,27 +11,30 @@ under a name that carries a hash of the source, of every header under
 every module on a machine without `nvcc`.
 
 Each C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `check` raises when that is not 0. `LAUNCHES` counts
-kernel launches per kernel and `ENTRY_LAUNCHES` per entry of a kernel (its
-element type and variant, such as "siren_mlp/bfloat16/skip_first"); a
-wrapper calls `count` where it launches its kernel and nowhere else. A
-CUDA-graph capture records launches without making them: inside
-`recording()` each `count` goes to a tape, and `count_replay(tape)` counts
-the tape's launches once per replay of the graph.
+`cudaGetLastError()`; `check` raises when that is not 0. A wrapper calls
+`count` (`obs.launch`) where it launches its kernel and nowhere else: the
+launches are counters of `motif_tpu_torch.obs`, which also keeps a
+capture's tape of them (`obs.recording`, `obs.count_replay`), as is
+`kernels.builds` (sources compiled). `LAUNCHES` reads them per kernel and
+`ENTRY_LAUNCHES` per entry of a kernel (its element type and variant, such
+as "siren_mlp/bfloat16/skip_first"). A build and a load are the spans
+`kernels.build` and `kernels.load`.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from collections.abc import Mapping
 from pathlib import Path
 
 import torch
+
+from motif_tpu_torch import obs
 
 KERNELS = ("splat_fused", "dcn_im2col", "siren_mlp")     # the counters
 SOURCES = ("splat_fused", "dcn_im2col", "siren_mlp", "siren_layer",
@@ -42,50 +45,46 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {name: 0 for name in KERNELS}
-ENTRY_LAUNCHES: dict[str, int] = {}
 BUILD_LOGS: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+count = obs.launch
+
+
+class _Launches(Mapping):
+    """The launch counters as a mapping: by kernel (every one of `KERNELS`,
+    0 until launched) or, with `entries`, by `<kernel>/<entry>` launched."""
+
+    def __init__(self, entries: bool):
+        self.entries = entries
+
+    def __getitem__(self, key: str) -> int:
+        if self.entries and "/" in key:
+            return obs.counters()[obs.LAUNCHES + key]
+        if not self.entries and key in KERNELS:
+            return obs.counters().get(obs.LAUNCHES + key, 0)
+        raise KeyError(key)
+
+    def __iter__(self):
+        if not self.entries:
+            return iter(KERNELS)
+        n = len(obs.LAUNCHES)
+        return iter([k[n:] for k in obs.counters()
+                     if k.startswith(obs.LAUNCHES) and "/" in k])
+
+    def __len__(self) -> int:
+        return sum(1 for _ in self)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+LAUNCHES = _Launches(entries=False)
+ENTRY_LAUNCHES = _Launches(entries=True)
+
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    ENTRY_LAUNCHES.clear()
-
-
-def count(name: str, entry: str) -> None:
-    """One launch of kernel `name` through its entry `entry` (on the tape
-    of `recording`, inside one)."""
-    key = f"{name}/{entry}"
-    if _TAPE is not None:
-        _TAPE[key] = _TAPE.get(key, 0) + 1
-        return
-    LAUNCHES[name] += 1
-    ENTRY_LAUNCHES[key] = ENTRY_LAUNCHES.get(key, 0) + 1
-
-
-_TAPE: dict | None = None
-
-
-@contextlib.contextmanager
-def recording():
-    """Around a CUDA-graph capture: yields a tape ({name/entry: launches})
-    that every `count` inside adds to, instead of the counters."""
-    global _TAPE
-    outer, _TAPE = _TAPE, {}
-    try:
-        yield _TAPE
-    finally:
-        _TAPE = outer
-
-
-def count_replay(tape: dict) -> None:
-    """One replay of a graph whose capture recorded `tape`: each launch on
-    it counted once."""
-    for key, n in tape.items():
-        LAUNCHES[key.split("/", 1)[0]] += n
-        ENTRY_LAUNCHES[key] = ENTRY_LAUNCHES.get(key, 0) + n
+    obs.reset(obs.LAUNCHES)
 
 
 def _nvcc() -> str:
@@ -112,26 +111,29 @@ def build(names=SOURCES) -> float:
     todo = [n for n in names if not _library_path(n).exists()]
     if not todo:
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name in todo:
-        out = _library_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOGS[name] = log
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    with obs.span("kernels.build", sources=todo):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for name in todo:
+            out = _library_path(name)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_LOGS[name] = log
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    obs.count("kernels.builds", len(todo))
     return time.perf_counter() - t0
 
 
@@ -141,11 +143,12 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     a C int)."""
     if name not in _LIBS:
         build([name])
-        lib = ctypes.CDLL(str(_library_path(name)))
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
+        with obs.span("kernels.load", kernel=name):
+            lib = ctypes.CDLL(str(_library_path(name)))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
         _LIBS[name] = lib
     return _LIBS[name]
 

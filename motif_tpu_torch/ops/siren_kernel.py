@@ -50,6 +50,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from motif_tpu_torch import obs
 from motif_tpu_torch.ops import kernels
 
 MAX_LAYERS = 8          # MAX_LAYERS of both sources
@@ -342,7 +343,7 @@ class _SirenMlp(torch.autograd.Function):
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
         n = len(params) // 2
-        with torch.profiler.record_function("siren_mlp.backward"):
+        with obs.span("siren_mlp.backward"):
             grads = siren_mlp_backward_plain(x, params[:n], params[n:], g,
                                              *ctx.conf)
         return (grads[0], None, None, None, None, *grads[1:])

@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from motif_tpu_torch import obs
 from motif_tpu_torch.ops import kernels
 from motif_tpu_torch.ops.warp import pixel_grid
 
@@ -301,7 +302,7 @@ class _SplatFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_norm, _g_max, _g_count):
         img, flow, z = ctx.saved_tensors
-        with torch.profiler.record_function("splat_fused.backward"):
+        with obs.span("splat_fused.backward"):
             d_img, d_flow, d_z = splat_fused_backward_plain(
                 img, flow, torch.exp(z), g_out, g_norm, ctx.scatter_dtype)
         return d_img, d_flow, d_z, None, None

@@ -39,6 +39,7 @@ sums over the batch). The loss in aux is the global one too. Every process draws
 
 from __future__ import annotations
 
+import contextlib
 import random
 import time
 from dataclasses import dataclass
@@ -47,7 +48,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from motif_tpu_torch import losses, schedules
+from motif_tpu_torch import losses, obs, schedules
 from motif_tpu_torch.parallel import dist
 
 f32 = np.float32
@@ -208,17 +209,17 @@ class Trainer:
         the loss and its parts in the returned aux."""
         clock = clock or _Clock(False, None)
         self.optimizer.zero_grad(set_to_none=False)
-        total, aux = self.loss(batch, use_gt)
-        clock.mark("forward")
-        total.backward()
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        aux["loss"] = total.detach()
-        if self.sync:
-            dist.all_reduce_grads(self.params)
-            aux = {k: dist.all_reduce_sum(v) for k, v in aux.items()}
-        clock.mark("backward")
+        with clock.part("forward"):
+            total, aux = self.loss(batch, use_gt)
+        with clock.part("backward"):
+            total.backward()
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            aux["loss"] = total.detach()
+            if self.sync:
+                dist.all_reduce_grads(self.params)
+                aux = {k: dist.all_reduce_sum(v) for k, v in aux.items()}
         return aux
 
     def step(self, batch, sync_times: bool = False) -> dict:
@@ -230,10 +231,10 @@ class Trainer:
         lr = self.schedule(self.step_count)
         clock = _Clock(sync_times, self.params[0].device)
         aux = self.compute_grads(batch, use_gt, clock)
-        for group in self.optimizer.param_groups:
-            group["lr"] = float(lr)
-        self.optimizer.step()
-        clock.mark("optimizer")
+        with clock.part("optimizer"):
+            for group in self.optimizer.param_groups:
+                group["lr"] = float(lr)
+            self.optimizer.step()
         self.step_count += 1
         aux.update(lr=float(lr), use_gt=use_gt)
         if sync_times:
@@ -252,8 +253,10 @@ class Trainer:
 
 
 class _Clock:
-    """Milliseconds between marks by the host clock, each mark after a
-    device synchronisation; does nothing unless on."""
+    """A step's parts, each the span `train.<part>`; when on, also the
+    milliseconds from the previous part's end (or the clock's start) to
+    the part's end by the host clock, each end after a device
+    synchronisation."""
 
     def __init__(self, on: bool, device: torch.device):
         self.on = on
@@ -267,9 +270,12 @@ class _Clock:
         if self.cuda:
             torch.cuda.synchronize()
 
-    def mark(self, name: str) -> None:
-        if self.on:
-            self._sync()
-            t = time.perf_counter()
-            self.ms[name] = (t - self._t) * 1e3
-            self._t = t
+    @contextlib.contextmanager
+    def part(self, name: str):
+        with obs.span("train." + name):
+            yield
+            if self.on:
+                self._sync()
+                t = time.perf_counter()
+                self.ms[name] = (t - self._t) * 1e3
+                self._t = t
