@@ -90,8 +90,10 @@ Phases, each fatal on failure:
      refuse;
   8. the four-anchor Ours_44, the recipe's own model (before phase 6's
      lines): requests (h) (fp32) and (i) (the serving knobs), 4 LQ frames
-     64x112 -> 256x448, 3 times one a forward with RAFT on the 12 cross
-     pairs, each counted alone, held against its plain versions, (i)
+     64x112 -> 256x448, 3 times one a chunk, the trunk (RAFT on the 12
+     cross pairs, the encoder's DCNs) once a request, each counted alone
+     (the DCNs once, the SIRENs and the splat once a chunk; the eval CLI's
+     clips likewise), held against its plain versions, (i)
      against (h), both timed in turns; the eval CLI over
      configs/test_vimeo44.yml on a Vid4 clip in both configurations
      against their plain versions (EVAL_GATES); data/vimeo copied into a
@@ -183,12 +185,14 @@ Phases, each fatal on failure:
      trainers on the plain versions under the deterministic algorithms
      bit-equal (loss and every parameter), and the request held against
      its plain versions at request (a)'s gate.
-Every request goes through Evaluator.infer, which on CUDA replays one
-captured CUDA graph per shape bucket: each request of phases 4, 8 and 9 is
+Every request goes through Evaluator.infer, which on CUDA replays the
+captured CUDA graphs of its shape bucket (MoTIF's trunk once a request,
+its head once a chunk; a baseline's one graph): each request of phases 4,
+8 and 9 is
 also held, replayed, against the same request run eagerly (`_infer_eager`,
 at the request's own gate, beside the distance of two eager runs and their
 share of bit-equal frames), timed eager and captured in turns, with the
-device's busy share of a captured request from its graph's replays timed
+device's busy share of a captured request from its graphs' replays timed
 by CUDA events (torch.profiler segfaulted on replays), and requests (a)
 and (e) profiled eagerly (device kernels, copies); request (e)
 is replayed once more under torch.cuda.set_sync_debug_mode("error"). The
@@ -1139,19 +1143,24 @@ def pool_bytes(ev):
 
 
 def graph_ms(ev, lq, times, out_hw, reps=5):
-    """Device ms of one replay of the graph of the request's bucket, by
-    CUDA events over `reps` replays back to back (a replay's kernels run
-    with no host gap between them), and the request's chunks. torch.profiler
-    is not used on replays: CUPTI segfaulted the process in them (PERF.md
-    §7)."""
+    """Device ms of one request's replays through its bucket's graphs (a
+    MoTIF bucket's trunk graph once, where the checkout has one, and the
+    chunk's graph once per chunk), by CUDA events over `reps` requests'
+    replays back to back (a replay's kernels run with no host gap between
+    them), and the request's chunks. torch.profiler is not used on
+    replays: CUPTI segfaulted the process in them (PERF.md §7)."""
     lq_p, chunks, _, hw = ev._plan(lq, times)
-    graph = ev._buckets[ev._key(lq_p.shape, chunks[0].shape, hw)].graph
+    bucket = ev._buckets[ev._key(lq_p.shape, chunks[0].shape, hw)]
+    trunk = getattr(bucket, "trunk_graph", None)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        graph.replay()
+        if trunk is not None:
+            trunk.replay()
+        for _ in chunks:
+            bucket.graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, len(chunks)
@@ -1164,7 +1173,7 @@ def hold_replay(ev, lq, times, name, tol, stats_rtol, card,
     within `stats_rtol` (the request's own gates), beside the distance of
     two eager runs and the share of frames bit-equal to the first eager
     run's; then eager and captured timed in turns (n each, twice), and the
-    device's busy share of a captured request: its chunks' graph replays
+    device's busy share of a captured request: its graph replays
     (`graph_ms`) over its median wall time. Returns the line it prints."""
     first, _ = ev.infer(lq, times, out_hw)       # captures a new bucket
     got, stats = ev.infer(lq, times, out_hw)
@@ -1199,14 +1208,14 @@ def hold_replay(ev, lq, times, name, tol, stats_rtol, card,
             "captured_ms_range": [min(c1 + c2), max(c1 + c2)],
             "eager_ms": e1 + e2, "captured_ms": c1 + c2,
             "graph_device_ms": g_ms, "chunks": chunks,
-            "device_busy_ms": chunks * g_ms,
-            "device_busy_share": chunks * g_ms / captured,
+            "device_busy_ms": g_ms,
+            "device_busy_share": g_ms / captured,
             "buckets": len(getattr(ev, "_buckets", {})),
             "pool_bytes": pool_bytes(ev),
             "note": "Evaluator.infer wall ms incl. the frames' copy to the "
                     "host, eager and captured in turns: e, c, c, e; busy = "
-                    "chunks x graph_device_ms (CUDA events) / captured "
-                    "median"}
+                    "graph_device_ms (a request's replays, CUDA events) / "
+                    "captured median"}
     emit(line)
     if not (dist(got) <= tol and dist(first) <= tol
             and (stats is None or stats_err <= stats_rtol)):
@@ -2265,8 +2274,12 @@ def per_forward(dcns: int, config: str) -> dict:
             "splat_fused/float16/C=64": 1}
 
 
-def times_n(entries: dict, n: int) -> dict:
-    return {k: v * n for k, v in entries.items()}
+def per_request(dcns: int, config: str, chunks: int) -> dict:
+    """What a four-anchor request of `chunks` chunks launches through
+    Evaluator.infer: the trunk's DCNs once, a forward's SIRENs and splat
+    once a chunk."""
+    return {k: v if k.startswith("dcn_im2col") else v * chunks
+            for k, v in per_forward(dcns, config).items()}
 
 
 def build_request44(dev, **knobs):
@@ -2314,9 +2327,9 @@ def run_requests44(dev, card, mods):
         eager(ev)(lq, t3, (256, 448))
         hook.remove()
         rafts[name] = calls
-    dcns = entries["h"].get("dcn_im2col/float32", 0) // 3
-    want = {"h": times_n(per_forward(dcns, "fp32"), 3),
-            "i": times_n(per_forward(dcns, "serving"), 3)}
+    dcns = entries["h"].get("dcn_im2col/float32", 0)
+    want = {"h": per_request(dcns, "fp32", 3),
+            "i": per_request(dcns, "serving", 3)}
     emit({"phase": "requests44", "model": FOUR, "entries": entries,
           "dcn_per_forward": dcns, "raft_batches": rafts,
           "seconds": time.perf_counter() - t0})
@@ -2371,7 +2384,7 @@ def run_eval44(dev, card, mods, dcns):
         for config in ("fp32", "serving"):
             entries[config], _ = eval_cli(
                 tmp, config, ymls[config], stems[config], pth, mods,
-                per_clip=times_n(per_forward(dcns, config), 7),
+                per_clip=per_request(dcns, config, 7),
                 frames_shape=(7, 1, 64, 96, 3), clips=EVAL44_CLIPS)
     emit({"phase": "eval44", "seconds": time.perf_counter() - t0})
     return entries

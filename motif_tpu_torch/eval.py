@@ -14,33 +14,50 @@ As the JAX package compiles one forward per shape bucket
 (motif_tpu/eval.py:82-125), `infer` keeps one `_Bucket` per key (the
 padded LQ shape, the times per chunk and the output size, and what the
 forward branches on in host code: the family, the parameter dtype, MoTIF's
-knobs and the sign of its alpha). On CUDA a bucket is one CUDA graph of
-`_forward`, captured at the bucket's first request after an eager run of
-that request's first chunk on a side stream (which builds the kernels and
-fills the model's caches), over static device inputs; all buckets of an
-Evaluator share one memory pool. A request then copies its inputs in from
-pinned host memory, replays the graph once per chunk, keeps the flow
-statistics on the device and copies the frames and statistics out into
-pinned memory once, with one synchronisation at the end. A capture that
-fails raises with the bucket's key: there is no eager fallback. When the
-model's weights change (a load, an optimiser step, a move), the buckets
-are dropped and captured anew. On the CPU a bucket runs the eager forward
-over the same buffers; the rest of `infer` is the same code.
+knobs and the sign of its alpha). On CUDA a baseline's bucket is one CUDA
+graph of `_forward`, captured at the bucket's first request after an eager
+run of that request's first chunk on a side stream (which builds the
+kernels and fills the model's caches), over static device inputs. For the
+Ours family, whose trunk (RAFT, the reliability metrics, the encoder)
+reads the LQ and never the times, a bucket holds two graphs, each
+captured so: the trunk's (`MoTIF.trunk`), over the static LQ, with static
+outputs, and the head's (`MoTIF.head`: the rest of the forward), over
+those outputs and the static times. All buckets of an Evaluator share one
+memory pool. A request then copies its inputs in
+from pinned host memory, replays the trunk's graph once (Ours family),
+replays the chunk's graph once per chunk, keeps the flow statistics on the
+device and copies the frames and statistics out into pinned memory once,
+with one synchronisation at the end. A capture that fails raises with the
+bucket's key: there is no eager fallback. When the model's weights change
+(a load, an optimiser step, a move), the buckets are dropped and captured
+anew. On the CPU a bucket runs the same plan eagerly over the same
+buffers; the rest of `infer` is the same code.
 
 Under a profiler a request is the span `infer` (attrs: `n` times, `chunks`,
 `bucket`, `frames` returned, and after a replayed MoTIF request `parts_ms`
 and `forwards`) over its children `infer.plan`, `infer.bucket`,
-`infer.copy_in`, per chunk `infer.replay` and `infer.gather`,
-`infer.copy_out`, `infer.wait`, on a replayed MoTIF request `infer.marks`
-(reading its marks), and `infer.unpad`; a capture is the span
-`eval.capture`. A MoTIF graph holds its forward's marks (`obs.marking`):
-`parts_ms` are the device milliseconds of each of MoTIF's `PARTS` in the
-request's last replay. Counters: `eval.captures`, `eval.replays` and
-`eval.bucket_resets` (every graph dropped for new weights).
+`infer.copy_in`, for the Ours family `infer.trunk` (the trunk's one
+replay), per chunk `infer.replay` and `infer.gather`, `infer.copy_out`,
+`infer.wait`, on a replayed MoTIF request `infer.marks` (reading its
+marks), and `infer.unpad`; a capture is the span `eval.capture` (attr
+`graph="trunk"` for a trunk's). A MoTIF trunk graph holds marks 0 to 2 of
+its forward, the head graph marks 2 to 5 (`obs.marking`): `parts_ms` are
+the device milliseconds of each of MoTIF's `PARTS` as one of the request's
+`forwards` holds them, the trunk's parts its one replay's over `forwards`
+and the head's those of the last replay, so that `parts_ms[p] * forwards`
+is the request's milliseconds of part p. Counters: `eval.captures`
+(buckets captured), `eval.trunk_replays` (a trunk graph's replays: one a
+request of the Ours family, but for a bucket's first, which runs the
+trunk eagerly), `eval.replays` (a chunk graph's: one a chunk, but for the
+first chunk of a bucket's first request; on the CPU every eager run of
+either counts) and `eval.bucket_resets` (every graph dropped for new
+weights). Each graph counts the launches of its own capture at each
+replay, so a request's launch counts are those of the kernels it ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 from dataclasses import dataclass, field
@@ -50,7 +67,7 @@ import torch
 
 from motif_tpu_torch import obs, resolve_device
 from motif_tpu_torch.models.factory import BASELINES, FOUR_ANCHOR
-from motif_tpu_torch.models.motif import PARTS
+from motif_tpu_torch.models.motif import PARTS, TRUNK_PARTS
 from motif_tpu_torch.utils import metrics
 
 
@@ -139,7 +156,7 @@ class Evaluator:
         self._buckets: dict = {}
         self._stamp = None
         self._pool = None
-        self.captures = 0      # CUDA graphs captured over the life
+        self.captures = 0      # buckets captured over the life
 
     def _forward(self, lq, times, out_hw):
         """One call of the model in its family's way: (frames (N, B, HH,
@@ -157,9 +174,7 @@ class Evaluator:
         elif f in ("ZSM", "Zooming"):
             out = model(lq)
         else:
-            frames, flow, flow_gt = model(lq, times, out_hw, iters=self.iters)
-            return frames, torch.stack([(flow - flow_gt).abs().mean(),
-                                        flow.abs().mean()])
+            return _with_stats(*model(lq, times, out_hw, iters=self.iters))
         return out.transpose(0, 1), None
 
     def _plan(self, lq: np.ndarray, times: np.ndarray):
@@ -216,7 +231,8 @@ class Evaluator:
         (N, B, out_hw[0], out_hw[1], 3) as numpy, (flow_err, flow_abs) for
         the Ours family, else None). Through the request's bucket: on CUDA
         its graph replayed per chunk (captured at the bucket's first
-        request)."""
+        request); for the Ours family the trunk's graph replayed once
+        before them, the head's per chunk."""
         with obs.span("infer", n=times.shape[1]) as sp:
             with obs.span("infer.plan"):
                 lq_p, chunks, n, hw = self._plan(lq, times)
@@ -226,12 +242,18 @@ class Evaluator:
             sp.set(chunks=len(chunks), bucket=bucket.serial,
                    frames=n * lq.shape[0])
             captured = bucket.graph is not None
-            frames, stats = bucket.request(
-                lambda a, t: self._forward(a, t, hw), lq_p, chunks)
+            if self.chunked:       # the trunk once, the head per chunk
+                model = self.model
+                frames, stats = bucket.request(
+                    lambda s, t: _with_stats(*model.head(s, t, hw)), lq_p,
+                    chunks, trunk=lambda a: model.trunk(a, hw, self.iters))
+            else:
+                frames, stats = bucket.request(
+                    lambda a, t: self._forward(a, t, hw), lq_p, chunks)
             self.captures += bucket.graph is not None and not captured
             if captured and obs.enabled():
                 with obs.span("infer.marks"):
-                    parts = bucket.marks.elapsed()
+                    parts = bucket.parts_ms(len(chunks))
                     if parts is not None:
                         sp.set(parts_ms=dict(zip(PARTS, parts)),
                                forwards=len(chunks))
@@ -314,13 +336,24 @@ class Evaluator:
 _serials = itertools.count()
 
 
+def _with_stats(frames, flow, flow_gt):
+    """MoTIF's outputs as a chunk's: (frames, [flow_err, flow_abs] as a
+    (2,) tensor on the device)."""
+    return frames, torch.stack([(flow - flow_gt).abs().mean(),
+                                flow.abs().mean()])
+
+
 class _Bucket:
     """One shape bucket of `Evaluator.infer`: static device inputs (the
     padded LQ, one chunk's times) and, on CUDA, the graph of the forward
     captured over them, with its outputs (the frames, the flow statistics)
     static too, the launches its capture recorded (`obs.recording`: each
-    replay counts them) and its marks (`obs.marking`). On the CPU the
-    forward runs eagerly over the same buffers."""
+    replay counts them) and its marks (`obs.marking`). A MoTIF bucket
+    holds two graphs over one pool: the trunk's over the static LQ, whose
+    outputs (`state`) are static, replayed once a request, and the head's
+    over those outputs and the times, replayed once a chunk (`graph`).
+    On the CPU the same plan runs eagerly over the same buffers, each run
+    counted as a replay."""
 
     def __init__(self, key, lq_shape, t_shape, dtype, device, pool):
         self.key, self.device, self.pool = key, device, pool
@@ -329,44 +362,108 @@ class _Bucket:
         self.t = torch.zeros(t_shape, dtype=dtype, device=device)
         self.graph, self.tape, self.marks = None, {}, None
         self.frames = self.stats = None
+        self.trunk_graph, self.trunk_tape, self.trunk_marks = None, {}, None
+        self.state = None
+
+    def _run_trunk(self, trunk):
+        """The trunk over the static LQ (`trunk(lq)` -> its state): eager on
+        the CPU; on CUDA at first an eager run on a side stream (it builds
+        the kernels and fills the model's caches), then the capture, whose
+        static outputs take the eager run's values; a replay after that."""
+        if self.device.type != "cuda":
+            self.state = trunk(self.lq)
+            obs.count("eval.trunk_replays")
+            return
+        if self.trunk_graph is not None:
+            self.trunk_graph.replay()
+            obs.count_replay(self.trunk_tape)
+            obs.count("eval.trunk_replays")
+            return
+        with obs.span("eval.capture", bucket=self.serial, graph="trunk"):
+            warm = self._warm(trunk, self.lq)
+            graph = torch.cuda.CUDAGraph()
+            with self._capturing(graph, TRUNK_PARTS + 1) as (marks, tape):
+                self.state = trunk(self.lq)
+        for static, value in zip(_tensors(self.state), _tensors(warm)):
+            if static is not value:    # not the input or a shape table
+                static.copy_(value)
+        self.trunk_graph, self.trunk_tape = graph, tape
+        self.trunk_marks = marks
 
     def _run(self, forward):
-        """The forward over the static inputs: eager on the CPU; on CUDA at
-        first an eager run on a side stream (it builds the kernels and
-        fills the model's caches, and its outputs are this chunk's), then
-        the capture; a replay after that."""
+        """One chunk's forward over the static inputs (the LQ, or the
+        trunk's state) and times: eager on the CPU; on CUDA at first an
+        eager run on a side stream (it builds the kernels and fills the
+        model's caches, and its outputs are this chunk's), then the
+        capture; a replay after that."""
+        src = self.lq if self.state is None else self.state
         if self.device.type != "cuda":
-            return forward(self.lq, self.t)
+            out = forward(src, self.t)
+            obs.count("eval.replays")
+            return out
         if self.graph is not None:
             self.graph.replay()
             obs.count_replay(self.tape)
             obs.count("eval.replays")
             return self.frames, self.stats
         with obs.span("eval.capture", bucket=self.serial):
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                warm = forward(self.lq, self.t)
-            torch.cuda.current_stream(self.device).wait_stream(side)
+            warm = self._warm(forward, src, self.t)
             graph = torch.cuda.CUDAGraph()
-            try:
-                with obs.marking(len(PARTS) + 1) as marks, \
-                        obs.recording() as tape, \
-                        torch.cuda.graph(graph, pool=self.pool):
-                    self.frames, self.stats = forward(self.lq, self.t)
-            except Exception as e:
-                raise RuntimeError(f"Evaluator: the capture of bucket "
-                                   f"{self.key} failed: {e}") from e
+            first = 0 if self.state is None else TRUNK_PARTS
+            with self._capturing(graph, len(PARTS) + 1, first) as (marks,
+                                                                   tape):
+                self.frames, self.stats = forward(src, self.t)
         obs.count("eval.captures")
         self.graph, self.tape, self.marks = graph, tape, marks
         return warm
 
-    def request(self, forward, lq_p: np.ndarray, chunks: np.ndarray):
+    def _warm(self, fn, *args):
+        """`fn(*args)` on a side stream, the current stream then waiting on
+        it: the run before a capture."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            out = fn(*args)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return out
+
+    @contextlib.contextmanager
+    def _capturing(self, graph, n_marks, first=0):
+        """The capture into `graph` over the bucket's pool, with marks
+        `first` to `n_marks` - 1 and a launch tape: yields (marks, tape).
+        A capture that fails raises with the bucket's key."""
+        try:
+            with obs.marking(n_marks, first) as marks, \
+                    obs.recording() as tape, \
+                    torch.cuda.graph(graph, pool=self.pool):
+                yield marks, tape
+        except Exception as e:
+            raise RuntimeError(f"Evaluator: the capture of bucket "
+                               f"{self.key} failed: {e}") from e
+
+    def parts_ms(self, forwards: int):
+        """The device ms of each of MoTIF's `PARTS` in the last request as
+        a forward of its `forwards` would hold them, or None where a graph
+        did not record all its marks: the trunk's parts (its one replay)
+        over `forwards`, the head's from the last replay; so each part's
+        ms times `forwards` is the request's ms of that part."""
+        head = self.marks.elapsed() if self.marks is not None else None
+        if self.trunk_graph is None or head is None:
+            return head
+        trunk = self.trunk_marks.elapsed()
+        if trunk is None:
+            return None
+        return [ms / forwards for ms in trunk] + head
+
+    def request(self, forward, lq_p: np.ndarray, chunks: np.ndarray,
+                trunk=None):
         """Every chunk of one request (`chunks` (k, B, step)) through the
-        bucket: the inputs copied in once (from pinned memory on CUDA), one
-        forward per chunk, its frames and statistics gathered on the
-        device, then copied out once. Returns numpy (frames (k * step, B,
-        HH, WW, 3), statistics (k, 2) or None)."""
+        bucket: the inputs copied in once (from pinned memory on CUDA),
+        with `trunk` the trunk run once over the LQ (`_run_trunk`, span
+        `infer.trunk`) and `forward(state, t)` its head, else `forward(lq,
+        t)`, one forward per chunk, its frames and statistics gathered on
+        the device, then copied out once. Returns numpy (frames (k * step,
+        B, HH, WW, 3), statistics (k, 2) or None)."""
         cuda = self.device.type == "cuda"
         with obs.span("infer.copy_in"):
             lq_h = torch.from_numpy(lq_p)
@@ -375,6 +472,9 @@ class _Bucket:
                 lq_h, t_h = lq_h.pin_memory(), t_h.pin_memory()
             self.lq.copy_(lq_h, non_blocking=True)
             t_dev = t_h.to(self.device, non_blocking=True)
+        if trunk is not None:
+            with obs.span("infer.trunk"):
+                self._run_trunk(trunk)
         frames = stats = None
         for k in range(len(chunks)):
             with obs.span("infer.replay", chunk=k):
@@ -400,3 +500,8 @@ class _Bucket:
             if cuda:
                 done.synchronize()
         return out[0].numpy(), out[1].numpy() if stats is not None else None
+
+
+def _tensors(state: dict) -> list:
+    """The tensors among a trunk state's values, in its order."""
+    return [v for v in state.values() if isinstance(v, torch.Tensor)]

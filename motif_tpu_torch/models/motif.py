@@ -22,7 +22,10 @@ nearest takes → STINF / SINF SIRENs → softmax splat (CUDA kernel
 `splat_fused`) → synthesis SIREN → clip.
 
 Tensors are NHWC as in the JAX package: forward takes x (B, N_in, H, W, 3)
-and returns frames (N, B, HH, WW, 3).
+and returns frames (N, B, HH, WW, 3). The forward is two calls: `trunk`
+(RAFT, the reliability metrics and the encoder) reads only the frames,
+`head` (the rest) reads the times too, so the trunk of one set of frames
+serves every chunk of times decoded from them.
 """
 
 from __future__ import annotations
@@ -41,8 +44,11 @@ from motif_tpu_torch.ops.resize import interpolate_bilinear
 from motif_tpu_torch.ops.warp import backwarp
 
 # the parts of a forward, each a span `motif.<part>` and the interval
-# between marks i and i + 1 (`obs.mark`) on the device
+# between marks i and i + 1 (`obs.mark`) on the device; the first
+# TRUNK_PARTS are `MoTIF.trunk`'s (marks 0 to 2), the rest `MoTIF.head`'s
+# (marks 2 to 5)
 PARTS = ("motion", "encoder", "decode", "splat", "synth")
+TRUNK_PARTS = 2
 
 
 def make_coord_1d(n: int) -> np.ndarray:
@@ -482,11 +488,24 @@ class MoTIF(nn.Module):
         2) in i·n+j order, flow_gt (B, N, n, HH, WW, 2)), either None: the
         dataset's precomputed flows, which replace RAFT's (RAFT does not run
         when both are given, or lr_flow is and `train` is off) and take no
-        gradient."""
+        gradient. The forward is `head(trunk(x), target_t)`: a caller that
+        decodes several sets of times from the same frames runs the trunk
+        once."""
+        return self.head(self.trunk(x, out_hw, iters, flows), target_t,
+                         out_hw, use_gt, target_frames, train, flows)
+
+    def trunk(self, x: torch.Tensor, out_hw, iters: int = 12, flows=None):
+        """The part of the forward that reads the frames and never the
+        times (`PARTS[:TRUNK_PARTS]`): RAFT on the anchors' cross pairs
+        (or `flows[0]`) with the reliability metrics, then the ZSM encoder.
+        Returns the state `head` decodes times from, a dict of the input
+        `x`, the `iters`, the shape `tab`les and what the trunk computed
+        (each tensor a new one): the flow and psies (nothing takes their
+        gradient), the encoder's fused frames `feat_t` (B, 2n - 1, H, W,
+        ch) and the anchors' features `feat` (nB, H, W, ch). The
+        linear-motion fork's holds its LR flows f01 / f10 and features."""
         B, N_in, H, W, _ = x.shape
         HH, WW = out_hw
-        N = target_t.shape[1]
-        ch = self.channel
         n, G = self.n_anchors, self.groups
         if G != 1 and (self.fused_decode or self.warp_to_many):
             raise NotImplementedError(
@@ -494,8 +513,7 @@ class MoTIF(nn.Module):
                 "and warp_to_many=False (the fused splat-payload fold and "
                 "the warp_to_many merge, Ours.py:819-824, assume G=1).")
         if self.linear_motion:    # the first two (Ours_7.py:481-492)
-            return self._linear_forward(x[:, 0], x[:, 1], target_t, out_hw,
-                                        use_gt, iters, target_frames, train)
+            return self._linear_trunk(x[:, 0], x[:, 1], out_hw, iters)
         if n == 2:
             c = N_in // 2
             frames = [x[:, c - 1], x[:, c]]
@@ -504,39 +522,77 @@ class MoTIF(nn.Module):
         else:
             raise ValueError(f"MoTIF: four anchors take 4 input frames, not "
                              f"{N_in}")
-        lr_flow, flow_gt = flows if flows is not None else (None, None)
-        # cd casts into the compute dtype, cf back to the input's; both
-        # are the identity without a compute dtype
-        cdt = self.compute_dtype
-        cd = (lambda a: a.to(cdt)) if cdt is not None else (lambda a: a)
-        cf = (lambda a: a.to(x.dtype)) if cdt is not None else (lambda a: a)
+        lr_flow = flows[0] if flows is not None else None
+        cd, cf = self._casts(x)
 
         if self.raft_resolution != 1.0:
             RH = max(64, int(round(HH * self.raft_resolution / 8.0)) * 8)
             RW = max(64, int(round(WW * self.raft_resolution / 8.0)) * 8)
         else:
             RH, RW = HH, WW
+        cdt = self.compute_dtype
         tab = self._shape_tables(H, W, HH, WW, RH, RW, x.dtype, cdt, x.device)
-        # motion, reliability and teacher take no gradient (the JAX
-        # package's stop_gradients)
+        # motion and reliability take no gradient (the JAX package's
+        # stop_gradients)
         obs.mark(0)
         with obs.span("motif.motion"), torch.no_grad():
             flow, psies = self._motion(frames, tab, (H, W), (RH, RW), (HH, WW),
                                        iters, cd, cf, lr_flow)
-            if flow_gt is not None:       # (B, N, n, HH, WW, 2), anchor-major
-                flow_gt = flow_gt.permute(2, 0, 1, 3, 4, 5).reshape(
-                    n * B * N, HH, WW, 2)
-            elif train:
-                flow_gt = self._teacher(target_frames, N, (HH, WW), iters,
-                                        cd, cf)
-            else:
-                flow_gt = x.new_zeros((n * B * N, HH, WW, 2))
 
         # ---- encoder: 2n - 1 fused frames ----
         obs.mark(1)
         with obs.span("motif.encoder"):
             # (B, 2n-1, H, W, ch)
             feat_t = self.encoder(cd(torch.stack(frames, 1)))
+            # (nB, H, W, ch)
+            feat = torch.cat([feat_t[:, 2 * i] for i in range(n)], 0)
+        obs.mark(2)
+        return dict(x=x, iters=iters, tab=tab, flow=flow, psies=psies,
+                    feat_t=feat_t, feat=feat)
+
+    def _casts(self, x):
+        """(cd, cf): cd casts into the compute dtype, cf back to x's; both
+        are the identity without a compute dtype."""
+        cdt = self.compute_dtype
+        if cdt is None:
+            return _identity, _identity
+        return (lambda a: a.to(cdt)), (lambda a: a.to(x.dtype))
+
+    def head(self, state: dict, target_t: torch.Tensor, out_hw,
+             use_gt: bool = False, target_frames: torch.Tensor | None = None,
+             train: bool = False, flows=None):
+        """The part of the forward that reads the times
+        (`PARTS[TRUNK_PARTS:]`), from the `trunk`'s state, which it leaves
+        as it is: the teacher flow (`forward` has the arguments), the
+        residual (on four anchors the fused frame at round(t·6)), the flow
+        context, the LIIF decode, the splat and the synthesis. Returns
+        what `forward` returns."""
+        if self.linear_motion:
+            return self._linear_head(state, target_t, out_hw, use_gt,
+                                     target_frames, train)
+        x, tab, flow, psies = (state[k] for k in ("x", "tab", "flow",
+                                                  "psies"))
+        feat_t, feat = state["feat_t"], state["feat"]
+        B, _, H, W, _ = x.shape
+        HH, WW = out_hw
+        N = target_t.shape[1]
+        ch = self.channel
+        n, G = self.n_anchors, self.groups
+        cd, cf = self._casts(x)
+        flow_gt = flows[1] if flows is not None else None
+        if flow_gt is not None or train:     # the teacher takes no gradient
+            with obs.span("motif.motion"), torch.no_grad():
+                if flow_gt is not None:  # (B, N, n, HH, WW, 2), anchor-major
+                    flow_gt = flow_gt.permute(2, 0, 1, 3, 4, 5).reshape(
+                        n * B * N, HH, WW, 2)
+                else:
+                    flow_gt = self._teacher(target_frames, N, (HH, WW),
+                                            state["iters"], cd, cf)
+
+        obs.mark(2)
+        with obs.span("motif.decode"):
+            if flow_gt is None:
+                flow_gt = x.new_zeros((n * B * N, HH, WW, 2))
             if n == 2:       # the middle fused frame for every time
                 residual = feat_t[:, feat_t.shape[1] // 2][:, None].expand(
                     B, N, H, W, ch)
@@ -546,11 +602,7 @@ class MoTIF(nn.Module):
                 residual = feat_t[torch.arange(B, device=x.device)[:, None],
                                   idx]
             residual_bn = residual.reshape(B * N, H, W, ch)
-            # (nB, H, W, ch)
-            feat = torch.cat([feat_t[:, 2 * i] for i in range(n)], 0)
 
-        obs.mark(2)
-        with obs.span("motif.decode"):
             # ---- flow-context encoder: per source frame i, the targets j of
             # [flow_ij / 20 | psi_ij (input_Z) | rsd row] into a grouped conv
             # (or, with trans, each pair alone and a softmax over j) --
@@ -780,21 +832,13 @@ class MoTIF(nn.Module):
             output, extra = side_by_side(output), side_by_side(extra)
         return output, extra
 
-    def _linear_forward(self, x0, x1, target_t, out_hw, use_gt, iters,
-                        target_frames, train):
-        """The Ours_7 fork (Ours_7.py:480-704) on anchors x0, x1 (B, H, W,
-        3): RAFT's f01 / f10 at HR brought to LR, scaled by t and 1 - t
-        per target time and brought back to HR as the motion; the encoder
-        on the two anchors; SINF on the LIIF takes of their features; the
-        splat of [SINF | motion | features] along the motion (or the
-        teacher's) with z = 0 (its predict_Z is off); the synthesis net.
-        In the input's dtype (the fork has no compute dtype). The flows it
-        returns are the motion / 20 / (HH / H) and the teacher's likewise
-        (the fork's quirk: the motion was never multiplied by 20)."""
+    def _linear_trunk(self, x0, x1, out_hw, iters):
+        """The Ours_7 fork's trunk (Ours_7.py:480-704) on anchors x0, x1
+        (B, H, W, 3): RAFT's f01 / f10 at HR brought to LR (`f`, (2B, H, W,
+        2)), and the encoder on the two anchors (`feat_t`, their features
+        `feat`)."""
         B, H, W, _ = x0.shape
         HH, WW = out_hw
-        N = target_t.shape[1]
-        ch = self.channel
         tab = self._shape_tables(H, W, HH, WW, HH, WW, x0.dtype, None,
                                  x0.device)
         with torch.no_grad():
@@ -804,20 +848,38 @@ class MoTIF(nn.Module):
                                     torch.cat([hr1, hr0], 0) * 255.0,
                                     iters=iters)
             f = interpolate_bilinear(f, (H, W)) * (H / HH)
+        feat_t = self.encoder(torch.stack([x0, x1], 1))     # (B, 3, H, W, ch)
+        feat = torch.cat([feat_t[:, 0], feat_t[:, 2]], 0)   # (2B, H, W, ch)
+        return dict(x=x0, iters=iters, tab=tab, f=f, feat_t=feat_t, feat=feat)
+
+    def _linear_head(self, state, target_t, out_hw, use_gt, target_frames,
+                     train):
+        """The Ours_7 fork's head: f01 · t and f10 · (1 - t) per target time
+        brought to HR as the motion; SINF on the LIIF takes of the anchors'
+        features; the splat of [SINF | motion | features] along the motion
+        (or the teacher's) with z = 0 (its predict_Z is off); the synthesis
+        net. In the input's dtype (the fork has no compute dtype). The
+        flows it returns are the motion / 20 / (HH / H) and the teacher's
+        likewise (the fork's quirk: the motion was never multiplied by
+        20)."""
+        x0, tab, f = state["x"], state["tab"], state["f"]
+        feat_t, feat = state["feat_t"], state["feat"]
+        B, H, W, _ = x0.shape
+        HH, WW = out_hw
+        N = target_t.shape[1]
+        with torch.no_grad():
             t = target_t.reshape(1, B, N, 1, 1, 1)
             lin = torch.cat([f[None, :B, None] * t,
                              f[None, B:, None] * (1.0 - t)], 0)
             flow = interpolate_bilinear(lin.reshape(2 * B * N, H, W, 2),
                                         (HH, WW)) * (HH / H)
             if train:
-                flow_gt = self._teacher(target_frames, N, (HH, WW), iters,
-                                        _identity, _identity)
+                flow_gt = self._teacher(target_frames, N, (HH, WW),
+                                        state["iters"], _identity, _identity)
             else:
                 flow_gt = x0.new_zeros((2 * B * N, HH, WW, 2))
 
-        feat_t = self.encoder(torch.stack([x0, x1], 1))     # (B, 3, H, W, ch)
         residual_bn = feat_t[:, 1]
-        feat = torch.cat([feat_t[:, 0], feat_t[:, 2]], 0)   # (2B, H, W, ch)
         iy_t, ix_t, rel = tab["iy"], tab["ix"], tab["rel"]
 
         def up(img):

@@ -95,11 +95,14 @@ class Siren(nn.Module):
         kept on the module as `cast_param` keeps its copies: stamped with
         every parameter's version counter, address and device, and made
         anew when any of them changed (a `load_state_dict`, a move, an
-        optimiser's in-place step). It carries no autograd history: the
-        kernel reads it, the gradients go to the parameters themselves."""
+        optimiser's in-place step). One is kept for each setting of
+        `skip_first_linear`, so that a CUDA graph captured under either
+        keeps reading a live buffer when the model serves the other. It
+        carries no autograd history: the kernel reads it, the gradients go
+        to the parameters themselves."""
         lins = self._kernel_linears()
         return cached(
-            self, ("packed", dtype),
+            self, ("packed", dtype, self.skip_first_linear),
             [p for m in lins for p in (m.weight, m.bias)],
             lambda: _pack_detached(lins, dtype))
 

@@ -23,7 +23,9 @@ Inside a CUDA-graph replay no host code runs, so no span can time a part
 of it. Marks do: inside `marking(n)`, `mark(i)` records the i-th of n
 timing events on the current stream, which a capture makes a node of its
 graph; after a replay `Marks.elapsed` reads the milliseconds between
-consecutive ones. Outside `marking`, `mark` does nothing.
+consecutive ones. A graph that holds a stretch of the marks takes
+`marking(n, first)`: marks `first` to n - 1, and each mark outside them
+does nothing, as `mark` does outside `marking`.
 """
 
 from __future__ import annotations
@@ -171,11 +173,13 @@ def count_replay(tape: dict) -> None:
 
 
 class Marks:
-    """n timing events, and which of them `mark` recorded."""
+    """The timing events of marks `first` to n - 1, and which of them
+    `mark` recorded."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, first: int = 0):
+        self.first = first
         self.events = [torch.cuda.Event(enable_timing=True, external=True)
-                       for _ in range(n)]
+                       for _ in range(first, n)]
         self.seen: set = set()
 
     def elapsed(self):
@@ -188,13 +192,13 @@ class Marks:
 
 
 @contextlib.contextmanager
-def marking(n: int):
-    """Make `mark(0 .. n - 1)` record n new timing events; yields their
-    `Marks`. Each event is recorded once here, so that it exists before a
-    capture, which then makes every later record of it a node of its
-    graph (`external`)."""
+def marking(n: int, first: int = 0):
+    """Make `mark(first .. n - 1)` record n - first new timing events;
+    yields their `Marks`. Each event is recorded once here, so that it
+    exists before a capture, which then makes every later record of it a
+    node of its graph (`external`)."""
     global _marks
-    marks = Marks(n)
+    marks = Marks(n, first)
     for e in marks.events:
         e.record()
     outer, _marks = _marks, marks
@@ -205,6 +209,6 @@ def marking(n: int):
 
 
 def mark(i: int) -> None:
-    if _marks is not None:
-        _marks.events[i].record()
+    if _marks is not None and 0 <= i - _marks.first < len(_marks.events):
+        _marks.events[i - _marks.first].record()
         _marks.seen.add(i)

@@ -1360,9 +1360,10 @@ def _four_anchor_model(dev, n_anchors=4):
 
 def test_ours44_request_matches_the_plain_versions(dev):
     """Evaluator.infer with family Ours_44 (one time a forward, RAFT on the
-    12 cross pairs) on LR 16² → 64², 3 times: each forward launches one
-    splat, three SIRENs and the DCNs of a four-frame encoder; the frames
-    and the flow statistics hold against the plain versions to 1e-5."""
+    12 cross pairs) on LR 16² → 64², 3 times: the request launches the DCNs
+    of a four-frame encoder once (the trunk's) and one splat and three
+    SIRENs a forward (the head's); the frames and the flow statistics hold
+    against the plain versions to 1e-5."""
     from motif_tpu_torch.eval import Evaluator
 
     ev = Evaluator(_four_anchor_model(dev), iters=2, family="Ours_44",
@@ -1376,7 +1377,7 @@ def test_ours44_request_matches_the_plain_versions(dev):
                 for k, v in kernels.ENTRY_LAUNCHES.items()
                 if v != before.get(k, 0)}
     # channel 16: the splat's payload is 64 + 2 + 16 = 82 wide (generic)
-    assert launched == {"dcn_im2col/float32": 3 * 90,
+    assert launched == {"dcn_im2col/float32": 90,
                         "siren_mlp/float32/whole": 9,
                         "splat_fused/float32/generic": 3}
     with _plain_versions():        # eagerly: a replay runs the kernels
@@ -1648,6 +1649,59 @@ def test_a_replayed_request_does_not_synchronise(dev):
     assert float(np.abs(got - want).max()) <= 1e-5
     for a, b in zip(stats, want_stats):
         assert abs(a - b) <= 1e-5 * abs(b)
+
+
+TRUNK_KNOBS = {"float32": {}, "fused_decode": dict(fused_decode=True),
+               "raft_resolution": dict(raft_resolution=0.5),
+               "decode_chunks": dict(decode_chunks=2),
+               "splat_dtype": dict(splat_dtype="float16")}
+
+
+@pytest.mark.parametrize("knob", list(TRUNK_KNOBS))
+@pytest.mark.parametrize("family", ["Ours", "Ours_44"])
+def test_trunk_and_head_graphs_match_the_eager_forward(dev, family, knob):
+    """Evaluator.infer through a bucket's two graphs (the trunk's replayed
+    once a request, the head's once a chunk) against `_infer_eager`, the
+    whole forward run eagerly per chunk, at N = 2, 4 and 8 (Ours: chunks of
+    3, Ours_44: of 1), the captured request and a replayed one on other
+    frames: frames within 1e-5 and the flow statistics within 1e-5
+    relative in float32 (two eager runs differ by ~4e-8: the float32 splat
+    sums in a varying order), and within the run-to-run gate 2e-2
+    (statistics 1e-2) with float16 sums. A replayed request launches the
+    eager path's SIRENs and splats, and its DCNs (the trunk's) once where
+    the eager path launches them once a chunk."""
+    from motif_tpu_torch.eval import Evaluator
+
+    ev = Evaluator(_four_anchor_model(dev, 4 if family == "Ours_44" else 2),
+                   iters=2, family=family, device=dev, **TRUNK_KNOBS[knob])
+    tol, rtol = (2e-2, 1e-2) if knob == "splat_dtype" else (1e-5, 1e-5)
+    rng = np.random.default_rng(4)
+
+    def counted(fn):
+        before = dict(kernels.ENTRY_LAUNCHES)
+        out = fn()
+        return out, {k: v - before.get(k, 0)
+                     for k, v in kernels.ENTRY_LAUNCHES.items()
+                     if v != before.get(k, 0)}
+    for n in (2, 4, 8):
+        times = np.float32(np.arange(n) / n)[None]
+        chunks = -(-n // ev.chunk)
+        lq0, lq = (rng.random((1, 4, 16, 24, 3), np.float32)
+                   for _ in range(2))
+        first, _ = ev.infer(lq0, times, (64, 96))
+        (got, stats), launched = counted(lambda: ev.infer(lq, times,
+                                                          (64, 96)))
+        (want, want_stats), eager = counted(lambda: ev._infer_eager(
+            lq, times, (64, 96)))
+        want0, _ = ev._infer_eager(lq0, times, (64, 96))
+        assert got.shape == (n, 1, 64, 96, 3) and np.isfinite(got).all()
+        for frames, ref in ((first, want0), (got, want)):
+            assert float(np.abs(frames - ref).max()) <= tol
+        for a, b in zip(stats, want_stats):
+            assert abs(a - b) <= rtol * abs(b)
+        assert launched == {k: v // chunks if k.startswith("dcn_im2col")
+                            else v for k, v in eager.items()}
+        assert any(k.startswith("dcn_im2col") for k in eager)
 
 
 def test_deterministic_plain_dcn_backward_is_bit_equal(dev):

@@ -236,15 +236,21 @@ def test_mlp_gate_passes_another_order_and_catches_faults(name, skip):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("skip", [False, True])
 def test_siren_packs_once_and_follows_a_load(dtype, skip):
-    """Siren.packed is made once per dtype and made anew after a
-    load_state_dict (which writes the parameters in place) — the buffer
-    the kernel would be given always holds the current weights."""
+    """Siren.packed is made once per dtype and per `skip_first_linear`
+    (serving the other setting keeps this one's buffer, which a graph
+    captured under it reads) and made anew after a load_state_dict (which
+    writes the parameters in place) — the buffer the kernel would be given
+    always holds the current weights."""
     torch.manual_seed(0)
     net = Siren(19, [64, 64, 256], 2, 3, skip_first_linear=skip)
     other = Siren(19, [64, 64, 256], 2, 3, skip_first_linear=skip)
     first = net.packed(dtype)
     assert first.dtype == dtype and net.packed(dtype) is first
     assert net.packed(torch.float64) is not first
+    net.skip_first_linear = not skip
+    flipped = net.packed(dtype)
+    net.skip_first_linear = skip
+    assert flipped is not first and net.packed(dtype) is first
     lins = net._linears()[1 if skip else 0:]
     assert first.numel() == tsk.pack_size(
         [lins[0].weight.shape[1]] + [m.weight.shape[0] for m in lins], dtype)

@@ -6,19 +6,24 @@ A span is off unless a torch profiler records: it then reads no clock and
 opens no profiler range. Under the profiler on the CPU a tiny MoTIF's
 `Evaluator.infer` records its request as `infer` over its children, in
 order, each under one request id, with the same names in the profiler's
-events. The counters: kernel launches through a capture's tape and its
-replays (the CUDA calls of a capture stood in for on the CPU), captures,
-replays and the reset of every bucket after a weight write. A full buffer
-drops its oldest record and counts the drop. The readers on a synthetic
+events: the trunk's parts under `infer.trunk` once, the head's under
+each chunk's `infer.replay`. The counters: kernel launches through a
+capture's tape and its replays (the CUDA calls of a capture stood in for
+on the CPU), captures, replays and the reset of every bucket after a
+weight write; a MoTIF bucket's trunk graph and head graph, each with its
+own tape, marks and replay counter, and `parts_ms` times the forwards
+giving the request's milliseconds of each part. A full buffer drops its
+oldest record and counts the drop. The readers on a synthetic
 traced run whose device clock shifts: each request set on its own device
 operations and one whose trace shifted inside it left out, the idle time
 inside `infer` split into the graph's own and the host's, the slice line's
 reading of it, and the parts per frame.
 
-The card tests (`cuda`): a MoTIF graph with its marks' event nodes serves
-the eager frames, and one replay's marks time its whole forward within 3%
-of the replay's extent on the profiler's device timeline; a backward's
-span holds its kernels' device time. The file imports no JAX:
+The card tests (`cuda`): a MoTIF bucket's graphs with their marks' event
+nodes serve the eager frames, and one replay of each, their marks, time
+the whole forward within 3% of the replays' extent on the profiler's
+device timeline; a backward's span holds its kernels' device time. The
+file imports no JAX:
 `python -m pytest -q -m cuda --noconftest tests/test_torch_obs.py`.
 """
 
@@ -34,7 +39,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from motif_tpu_torch import obs
 from motif_tpu_torch.eval import Evaluator, _Bucket
-from motif_tpu_torch.models.motif import PARTS, build_motif
+from motif_tpu_torch.models.motif import (PARTS, TRUNK_PARTS,
+                                          build_motif)
 from motif_tpu_torch.ops import kernels
 
 LQ = np.random.default_rng(0).random((1, 4, 16, 24, 3), np.float32)
@@ -92,19 +98,23 @@ def test_infer_records_its_request_under_the_profiler(tiny_ev):
     kids = sorted((r for r in recs if r["parent"] == root["id"]),
                   key=lambda r: r["start"])
     assert [k["name"] for k in kids] == [
-        "infer.plan", "infer.bucket", "infer.copy_in", "infer.replay",
-        "infer.gather", "infer.replay", "infer.gather", "infer.copy_out",
-        "infer.wait", "infer.unpad"]
+        "infer.plan", "infer.bucket", "infer.copy_in", "infer.trunk",
+        "infer.replay", "infer.gather", "infer.replay", "infer.gather",
+        "infer.copy_out", "infer.wait", "infer.unpad"]
     assert [k["attrs"].get("chunk") for k in kids if k["name"] in (
         "infer.replay", "infer.gather")] == [0, 0, 1, 1]
     assert {r["request"] for r in recs} == {root["id"]}
     for k in kids:
         assert root["start"] <= k["start"] <= k["end"] <= root["end"]
-    replays = [k for k in kids if k["name"] == "infer.replay"]
-    for rp in replays:      # on the CPU a bucket runs the eager forward
-        parts = sorted((r for r in recs if r["parent"] == rp["id"]),
-                       key=lambda r: r["start"])
-        assert [p["name"] for p in parts] == ["motif." + p for p in PARTS]
+
+    def parts(parent):      # on the CPU a bucket runs the eager trunk, head
+        return [r["name"] for r in sorted(
+            (r for r in recs if r["parent"] == parent["id"]),
+            key=lambda r: r["start"])]
+    (trunk,) = [k for k in kids if k["name"] == "infer.trunk"]
+    assert parts(trunk) == ["motif." + p for p in PARTS[:TRUNK_PARTS]]
+    for rp in [k for k in kids if k["name"] == "infer.replay"]:
+        assert parts(rp) == ["motif." + p for p in PARTS[TRUNK_PARTS:]]
     assert {r["name"] for r in recs} <= names
     assert frames.shape == (4, 1, 64, 96, 3)
 
@@ -219,6 +229,67 @@ def test_launches_captures_and_replays_are_counted():
         "splat_fused": 4, "dcn_im2col": 8, "siren_mlp": 0}
     assert b.marks.elapsed() == [1.5] * len(PARTS)
     obs.mark(0)                # no mark set is active outside a capture
+
+
+def test_a_trunk_graph_and_a_head_graph_each_count_their_own():
+    """A MoTIF bucket's two graphs: the trunk's capture takes the eager
+    run's values into its static state and records marks 0 to 2 and its
+    own tape, the head's marks 2 to 5 and its own; each replay counts its
+    graph's tape and counter. `parts_ms` holds the trunk's parts over the
+    request's forwards, so that each part's ms times the forwards is the
+    request's ms of that part."""
+    calls = []
+
+    def marked(i):             # part i - 1 takes i ms (and a record 1.5)
+        _FakeEvent.t += i
+        obs.mark(i)
+
+    def trunk(lq):
+        calls.append("trunk")
+        for i in range(TRUNK_PARTS + 1):
+            marked(i)
+        kernels.count("dcn_im2col", "float32")
+        kernels.count("dcn_im2col", "float32")
+        return {"x": lq, "feat": lq * 2.0 + len(calls)}
+
+    def head(state, t):
+        calls.append("head")
+        for i in range(TRUNK_PARTS, len(PARTS) + 1):
+            marked(i)
+        kernels.count("splat_fused", "float32")
+        return state["feat"] + t.sum(), None
+
+    b = _Bucket("k", (1, 2), (1, 3), torch.float32, torch.device("cpu"),
+                None)
+    b.device = torch.device("cuda")
+    before = obs.counters()
+    with _cuda_stand_ins():
+        b._run_trunk(trunk)              # the eager run, then the capture
+        assert calls == ["trunk"] * 2 and b.trunk_graph is not None
+        assert b.state["x"] is b.lq and torch.equal(
+            b.state["feat"], b.lq * 2.0 + 1)      # the eager run's values
+        assert b.trunk_tape == {"dcn_im2col/float32": 2}
+        b._run(head)
+        assert calls[2:] == ["head"] * 2 and b.tape == {
+            "splat_fused/float32": 1}
+        for _ in range(2):               # two more requests of 3 chunks
+            b._run_trunk(trunk)
+            for _ in range(3):
+                b._run(head)
+    after = obs.counters()
+
+    def grew(name):
+        return after.get(name, 0) - before.get(name, 0)
+    assert len(calls) == 4
+    assert grew("eval.captures") == 1 and grew("eval.trunk_replays") == 2
+    assert grew("eval.replays") == 6
+    assert grew("kernels.launches.dcn_im2col/float32") == 2 * 3
+    assert grew("kernels.launches.splat_fused/float32") == 1 + 6
+    trunk_ms, head_ms = b.trunk_marks.elapsed(), b.marks.elapsed()
+    assert trunk_ms == [2.5, 3.5] and head_ms == [4.5, 5.5, 6.5]
+    parts = b.parts_ms(3)
+    assert [p * 3 for p in parts[:TRUNK_PARTS]] == trunk_ms
+    assert [p * 3 for p in parts[TRUNK_PARTS:]] == [3 * ms for ms in head_ms]
 
 
 def test_a_weight_write_resets_the_buckets(tiny_ev):
@@ -470,9 +541,10 @@ def test_marks_in_a_captured_graph_time_its_forward():
     the captured request and its replay against `_infer_eager` (frames
     within 1e-5 and the flow statistics within 1e-5 relative, as the
     bucket tests hold them: the splat sums in a varying order); a profiled
-    request records its parts; and one replay's marks, first to last, time
-    its forward within 3% of its extent on the profiler's device timeline
-    (its first device operation's start to its last one's end)."""
+    request records its parts; and one replay of the trunk's graph and the
+    head's, back to back, their marks first to last, time the forward
+    within 3% of its extent on the profiler's device timeline (its first
+    device operation's start to its last one's end)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the graph and its events are "
                     "CUDA's")
@@ -499,9 +571,10 @@ def test_marks_in_a_captured_graph_time_its_forward():
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bucket.trunk_graph.replay()
         bucket.graph.replay()
         torch.cuda.synchronize()
-    whole = sum(bucket.marks.elapsed())
+    whole = sum(bucket.parts_ms(1))
     ops = [e.time_range for e in prof.events()
            if str(e.device_type).endswith("CUDA")
            and not getattr(e, "is_user_annotation", False)]
