@@ -34,7 +34,8 @@ anew. On the CPU a bucket runs the same plan eagerly over the same
 buffers; the rest of `infer` is the same code.
 
 Under a profiler a request is the span `infer` (attrs: `n` times, `chunks`,
-`bucket`, `frames` returned, and after a replayed MoTIF request `parts_ms`
+`bucket`, `knobs` (the bucket's knob set, `knobs_label`), `frames`
+returned, and after a replayed MoTIF request `parts_ms`
 and `forwards`) over its children `infer.plan`, `infer.bucket`,
 `infer.copy_in`, for the Ours family `infer.trunk` (the trunk's one
 replay), per chunk `infer.replay` and `infer.gather`, `infer.copy_out`,
@@ -222,7 +223,8 @@ class Evaluator:
             if self.device.type == "cuda" and self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             self._buckets[key] = _Bucket(key, lq_shape, t_shape, self.dtype,
-                                         self.device, self._pool)
+                                         self.device, self._pool,
+                                         knobs_label(key))
         return self._buckets[key]
 
     @torch.inference_mode()
@@ -240,7 +242,7 @@ class Evaluator:
             with obs.span("infer.bucket"):
                 bucket = self._bucket(lq_p.shape, chunks[0].shape, hw)
             sp.set(chunks=len(chunks), bucket=bucket.serial,
-                   frames=n * lq.shape[0])
+                   knobs=bucket.knobs, frames=n * lq.shape[0])
             captured = bucket.graph is not None
             if self.chunked:       # the trunk once, the head per chunk
                 model = self.model
@@ -336,6 +338,25 @@ class Evaluator:
 _serials = itertools.count()
 
 
+def knobs_label(key) -> str:
+    """A bucket's knob set as one short string, from its key (`_key`):
+    MoTIF's knobs that are on, joined by "/" (`bf16` / `f16` for the
+    compute and splat dtypes, `fused`, `r<factor>` for the RAFT
+    resolution, `dc<n>` for the decode chunks), else the parameters'
+    dtype (`fp32`, `fp64`)."""
+    dtype, knobs = key[4], dict(key[5] or ())
+    short = {"bfloat16": "bf16", "float16": "f16"}
+    parts = [short[knobs[k]] for k in ("compute_dtype", "splat_dtype")
+             if knobs.get(k)]
+    if knobs.get("fused_decode"):
+        parts.append("fused")
+    if knobs.get("raft_resolution", 1.0) != 1.0:
+        parts.append(f"r{knobs['raft_resolution']:g}")
+    if knobs.get("decode_chunks", 1) > 1:
+        parts.append(f"dc{knobs['decode_chunks']}")
+    return "/".join(parts) or "fp" + str(torch.finfo(dtype).bits)
+
+
 def _with_stats(frames, flow, flow_gt):
     """MoTIF's outputs as a chunk's: (frames, [flow_err, flow_abs] as a
     (2,) tensor on the device)."""
@@ -355,9 +376,11 @@ class _Bucket:
     On the CPU the same plan runs eagerly over the same buffers, each run
     counted as a replay."""
 
-    def __init__(self, key, lq_shape, t_shape, dtype, device, pool):
+    def __init__(self, key, lq_shape, t_shape, dtype, device, pool,
+                 knobs: str | None = None):
         self.key, self.device, self.pool = key, device, pool
         self.serial = next(_serials)
+        self.knobs = knobs                # `knobs_label(key)`
         self.lq = torch.zeros(lq_shape, dtype=dtype, device=device)
         self.t = torch.zeros(t_shape, dtype=dtype, device=device)
         self.graph, self.tape, self.marks = None, {}, None

@@ -8,7 +8,8 @@ checkpoint's keys (see checkpoint.py).
 
 Mixed precision: parameters stay float32 whatever the compute dtype, so one
 checkpoint loads in both modes; a module casts its weights to its input's
-dtype at use, as the JAX package does, through `cast_param`.
+dtype at use, as the JAX package does, through `cast_param`, which counts
+each kept copy it makes (`layers.cast_copies`, `layers.cast_bytes`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from motif_tpu_torch import obs
 
 
 def lrelu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
@@ -43,7 +46,9 @@ def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
     and made anew when any of them changed (`load_state_dict` copies into
     the parameter in place, which raises its version, and a move to
     another device replaces its storage). The kept copy carries no
-    gradient."""
+    gradient. Each kept copy made counts one `layers.cast_copies` and its
+    bytes `layers.cast_bytes` (always on): a server whose window counts
+    any recasts its weights."""
     p = getattr(module, name)
     if p is None or p.dtype == dtype:
         return p
@@ -55,6 +60,8 @@ def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
     if hit is None or hit[0] != stamp:
         hit = (stamp, p.detach().to(dtype))
         cache[(name, dtype)] = hit
+        obs.count("layers.cast_copies")
+        obs.count("layers.cast_bytes", hit[1].numel() * hit[1].element_size())
     return hit[1]
 
 

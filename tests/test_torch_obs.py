@@ -94,7 +94,7 @@ def test_infer_records_its_request_under_the_profiler(tiny_ev):
     root = root[0]
     assert root["parent"] is None and root["request"] == root["id"]
     assert root["attrs"] == {"n": 4, "chunks": 2, "bucket": root["attrs"][
-        "bucket"], "frames": 4}
+        "bucket"], "knobs": "fp32", "frames": 4}
     kids = sorted((r for r in recs if r["parent"] == root["id"]),
                   key=lambda r: r["start"])
     assert [k["name"] for k in kids] == [
@@ -117,6 +117,68 @@ def test_infer_records_its_request_under_the_profiler(tiny_ev):
         assert parts(rp) == ["motif." + p for p in PARTS[TRUNK_PARTS:]]
     assert {r["name"] for r in recs} <= names
     assert frames.shape == (4, 1, 64, 96, 3)
+
+
+SERVING = dict(fused_decode=True, compute_dtype="bfloat16",
+               splat_dtype="float16", raft_resolution=0.5, decode_chunks=3)
+
+
+@pytest.mark.parametrize("knobs,label", [
+    ({}, "fp32"), (SERVING, "bf16/f16/fused/r0.5/dc3"),
+    (dict(raft_resolution=0.5), "r0.5")], ids=["float32", "serving", "raft"])
+def test_infer_names_its_buckets_knob_set(knobs, label):
+    """The `infer` span's `knobs`: the bucket's knob set as one string,
+    the parameters' dtype where no knob is on. (LR 16 x 24 -> HR 64 x 96:
+    RAFT at half the HR grid keeps its 64-pixel floor.)"""
+    ev = Evaluator(build_motif(16, 1, 1, device="cpu", **knobs), iters=2,
+                   device="cpu")
+    (frames, _), recs, _ = _profiled(lambda: ev.infer(LQ, TIMES, OUT_HW))
+    (root,) = [r for r in recs if r["name"] == "infer"]
+    assert root["attrs"]["knobs"] == label
+    assert frames.shape == (4, 1, 64, 96, 3)
+
+
+def _grew(before, name):
+    return obs.counters().get(name, 0) - before.get(name, 0)
+
+
+def test_cast_param_counts_each_kept_copy():
+    """A bfloat16 forward keeps a cast copy of each float32 weight: the
+    first forward counts one copy a weight and its bytes, the next none,
+    and one again after `load_state_dict` writes the weights."""
+    from motif_tpu_torch.models.layers import Conv2d
+
+    conv = Conv2d(8, 16, 3, 1, 1)
+    x = torch.randn(1, 6, 7, 8, dtype=torch.bfloat16)
+    nbytes = 2 * (conv.weight.numel() + conv.bias.numel())
+    with torch.no_grad():
+        for want, want_bytes in ((2, nbytes), (0, 0)):
+            before = obs.counters()
+            conv(x)
+            assert _grew(before, "layers.cast_copies") == want
+            assert _grew(before, "layers.cast_bytes") == want_bytes
+        conv.load_state_dict(conv.state_dict())
+        before = obs.counters()
+        conv(x)
+    assert _grew(before, "layers.cast_copies") == 2
+    assert _grew(before, "layers.cast_bytes") == nbytes
+
+
+def test_a_serving_request_recasts_no_weight_after_its_first():
+    """The serving knobs' requests through `Evaluator.infer`: the first
+    keeps the bfloat16 copies, every later one (a window's) counts none;
+    float32 makes none."""
+    for knobs, first in ((SERVING, True), ({}, False)):
+        ev = Evaluator(build_motif(16, 1, 1, device="cpu", **knobs),
+                       iters=2, device="cpu")
+        before = obs.counters()
+        ev.infer(LQ, TIMES, OUT_HW)
+        assert (_grew(before, "layers.cast_copies") > 0) == first
+        before = obs.counters()
+        for _ in range(2):
+            ev.infer(LQ[:, ::-1].copy(), TIMES, OUT_HW)
+        assert _grew(before, "layers.cast_copies") == 0
+        assert _grew(before, "layers.cast_bytes") == 0
 
 
 def test_the_buffer_drops_its_oldest_record_and_counts_it(monkeypatch):
