@@ -1149,8 +1149,8 @@ def graph_ms(ev, lq, times, out_hw, reps=5):
     replays back to back (a replay's kernels run with no host gap between
     them), and the request's chunks. torch.profiler is not used on
     replays: CUPTI segfaulted the process in them (PERF.md §7)."""
-    lq_p, chunks, _, hw = ev._plan(lq, times)
-    bucket = ev._buckets[ev._key(lq_p.shape, chunks[0].shape, hw)]
+    lq_shape, chunks, _, hw = ev._plan(lq, times)
+    bucket = ev._buckets[ev._key(lq_shape, chunks[0].shape, hw)]
     trunk = getattr(bucket, "trunk_graph", None)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)

@@ -30,8 +30,14 @@ device and copies the frames and statistics out into pinned memory once,
 with one synchronisation at the end. A capture that fails raises with the
 bucket's key: there is no eager fallback. When the model's weights change
 (a load, an optimiser step, a move), the buckets are dropped and captured
-anew. On the CPU a bucket runs the same plan eagerly over the same
-buffers; the rest of `infer` is the same code.
+anew: `_Weights` tells so on every request without walking the module
+tree, which is walked again only after a change it found. Each bucket
+keeps its host staging, page-locked on CUDA: the padded LQ, which a
+request's LQ is written into, and its times, grown to the most chunks the
+bucket has served; the outputs are copied into new host memory on every
+request, so that no array `infer` returns is written by a later one. On
+the CPU a bucket runs the same plan eagerly over the same buffers; the
+rest of `infer` is the same code.
 
 Under a profiler a request is the span `infer` (attrs: `n` times, `chunks`,
 `bucket`, `knobs` (the bucket's knob set, `knobs_label`), `frames`
@@ -51,15 +57,19 @@ is the request's milliseconds of part p. Counters: `eval.captures`
 request of the Ours family, but for a bucket's first, which runs the
 trunk eagerly), `eval.replays` (a chunk graph's: one a chunk, but for the
 first chunk of a bucket's first request; on the CPU every eager run of
-either counts) and `eval.bucket_resets` (every graph dropped for new
-weights). Each graph counts the launches of its own capture at each
-replay, so a request's launch counts are those of the kernels it ran.
+either counts), `eval.bucket_resets` (every graph dropped for new
+weights), `eval.weight_walks` (walks of the model's module tree: at
+an Evaluator's first request, then one after each change found) and
+`eval.staging_allocs` (a bucket's host staging allocated or grown). Each
+graph counts the launches of its own capture at each replay, so a
+request's launch counts are those of the kernels it ran.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import operator
 import os
 from dataclasses import dataclass, field
 
@@ -155,7 +165,7 @@ class Evaluator:
         self.chunk = chunk
         self.chunked = ours    # only the Ours family chunks over times
         self._buckets: dict = {}
-        self._stamp = None
+        self._weights = None   # `_Weights` of the buckets' weights
         self._pool = None
         self.captures = 0      # buckets captured over the life
 
@@ -179,15 +189,13 @@ class Evaluator:
         return out.transpose(0, 1), None
 
     def _plan(self, lq: np.ndarray, times: np.ndarray):
-        """The padded LQ (numpy, the parameters' dtype), the chunks of
-        times (each (B, step), the last padded by repeating its last time),
-        the number of times asked for and the padded output size."""
+        """The padded LQ's shape (the LQ zero-padded to multiples of 4),
+        the chunks of times as one (k, B, step) array (the last padded by
+        repeating its last time), the number of times asked for and the
+        padded output size."""
         B, N_in, h, w, _ = lq.shape
         h_n = -(-h // 4) * 4
         w_n = -(-w // 4) * 4
-        np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
-        lq_p = np.zeros((B, N_in, h_n, w_n, 3), np_dtype)
-        lq_p[:, :, :h, :w] = lq
         n = times.shape[1]
         step = self.chunk if self.chunked else n
         chunks = []
@@ -196,8 +204,9 @@ class Evaluator:
             pad = step - t.shape[1] if n > step else 0
             if pad:
                 t = np.concatenate([t, np.repeat(t[:, -1:], pad, 1)], 1)
-            chunks.append(np.asarray(t, np_dtype))
-        return lq_p, chunks, n, (h_n * self.scale, w_n * self.scale)
+            chunks.append(t)
+        return ((B, N_in, h_n, w_n, 3), np.stack(chunks), n,
+                (h_n * self.scale, w_n * self.scale))
 
     def _key(self, lq_shape, t_shape, out_hw):
         """A bucket's key: the shapes, and what `_forward` branches on in
@@ -210,14 +219,13 @@ class Evaluator:
                 model._alpha_nonpositive() if ours else None)
 
     def _bucket(self, lq_shape, t_shape, out_hw):
-        stamp = tuple((t.data_ptr(), t._version) for t in itertools.chain(
-            self.model.parameters(), self.model.buffers()))
-        if stamp != self._stamp:       # the weights changed: every graph
-            self._buckets.clear()      # holds the old ones' derived copies
-            self._pool = None
-            if self._stamp is not None:
+        if self._weights is None or not self._weights.same(self.model):
+            self._buckets.clear()      # the weights changed: every graph
+            self._pool = None          # holds the old ones' derived copies
+            if self._weights is not None:
                 obs.count("eval.bucket_resets")
-            self._stamp = stamp
+            self._weights = _Weights(self.model)
+            self.dtype = self._weights.dtype
         key = self._key(lq_shape, t_shape, out_hw)
         if key not in self._buckets:
             if self.device.type == "cuda" and self._pool is None:
@@ -237,21 +245,20 @@ class Evaluator:
         before them, the head's per chunk."""
         with obs.span("infer", n=times.shape[1]) as sp:
             with obs.span("infer.plan"):
-                lq_p, chunks, n, hw = self._plan(lq, times)
-                chunks = np.stack(chunks)
+                lq_shape, chunks, n, hw = self._plan(lq, times)
             with obs.span("infer.bucket"):
-                bucket = self._bucket(lq_p.shape, chunks[0].shape, hw)
+                bucket = self._bucket(lq_shape, chunks.shape[1:], hw)
             sp.set(chunks=len(chunks), bucket=bucket.serial,
                    knobs=bucket.knobs, frames=n * lq.shape[0])
             captured = bucket.graph is not None
             if self.chunked:       # the trunk once, the head per chunk
                 model = self.model
                 frames, stats = bucket.request(
-                    lambda s, t: _with_stats(*model.head(s, t, hw)), lq_p,
+                    lambda s, t: _with_stats(*model.head(s, t, hw)), lq,
                     chunks, trunk=lambda a: model.trunk(a, hw, self.iters))
             else:
                 frames, stats = bucket.request(
-                    lambda a, t: self._forward(a, t, hw), lq_p, chunks)
+                    lambda a, t: self._forward(a, t, hw), lq, chunks)
             self.captures += bucket.graph is not None and not captured
             if captured and obs.enabled():
                 with obs.span("infer.marks"):
@@ -270,12 +277,14 @@ class Evaluator:
         read back chunk by chunk. The reference that the captured path is
         held against (the card's smoke and tests); no serving path takes
         it."""
-        lq_p, chunks, n, hw = self._plan(lq, times)
-        lq_t = torch.as_tensor(lq_p, device=self.device)
+        lq_shape, chunks, n, hw = self._plan(lq, times)
+        lq_p = torch.empty(lq_shape, dtype=self.dtype)
+        _pad_into(lq_p.numpy(), lq)
+        lq_t = lq_p.to(self.device)
         outs, stats = [], []
         for t in chunks:
             frames, s = self._forward(lq_t, torch.as_tensor(
-                t, device=self.device), hw)
+                t, dtype=self.dtype, device=self.device), hw)
             outs.append(frames.cpu().numpy())
             if s is not None:
                 stats.append(s.tolist())
@@ -357,6 +366,67 @@ def knobs_label(key) -> str:
     return "/".join(parts) or "fp" + str(torch.finfo(dtype).bits)
 
 
+class _Weights:
+    """A model's parameters and buffers as `Evaluator._bucket` last saw
+    them, taken by one walk of the module tree (`eval.weight_walks`) and
+    compared with the model on every request without one (`same`): every
+    module's dicts of parameters, buffers and submodules with their
+    lengths and the object under each name, and every tensor's
+    (data_ptr, _version). So an in-place write (a load, an optimiser
+    step, `mul_`, `fill_`), a move or cast (`.to`, whether torch sets
+    `.data`, swaps the tensors or puts new ones in the dicts) and a
+    parameter, buffer or submodule added, removed or replaced each read
+    as a change. Holding the objects keeps their ids from being reused.
+    `dtype` is the first parameter's."""
+
+    def __init__(self, model: torch.nn.Module):
+        obs.count("eval.weight_walks")
+        self.model = model
+        mods = list(model.modules())
+        self.dicts = [d for m in mods
+                      for d in (m._parameters, m._buffers, m._modules)]
+        self.lens = [len(d) for d in self.dicts]
+        self.where = [d for d in self.dicts for _ in d]
+        self.names = [k for d in self.dicts for k in d]
+        self.held = [v for d in self.dicts for v in d.values()]
+        self.tensors = [v for m in mods for d in (m._parameters, m._buffers)
+                        for v in d.values() if v is not None]
+        self.dtype = next(p for m in mods for p in m._parameters.values()
+                          if p is not None).dtype
+        self.stamp = self._stamp()
+
+    def _stamp(self):
+        return (list(map(torch.Tensor.data_ptr, self.tensors)),
+                list(map(_VERSION, self.tensors)))
+
+    def same(self, model: torch.nn.Module) -> bool:
+        """Whether `model` is the recorded one, unchanged."""
+        return (model is self.model
+                and list(map(len, self.dicts)) == self.lens
+                and all(map(operator.is_, map(dict.get, self.where,
+                                              self.names), self.held))
+                and self._stamp() == self.stamp)
+
+
+_VERSION = operator.attrgetter("_version")
+
+
+def _pad_into(out: np.ndarray, lq: np.ndarray) -> None:
+    """`lq` (B, N_in, h, w, 3) into the top left of `out` (B, N_in, H, W,
+    3), the rest of `out` zeroed."""
+    h, w = lq.shape[2:4]
+    out[:, :, :h, :w] = lq
+    out[:, :, h:] = 0
+    out[:, :, :h, w:] = 0
+
+
+def _host(shape, dtype, pin: bool) -> torch.Tensor:
+    """A bucket's host staging (`eval.staging_allocs`): zeros, page-locked
+    where `pin`, so that a copy to the card from it is asynchronous."""
+    obs.count("eval.staging_allocs")
+    return torch.zeros(shape, dtype=dtype, pin_memory=pin)
+
+
 def _with_stats(frames, flow, flow_gt):
     """MoTIF's outputs as a chunk's: (frames, [flow_err, flow_abs] as a
     (2,) tensor on the device)."""
@@ -366,7 +436,9 @@ def _with_stats(frames, flow, flow_gt):
 
 class _Bucket:
     """One shape bucket of `Evaluator.infer`: static device inputs (the
-    padded LQ, one chunk's times) and, on CUDA, the graph of the forward
+    padded LQ, one chunk's times), their host staging (`lq_h`, `t_h`:
+    allocated at the first request, `t_h` grown to the most chunks a
+    request has brought) and, on CUDA, the graph of the forward
     captured over them, with its outputs (the frames, the flow statistics)
     static too, the launches its capture recorded (`obs.recording`: each
     replay counts them) and its marks (`obs.marking`). A MoTIF bucket
@@ -383,6 +455,7 @@ class _Bucket:
         self.knobs = knobs                # `knobs_label(key)`
         self.lq = torch.zeros(lq_shape, dtype=dtype, device=device)
         self.t = torch.zeros(t_shape, dtype=dtype, device=device)
+        self.lq_h = self.t_h = None
         self.graph, self.tape, self.marks = None, {}, None
         self.frames = self.stats = None
         self.trunk_graph, self.trunk_tape, self.trunk_marks = None, {}, None
@@ -478,21 +551,33 @@ class _Bucket:
             return None
         return [ms / forwards for ms in trunk] + head
 
-    def request(self, forward, lq_p: np.ndarray, chunks: np.ndarray,
+    def _stage(self, lq: np.ndarray, chunks: np.ndarray):
+        """The request's LQ, zero-padded, and its chunks of times written
+        into the bucket's host staging: (the LQ's, the times' (k, B,
+        step)). A request reuses them because the one before it waited for
+        its copies (`infer.wait`)."""
+        pin, k = self.device.type == "cuda", len(chunks)
+        if self.lq_h is None:
+            self.lq_h = _host(self.lq.shape, self.lq.dtype, pin)
+        if self.t_h is None or len(self.t_h) < k:
+            self.t_h = _host((k, *self.t.shape), self.t.dtype, pin)
+        _pad_into(self.lq_h.numpy(), lq)
+        self.t_h.numpy()[:k] = chunks
+        return self.lq_h, self.t_h[:k]
+
+    def request(self, forward, lq: np.ndarray, chunks: np.ndarray,
                 trunk=None):
-        """Every chunk of one request (`chunks` (k, B, step)) through the
-        bucket: the inputs copied in once (from pinned memory on CUDA),
-        with `trunk` the trunk run once over the LQ (`_run_trunk`, span
-        `infer.trunk`) and `forward(state, t)` its head, else `forward(lq,
-        t)`, one forward per chunk, its frames and statistics gathered on
-        the device, then copied out once. Returns numpy (frames (k * step,
-        B, HH, WW, 3), statistics (k, 2) or None)."""
+        """Every chunk of one request (`lq` (B, N_in, h, w, 3) unpadded,
+        `chunks` (k, B, step)) through the bucket: the inputs copied in
+        once through the staging (`_stage`), with `trunk` the trunk run
+        once over the LQ (`_run_trunk`, span `infer.trunk`) and
+        `forward(state, t)` its head, else `forward(lq, t)`, one forward
+        per chunk, its frames and statistics gathered on the device, then
+        copied out once into new host memory. Returns numpy (frames
+        (k * step, B, HH, WW, 3), statistics (k, 2) or None)."""
         cuda = self.device.type == "cuda"
         with obs.span("infer.copy_in"):
-            lq_h = torch.from_numpy(lq_p)
-            t_h = torch.from_numpy(chunks)
-            if cuda:
-                lq_h, t_h = lq_h.pin_memory(), t_h.pin_memory()
+            lq_h, t_h = self._stage(lq, chunks)
             self.lq.copy_(lq_h, non_blocking=True)
             t_dev = t_h.to(self.device, non_blocking=True)
         if trunk is not None:

@@ -29,6 +29,7 @@ file imports no JAX:
 
 import collections
 import contextlib
+import copy
 import sys
 from unittest import mock
 
@@ -354,16 +355,97 @@ def test_a_trunk_graph_and_a_head_graph_each_count_their_own():
     assert [p * 3 for p in parts[TRUNK_PARTS:]] == [3 * ms for ms in head_ms]
 
 
-def test_a_weight_write_resets_the_buckets(tiny_ev):
-    tiny_ev.infer(LQ, TIMES, OUT_HW)
+def _last_with(model, name):
+    """The last module of `model` holding a parameter `name`."""
+    return [m for m in model.modules() if name in m._parameters][-1]
+
+
+@contextlib.contextmanager
+def _future(overwrite=False, swap=False):
+    """torch's two modes of `Module._apply` (new tensors put in the dicts;
+    tensors swapped in place) for the block, then restored."""
+    fut = torch.__future__
+    was = (fut.get_overwrite_module_params_on_conversion(),
+           fut.get_swap_module_params_on_conversion())
+    fut.set_overwrite_module_params_on_conversion(overwrite)
+    fut.set_swap_module_params_on_conversion(swap)
+    try:
+        yield
+    finally:
+        fut.set_overwrite_module_params_on_conversion(was[0])
+        fut.set_swap_module_params_on_conversion(was[1])
+
+
+def _load(model, assign):
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    sd["synth_net.net.4.bias"] += 0.01
+    model.load_state_dict(sd, assign=assign)
+
+
+def _replace_param(model):
+    mod = _last_with(model, "weight")
+    mod.weight = torch.nn.Parameter(mod.weight * 0.5)
+
+
+def _replace_submodule(model):
+    parent, name = model.encoder, list(model.encoder._modules)[-1]
+    new = copy.deepcopy(parent._modules[name])
+    for p in new.parameters():
+        p.mul_(0.9)
+    setattr(parent, name, new)
+
+
+def _to_float64(model):
+    model.to(torch.float64)
+
+
+# each a weight change that must drop every bucket (made under no_grad),
+# and the mode of `_apply` it is made in
+WEIGHT_CHANGES = {
+    "first_param_mul": (lambda m: next(m.parameters()).mul_(1.0), {}),
+    "param_write": (lambda m: _last_with(m, "bias").bias.add_(0.01), {}),
+    "buffer_write": (lambda m: _last_with(m, "weight").probe.fill_(1.0),
+                     {}),
+    "load_state_dict": (lambda m: _load(m, assign=False), {}),
+    "load_state_dict_assign": (lambda m: _load(m, assign=True), {}),
+    "to_float64": (_to_float64, {}),
+    "to_float64_overwrite": (_to_float64, dict(overwrite=True)),
+    "to_float64_swap": (_to_float64, dict(swap=True)),
+    "buffer_added": (lambda m: _last_with(m, "weight").register_buffer(
+        "added", torch.ones(2)), {}),
+    "param_replaced": (_replace_param, {}),
+    "submodule_replaced": (_replace_submodule, {}),
+}
+
+
+@pytest.mark.parametrize("change", list(WEIGHT_CHANGES))
+def test_a_weight_write_resets_the_buckets(change):
+    """Each weight change drops every bucket once (`eval.bucket_resets`
+    +1, a second request before it +0), and the request after it equals
+    a fresh Evaluator's over the changed model: an in-place write to a
+    parameter (the first, unchanged by `mul_(1.0)`, or a deep one) or to a
+    buffer, a load with and without `assign`, a cast through `.to` in
+    each of torch's modes, a buffer added, a parameter or a submodule
+    replaced."""
+    model = build_motif(16, 1, 1, device="cpu")
+    if change == "buffer_write":
+        _last_with(model, "weight").register_buffer("probe", torch.zeros(3))
+    ev = Evaluator(model, iters=2, device="cpu")
+    ev.infer(LQ, TIMES[:, :2], OUT_HW)
     before = obs.counters().get("eval.bucket_resets", 0)
-    tiny_ev.infer(LQ, TIMES, OUT_HW)
+    ev.infer(LQ, TIMES[:, :2], OUT_HW)
     assert obs.counters().get("eval.bucket_resets", 0) == before
-    with torch.no_grad():
-        next(tiny_ev.model.parameters()).mul_(1.0)
-    tiny_ev.infer(LQ, TIMES, OUT_HW)
+    fn, mode = WEIGHT_CHANGES[change]
+    with torch.no_grad(), _future(**mode):
+        fn(model)
+    got, stats = ev.infer(LQ, TIMES[:, :2], OUT_HW)
     assert obs.counters()["eval.bucket_resets"] == before + 1
-    assert len(tiny_ev._buckets) == 1
+    assert len(ev._buckets) == 1
+    want, want_stats = Evaluator(model, iters=2, device="cpu").infer(
+        LQ, TIMES[:, :2], OUT_HW)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert stats == want_stats
 
 
 def test_reset_launches_drops_only_the_launch_counters():
