@@ -228,6 +228,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from motif_tpu_torch import obs  # noqa: E402
+
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 (non-tensor),
 # dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -243,6 +245,22 @@ ENTRIES = ("splat_fused/float32/C=130", "splat_fused/float32/C=64",
            "dcn_im2col/bfloat16", "siren_mlp/float32/whole",
            "siren_mlp/float32/skip_first", "siren_mlp/bfloat16/whole",
            "siren_mlp/bfloat16/skip_first")
+
+
+def launch_counts() -> dict:
+    """The launch counters by kernel, each of `kernels.KERNELS` (0 until
+    launched): `obs.counters()` under `obs.LAUNCHES`."""
+    from motif_tpu_torch.ops.kernels import KERNELS
+
+    counters = obs.counters()
+    return {k: counters.get(obs.LAUNCHES + k, 0) for k in KERNELS}
+
+
+def entry_counts() -> dict:
+    """The launch counters by `<kernel>/<entry>` launched."""
+    n = len(obs.LAUNCHES)
+    return {k[n:]: v for k, v in obs.counters().items()
+            if k.startswith(obs.LAUNCHES) and "/" in k}
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOP_PER_S):
@@ -404,10 +422,10 @@ def hold_splat(softsplat, kernels, img, flow, z, nonpos, tol=1e-4, sdt=None):
     `tol` (the summation order varies), z_max and the count exact. With
     float16 sums (`sdt`) the tolerance is `tol` float16 ulps of the largest
     value. Returns the errors and the wrapper's launches."""
-    n0 = kernels.LAUNCHES["splat_fused"]
+    n0 = launch_counts()["splat_fused"]
     got = softsplat.splat_fused(img, flow, z, z_nonpositive=nonpos,
                                 scatter_dtype=sdt)
-    launches = kernels.LAUNCHES["splat_fused"] - n0
+    launches = launch_counts()["splat_fused"] - n0
     want = softsplat.splat_fused_plain(img, flow, z, z_nonpositive=nonpos,
                                        scatter_dtype=sdt)
     torch.cuda.synchronize()
@@ -632,9 +650,9 @@ def check_dcn(dev, dcn, kernels, dtype=torch.float32, shapes=DCN_SHAPES,
     for level, (B, H, W) in shapes.items():
         x, off, mask = dcn_inputs(dev, B, H, W, G, cg, K, dtype)
         args = (x, off, mask, K, 1, 1, 1, G)
-        n0 = kernels.LAUNCHES["dcn_im2col"]
+        n0 = launch_counts()["dcn_im2col"]
         got = dcn.dcn_im2col(*args)
-        launches = kernels.LAUNCHES["dcn_im2col"] - n0
+        launches = launch_counts()["dcn_im2col"] - n0
         want = dcn.dcn_im2col_plain(*args)
         torch.cuda.synchronize()
         err = max_err(got, want)
@@ -782,9 +800,9 @@ def check_siren(dev, siren_kernel, Siren, kernels, dtype=torch.float32,
         def run_plain():
             return siren_kernel.siren_mlp_plain(x, ws, bs, 30.0, False,
                                                 skip_first)
-        n0 = kernels.LAUNCHES["siren_mlp"]
+        n0 = launch_counts()["siren_mlp"]
         got = run()
-        launches = kernels.LAUNCHES["siren_mlp"] - n0
+        launches = launch_counts()["siren_mlp"] - n0
         want = run_plain()
         torch.cuda.synchronize()
         err = max_err(got, want)
@@ -969,9 +987,9 @@ def check_siren_layers_f32(dev, siren_kernel, kernels, shapes=LAYER_SHAPES):
         def library():
             y = torch.addmm(bs[0], x, ws[0].t())
             return torch.sin(30.0 * y) if sine else y
-        n0 = kernels.ENTRY_LAUNCHES.get("siren_mlp/float32/layer", 0)
+        n0 = entry_counts().get("siren_mlp/float32/layer", 0)
         got = run()
-        launches = kernels.ENTRY_LAUNCHES.get("siren_mlp/float32/layer",
+        launches = entry_counts().get("siren_mlp/float32/layer",
                                               0) - n0
         chain = fma_chain(x, ws[0], bs[0], sine)
         torch.cuda.synchronize()
@@ -1144,23 +1162,21 @@ def pool_bytes(ev):
 
 def graph_ms(ev, lq, times, out_hw, reps=5):
     """Device ms of one request's replays through its bucket's graphs (a
-    MoTIF bucket's trunk graph once, where the checkout has one, and the
-    chunk's graph once per chunk), by CUDA events over `reps` requests'
-    replays back to back (a replay's kernels run with no host gap between
-    them), and the request's chunks. torch.profiler is not used on
+    MoTIF bucket's trunk graph once and the head's graph once per chunk),
+    by CUDA events over `reps` requests' replays back to back (a replay's
+    kernels run with no host gap between them), and the request's chunks. torch.profiler is not used on
     replays: CUPTI segfaulted the process in them (PERF.md §7)."""
     lq_shape, chunks, _, hw = ev._plan(lq, times)
     bucket = ev._buckets[ev._key(lq_shape, chunks[0].shape, hw)]
-    trunk = getattr(bucket, "trunk_graph", None)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        if trunk is not None:
-            trunk.replay()
+        if bucket.trunk is not None:
+            bucket.trunk.graph.replay()
         for _ in chunks:
-            bucket.graph.replay()
+            bucket.head.graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, len(chunks)
@@ -1255,9 +1271,9 @@ def slice_vs_plain(ev, model, lq, times, name, tol, stats_rtol, mods,
         lambda mod, inp, out: pre_clip.append(out.double().cpu()))
     f_k, stats_k = eager(ev)(lq, times, out_hw)   # kernels, hooked
     with plain_versions(softsplat, dcn, siren_kernel):
-        kernels.reset_launches()
+        obs.reset(obs.LAUNCHES)
         f_plain, stats_plain = eager(ev)(lq, times, out_hw)
-        if any(kernels.LAUNCHES.values()):
+        if any(launch_counts().values()):
             raise AssertionError("the plain forward launched a kernel")
     hook.remove()
     half = len(pre_clip) // 2
@@ -1322,16 +1338,16 @@ def run_slice(dev, args, card):
           "seconds": time.perf_counter() - t0})
 
     # ---- the main path: counters to 0, the requests, counters read ----
-    kernels.reset_launches()
+    obs.reset(obs.LAUNCHES)
     per_request, entries = {}, {}
 
     def counted(name, fn):
-        before, ebefore = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+        before, ebefore = launch_counts(), entry_counts()
         out = fn()
         per_request[name] = {k: v - before[k]
-                             for k, v in kernels.LAUNCHES.items()}
+                             for k, v in launch_counts().items()}
         entries[name] = {k: v - ebefore.get(k, 0)
-                         for k, v in kernels.ENTRY_LAUNCHES.items()
+                         for k, v in entry_counts().items()
                          if v - ebefore.get(k, 0)}
         return out
 
@@ -1353,8 +1369,8 @@ def run_slice(dev, args, card):
     model_s.configure(compute_dtype="bfloat16")
     fg, _ = counted("g", lambda: ev_s.infer(lq_a, t3, (256, 448)))
     model_s.configure(**SERVING)
-    launches = dict(kernels.LAUNCHES)
-    entry_launches = dict(kernels.ENTRY_LAUNCHES)
+    launches = launch_counts()
+    entry_launches = entry_counts()
     seconds = time.perf_counter() - t0
     for name, f, shape in (("a", fa, (3, 1, 256, 448, 3)),
                            ("b", fb, (7, 1, 256, 448, 3)),
@@ -1650,14 +1666,14 @@ def eval_cli(tmp, config, yml, stem, pth, mods, per_clip=None,
     have `frames_shape` (in [0, 1] where `clipped`)."""
     softsplat, dcn, siren_kernel, kernels = mods
     gate = EVAL_GATES[config]
-    kernels.reset_launches()
+    obs.reset(obs.LAUNCHES)
     summary, clock = cli_run(tmp, yml, pth, clips)
-    launches, entries = dict(kernels.LAUNCHES), dict(kernels.ENTRY_LAUNCHES)
+    launches, entries = launch_counts(), entry_counts()
     psnrs, ssims = read_npys(tmp, stem)
     with plain_versions(softsplat, dcn, siren_kernel):
-        kernels.reset_launches()
+        obs.reset(obs.LAUNCHES)
         summary_p, clock_p = cli_run(tmp, yml, pth, clips)
-        if any(kernels.LAUNCHES.values()):
+        if any(launch_counts().values()):
             raise AssertionError("the plain CLI run launched a kernel")
     psnrs_p, ssims_p = read_npys(tmp, stem)
     n = summary["n_clips"]
@@ -1765,9 +1781,9 @@ def eval_bench_shape(dev, card, pth, mods):
         ev = Evaluator(model, scale=4, iters=4, chunk=3, family="Ours",
                        device=dev, **knobs)
         ev.infer(clips[0]["lq"], clips[0]["times"], (4 * h, 4 * w))  # warm-up
-        kernels.reset_launches()
+        obs.reset(obs.LAUNCHES)
         res, clock = clocked(Evaluator, lambda: ev.run(iter(clips)))
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         infer_s, metrics_s = clock.seconds()
         s = res.summary()
         emit({"phase": "eval_bench_shape", "config": config, "card": card,
@@ -1996,11 +2012,11 @@ def train_cli(yml, opt, kernels, entries, card, tag, steps=None,
     resume_steps = RESUME_STEPS if resume_steps is None else resume_steps
     models = opt["path"]["models"]
     log_path = os.path.join(opt["path"]["experiments_root"], "train_log.jsonl")
-    kernels.reset_launches()
+    obs.reset(obs.LAUNCHES)
     t1 = time.perf_counter()
     train.main(["-opt", yml])
     cli_s = time.perf_counter() - t1
-    launches = dict(kernels.ENTRY_LAUNCHES)
+    launches = entry_counts()
     if checkpoint.latest_step(models) != steps:
         raise AssertionError(f"{tag}: no final train state")
     log = [json.loads(ln) for ln in open(log_path)]
@@ -2318,9 +2334,9 @@ def run_requests44(dev, card, mods):
     t3 = np.linspace(0, 1, 3, dtype=np.float32)[None]
     entries, rafts, frames = {}, {}, {}
     for name, model, ev in (("h", model_h, ev_h), ("i", model_i, ev_i)):
-        kernels.reset_launches()
+        obs.reset(obs.LAUNCHES)
         frames[name], _ = ev.infer(lq, t3, (256, 448))
-        entries[name] = dict(kernels.ENTRY_LAUNCHES)
+        entries[name] = entry_counts()
         check_frames(name, frames[name], (3, 1, 256, 448, 3))
         # RAFT's batches, on an eager request (a replay runs no hook)
         calls, hook = raft_counter(model)
@@ -2672,17 +2688,17 @@ def run_baselines(dev, card, mods, tmp):
     for family, (_, want) in BASELINES.items():
         t0 = time.perf_counter()
         model, ev, yml, stem = build_baseline_request(dev, family)
-        kernels.reset_launches()
+        obs.reset(obs.LAUNCHES)
         frames, stats = ev.infer(lq, t3, hw)
-        entries = dict(kernels.ENTRY_LAUNCHES)
+        entries = entry_counts()
         check_frames(family, frames, (3, 1, *hw, 3), clipped=False)
         if entries != want or stats is not None:
             raise AssertionError(f"request ({family}) launched {entries} "
                                  f"(wanted {want}), flow stats {stats}")
         with plain_versions(softsplat, dcn, siren_kernel):
-            kernels.reset_launches()
+            obs.reset(obs.LAUNCHES)
             plain, _ = eager(ev)(lq, t3, hw)
-            if any(kernels.LAUNCHES.values()):
+            if any(launch_counts().values()):
                 raise AssertionError("the plain forward launched a kernel")
         err = float(np.abs(frames - plain).max())
         emit({"phase": "baseline_vs_plain", "model": family,
@@ -3090,9 +3106,9 @@ def run_setting_requests(dev, card, mods):
         perturb_offsets(model, seed=1)
         ev = Evaluator(model, scale=4, iters=4, chunk=3, device=dev,
                        family="Ours_7" if name == "ours7" else "Ours")
-        kernels.reset_launches()
+        obs.reset(obs.LAUNCHES)
         frames[name], _ = ev.infer(lq, t3, (256, 448))
-        entries[name] = dict(kernels.ENTRY_LAUNCHES)
+        entries[name] = entry_counts()
         check_frames(name, frames[name], (3, 1, 256, 448, 3))
         if entries[name] != setting_entries(name):
             raise AssertionError(f"request ({name}) launched {entries[name]}"
@@ -3902,14 +3918,14 @@ def run_demo(dev, card, args, mods, tmp):
             super().__init__(*a, **kw)
             made.append(self)
     t0 = time.perf_counter()
-    kernels.reset_launches()
+    obs.reset(obs.LAUNCHES)
     with mock.patch.object(eval_mod, "Evaluator", Recorded):
         res = demo.main(["--frames_dir", frames_dir, "--out_dir", out_dir,
                          "--space_scale", str(DEMO_SPACE), "--time_scale",
                          str(DEMO_TIME)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    entries = dict(kernels.ENTRY_LAUNCHES)
+    entries = entry_counts()
     ev = made[0]
     pairs = DEMO_FRAMES - 1
     want = {"dcn_im2col/float32": 42 * pairs,
@@ -3985,9 +4001,9 @@ def run_field_requests(dev, card, mods):
                             seed=0, fields=fields)
         perturb_offsets(model, seed=1)
         ev = Evaluator(model, scale=4, iters=4, chunk=3, device=dev)
-        kernels.reset_launches()
+        obs.reset(obs.LAUNCHES)
         frames, _ = ev.infer(lq, t3, (256, 448))
-        entries[name] = dict(kernels.ENTRY_LAUNCHES)
+        entries[name] = entry_counts()
         check_frames(name, frames, (3, 1, 256, 448, 3))
         want = field_entries(name, model, siren_kernel)
         if entries[name] != want:
@@ -4038,9 +4054,9 @@ def run_entry_clis(card, mods, tmp):
     os.chdir(tmp)
     try:
         t0 = time.perf_counter()
-        kernels.reset_launches()
+        obs.reset(obs.LAUNCHES)
         clips = generate.main(["-opt", yml, "--out_dir", "gen"])
-        entries["generate"] = dict(kernels.ENTRY_LAUNCHES)
+        entries["generate"] = entry_counts()
         pngs = os.listdir("gen")
         n_t = len(pngs) // 3
         emit({"phase": "generate_cli", "card": card, "clips": clips,
@@ -4050,10 +4066,10 @@ def run_entry_clis(card, mods, tmp):
             raise AssertionError(f"generate: {clips} clips, {pngs}")
 
         t0 = time.perf_counter()
-        kernels.reset_launches()
+        obs.reset(obs.LAUNCHES)
         means = flow.main(["-opt", yml, "--out_dir", "fl", "--max_clips",
                            "1"])
-        entries["flow"] = dict(kernels.ENTRY_LAUNCHES)
+        entries["flow"] = entry_counts()
         flos = sorted(f for f in os.listdir("fl") if f.endswith(".flo"))
         fields = [read_flow(os.path.join("fl", f)) for f in flos]
         n_png = sum(f.endswith(".png") for f in os.listdir("fl"))
@@ -4067,10 +4083,10 @@ def run_entry_clis(card, mods, tmp):
             raise AssertionError(f"flow: {len(flos)} .flo, {n_png} PNGs")
 
         t0 = time.perf_counter()
-        kernels.reset_launches()
+        obs.reset(obs.LAUNCHES)
         res = test_tmp.main(["-opt", yml, "--max_clips", "1",
                              "--t_scales", "6"])
-        entries["test_tmp"] = dict(kernels.ENTRY_LAUNCHES)
+        entries["test_tmp"] = entry_counts()
         (key, summary), = res.items()
         emit({"phase": "test_tmp_cli", "card": card, "sweep": list(key),
               "summary": summary, "launches": entries["test_tmp"],
@@ -4367,7 +4383,7 @@ def run_orbax(dev, card, mods):
             p.zero_()
 
     # ---- the main path: counters to 0, a step, the mapping, a request --
-    kernels.reset_launches()
+    obs.reset(obs.LAUNCHES)
     tr.step(b1)
     tree = optax_tree(tr)
     torch.cuda.synchronize()
@@ -4381,7 +4397,7 @@ def run_orbax(dev, card, mods):
     restored = tr2.model
     ev = Evaluator(restored, scale=4, iters=4, chunk=3, device=dev)
     frames, _ = ev.infer(lq_a, t3, (256, 448))
-    entries = {k: v for k, v in kernels.ENTRY_LAUNCHES.items() if v}
+    entries = {k: v for k, v in entry_counts().items() if v}
     want_entries = {k: TRAIN_ENTRIES[k] + EVAL_ENTRIES["fp32"][k]
                     for k in TRAIN_ENTRIES}
     check_frames("orbax_a", frames, (3, 1, 256, 448, 3))

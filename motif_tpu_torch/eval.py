@@ -14,24 +14,25 @@ As the JAX package compiles one forward per shape bucket
 (motif_tpu/eval.py:82-125), `infer` keeps one `_Bucket` per key (the
 padded LQ shape, the times per chunk and the output size, and what the
 forward branches on in host code: the family, the parameter dtype, MoTIF's
-knobs and the sign of its alpha). On CUDA a baseline's bucket is one CUDA
-graph of `_forward`, captured at the bucket's first request after an eager
-run of that request's first chunk on a side stream (which builds the
-kernels and fills the model's caches), over static device inputs. For the
-Ours family, whose trunk (RAFT, the reliability metrics, the encoder)
-reads the LQ and never the times, a bucket holds two graphs, each
-captured so: the trunk's (`MoTIF.trunk`), over the static LQ, with static
-outputs, and the head's (`MoTIF.head`: the rest of the forward), over
-those outputs and the static times. All buckets of an Evaluator share one
-memory pool. A request then copies its inputs in
-from pinned host memory, replays the trunk's graph once (Ours family),
-replays the chunk's graph once per chunk, keeps the flow statistics on the
-device and copies the frames and statistics out into pinned memory once,
-with one synchronisation at the end. A capture that fails raises with the
-bucket's key: there is no eager fallback. When the model's weights change
-(a load, an optimiser step, a move), the buckets are dropped and captured
-anew: `_Weights` tells so on every request without walking the module
-tree, which is walked again only after a change it found. Each bucket
+knobs and the sign of its alpha). A bucket runs each of its callables as
+a `_Graph`: on CUDA one CUDA graph over static device inputs and outputs,
+captured at the bucket's first request after an eager run on a side
+stream (which builds the kernels and fills the model's caches) whose
+values the static outputs take. A baseline's bucket has one, its head
+(`_forward`). For the Ours family, whose trunk (RAFT, the reliability
+metrics, the encoder) reads the LQ and never the times, it has two: the
+trunk (`MoTIF.trunk`) over the static LQ, and the head (`MoTIF.head`: the
+rest of the forward) over the trunk's static outputs and the static times.
+All buckets of an Evaluator share one memory pool. A request then copies
+its inputs in from pinned host memory, replays the trunk's graph once
+(Ours family), replays the head's graph once per chunk, keeps the flow
+statistics on the device and copies the frames and statistics out into
+pinned memory once, with one synchronisation at the end. A capture that
+fails raises with the bucket's key: there is no eager fallback. When the
+model's weights change (a load, an optimiser step, a move), the buckets
+are dropped and captured anew: `_Weights` tells so on every request
+without walking the module tree, which is walked again only after a
+change it found. Each bucket
 keeps its host staging, page-locked on CUDA: the padded LQ, which a
 request's LQ is written into, and its times, grown to the most chunks the
 bucket has served; the outputs are copied into new host memory on every
@@ -47,17 +48,18 @@ and `forwards`) over its children `infer.plan`, `infer.bucket`,
 replay), per chunk `infer.replay` and `infer.gather`, `infer.copy_out`,
 `infer.wait`, on a replayed MoTIF request `infer.marks` (reading its
 marks), and `infer.unpad`; a capture is the span `eval.capture` (attr
-`graph="trunk"` for a trunk's). A MoTIF trunk graph holds marks 0 to 2 of
-its forward, the head graph marks 2 to 5 (`obs.marking`): `parts_ms` are
-the device milliseconds of each of MoTIF's `PARTS` as one of the request's
-`forwards` holds them, the trunk's parts its one replay's over `forwards`
-and the head's those of the last replay, so that `parts_ms[p] * forwards`
-is the request's milliseconds of part p. Counters: `eval.captures`
-(buckets captured), `eval.trunk_replays` (a trunk graph's replays: one a
-request of the Ours family, but for a bucket's first, which runs the
-trunk eagerly), `eval.replays` (a chunk graph's: one a chunk, but for the
-first chunk of a bucket's first request; on the CPU every eager run of
-either counts), `eval.bucket_resets` (every graph dropped for new
+`graph="trunk"` for a trunk's). Each graph holds the start and end events
+of the parts of MoTIF's forward (`obs.part`) that its capture ran, by
+name (`obs.marking`): `parts_ms` are the device milliseconds of each of
+those `PARTS` as one of the request's `forwards` holds them, the trunk's
+parts its one replay's over `forwards` and the head's those of the last
+replay, so that `parts_ms[p] * forwards` is the request's milliseconds of
+part p. Counters: `eval.captures` (buckets captured: a head graph's
+capture), `eval.trunk_replays` (a trunk graph's replays: one a request of
+the Ours family, but for a bucket's first, which captures it),
+`eval.replays` (a head graph's: one a chunk, but for the first chunk of a
+bucket's first request; on the CPU every eager run of either counts),
+`eval.bucket_resets` (every graph dropped for new
 weights), `eval.weight_walks` (walks of the model's module tree: at
 an Evaluator's first request, then one after each change found) and
 `eval.staging_allocs` (a bucket's host staging allocated or grown). Each
@@ -67,7 +69,6 @@ request's launch counts are those of the kernels it ran.
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import operator
 import os
@@ -78,7 +79,7 @@ import torch
 
 from motif_tpu_torch import obs, resolve_device
 from motif_tpu_torch.models.factory import BASELINES, FOUR_ANCHOR
-from motif_tpu_torch.models.motif import PARTS, TRUNK_PARTS
+from motif_tpu_torch.models.motif import PARTS
 from motif_tpu_torch.utils import metrics
 
 
@@ -177,7 +178,7 @@ class Evaluator:
         if f == "LIIF":
             return torch.stack(model(lq, times, out_hw), 0), None
         if f == "EDVR":
-            return model(lq)[None].expand(n, -1, -1, -1, -1), None
+            return model(lq)[None].repeat(n, 1, 1, 1, 1), None
         if f == "Super_SloMo":
             out = model(torch.cat([lq[:, :1], lq[:, -1:]], 1), n - 1, out_hw)
         elif f == "TMNet":
@@ -230,9 +231,11 @@ class Evaluator:
         if key not in self._buckets:
             if self.device.type == "cuda" and self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
+            label = knobs_label(self.dtype, self.model.knobs()
+                                if self.chunked else {})
             self._buckets[key] = _Bucket(key, lq_shape, t_shape, self.dtype,
-                                         self.device, self._pool,
-                                         knobs_label(key))
+                                         self.device, self._pool, label,
+                                         trunk=self.chunked)
         return self._buckets[key]
 
     @torch.inference_mode()
@@ -250,7 +253,7 @@ class Evaluator:
                 bucket = self._bucket(lq_shape, chunks.shape[1:], hw)
             sp.set(chunks=len(chunks), bucket=bucket.serial,
                    knobs=bucket.knobs, frames=n * lq.shape[0])
-            captured = bucket.graph is not None
+            captured = bucket.head.graph is not None
             if self.chunked:       # the trunk once, the head per chunk
                 model = self.model
                 frames, stats = bucket.request(
@@ -259,13 +262,12 @@ class Evaluator:
             else:
                 frames, stats = bucket.request(
                     lambda a, t: self._forward(a, t, hw), lq, chunks)
-            self.captures += bucket.graph is not None and not captured
+            self.captures += bucket.head.graph is not None and not captured
             if captured and obs.enabled():
                 with obs.span("infer.marks"):
                     parts = bucket.parts_ms(len(chunks))
-                    if parts is not None:
-                        sp.set(parts_ms=dict(zip(PARTS, parts)),
-                               forwards=len(chunks))
+                    if parts:
+                        sp.set(parts_ms=parts, forwards=len(chunks))
             with obs.span("infer.unpad"):
                 return (frames[:n, :, :out_hw[0], :out_hw[1]],
                         tuple(np.mean(stats.astype(np.float64), 0))
@@ -347,13 +349,11 @@ class Evaluator:
 _serials = itertools.count()
 
 
-def knobs_label(key) -> str:
-    """A bucket's knob set as one short string, from its key (`_key`):
-    MoTIF's knobs that are on, joined by "/" (`bf16` / `f16` for the
-    compute and splat dtypes, `fused`, `r<factor>` for the RAFT
-    resolution, `dc<n>` for the decode chunks), else the parameters'
-    dtype (`fp32`, `fp64`)."""
-    dtype, knobs = key[4], dict(key[5] or ())
+def knobs_label(dtype: torch.dtype, knobs: dict) -> str:
+    """A bucket's knob set as one short string: MoTIF's `knobs` that are
+    on, joined by "/" (`bf16` / `f16` for the compute and splat dtypes,
+    `fused`, `r<factor>` for the RAFT resolution, `dc<n>` for the decode
+    chunks), else the parameters' `dtype` (`fp32`, `fp64`)."""
     short = {"bfloat16": "bf16", "float16": "f16"}
     parts = [short[knobs[k]] for k in ("compute_dtype", "splat_dtype")
              if knobs.get(k)]
@@ -434,122 +434,95 @@ def _with_stats(frames, flow, flow_gt):
                                 flow.abs().mean()])
 
 
-class _Bucket:
-    """One shape bucket of `Evaluator.infer`: static device inputs (the
-    padded LQ, one chunk's times), their host staging (`lq_h`, `t_h`:
-    allocated at the first request, `t_h` grown to the most chunks a
-    request has brought) and, on CUDA, the graph of the forward
-    captured over them, with its outputs (the frames, the flow statistics)
-    static too, the launches its capture recorded (`obs.recording`: each
-    replay counts them) and its marks (`obs.marking`). A MoTIF bucket
-    holds two graphs over one pool: the trunk's over the static LQ, whose
-    outputs (`state`) are static, replayed once a request, and the head's
-    over those outputs and the times, replayed once a chunk (`graph`).
-    On the CPU the same plan runs eagerly over the same buffers, each run
-    counted as a replay."""
+class _Graph:
+    """One callable of a bucket over the bucket's static inputs: eager on
+    the CPU; on CUDA at its first call an eager run on a side stream (it
+    builds the kernels and fills the model's caches), then the capture of
+    a graph over the bucket's pool, whose static outputs (`out`) take the
+    eager run's values; a replay after that. It holds the graph, the
+    launches its capture recorded (`tape`: each replay counts them) and
+    its marks (`obs.marking`). `replays` names the counter of its runs
+    after the capture (on the CPU, of every run), `captures` that of its
+    capture, if any; `attrs` go on its `eval.capture` span."""
 
-    def __init__(self, key, lq_shape, t_shape, dtype, device, pool,
-                 knobs: str | None = None):
-        self.key, self.device, self.pool = key, device, pool
-        self.serial = next(_serials)
-        self.knobs = knobs                # `knobs_label(key)`
-        self.lq = torch.zeros(lq_shape, dtype=dtype, device=device)
-        self.t = torch.zeros(t_shape, dtype=dtype, device=device)
-        self.lq_h = self.t_h = None
-        self.graph, self.tape, self.marks = None, {}, None
-        self.frames = self.stats = None
-        self.trunk_graph, self.trunk_tape, self.trunk_marks = None, {}, None
-        self.state = None
+    def __init__(self, bucket, replays: str, captures: str | None = None,
+                 **attrs):
+        self.bucket, self.replays, self.captures = bucket, replays, captures
+        self.attrs = attrs
+        self.graph, self.tape, self.marks, self.out = None, {}, None, None
 
-    def _run_trunk(self, trunk):
-        """The trunk over the static LQ (`trunk(lq)` -> its state): eager on
-        the CPU; on CUDA at first an eager run on a side stream (it builds
-        the kernels and fills the model's caches), then the capture, whose
-        static outputs take the eager run's values; a replay after that."""
-        if self.device.type != "cuda":
-            self.state = trunk(self.lq)
-            obs.count("eval.trunk_replays")
-            return
-        if self.trunk_graph is not None:
-            self.trunk_graph.replay()
-            obs.count_replay(self.trunk_tape)
-            obs.count("eval.trunk_replays")
-            return
-        with obs.span("eval.capture", bucket=self.serial, graph="trunk"):
-            warm = self._warm(trunk, self.lq)
-            graph = torch.cuda.CUDAGraph()
-            with self._capturing(graph, TRUNK_PARTS + 1) as (marks, tape):
-                self.state = trunk(self.lq)
-        for static, value in zip(_tensors(self.state), _tensors(warm)):
-            if static is not value:    # not the input or a shape table
-                static.copy_(value)
-        self.trunk_graph, self.trunk_tape = graph, tape
-        self.trunk_marks = marks
-
-    def _run(self, forward):
-        """One chunk's forward over the static inputs (the LQ, or the
-        trunk's state) and times: eager on the CPU; on CUDA at first an
-        eager run on a side stream (it builds the kernels and fills the
-        model's caches, and its outputs are this chunk's), then the
-        capture; a replay after that."""
-        src = self.lq if self.state is None else self.state
-        if self.device.type != "cuda":
-            out = forward(src, self.t)
-            obs.count("eval.replays")
+    def run(self, fn, *inputs):
+        """`fn(*inputs)`, from the static `inputs`. A capture that fails
+        raises with the bucket's key."""
+        b, dev = self.bucket, self.bucket.device
+        if dev.type != "cuda":
+            out = fn(*inputs)
+            obs.count(self.replays)
             return out
         if self.graph is not None:
             self.graph.replay()
             obs.count_replay(self.tape)
-            obs.count("eval.replays")
-            return self.frames, self.stats
-        with obs.span("eval.capture", bucket=self.serial):
-            warm = self._warm(forward, src, self.t)
+            obs.count(self.replays)
+            return self.out
+        with obs.span("eval.capture", bucket=b.serial, **self.attrs):
+            side = torch.cuda.Stream(dev)          # the warm run
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                warm = fn(*inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            first = 0 if self.state is None else TRUNK_PARTS
-            with self._capturing(graph, len(PARTS) + 1, first) as (marks,
-                                                                   tape):
-                self.frames, self.stats = forward(src, self.t)
-        obs.count("eval.captures")
+            try:
+                with obs.marking(PARTS) as marks, obs.recording() as tape, \
+                        torch.cuda.graph(graph, pool=b.pool):
+                    self.out = fn(*inputs)
+            except Exception as e:
+                raise RuntimeError(f"Evaluator: the capture of bucket "
+                                   f"{b.key} failed: {e}") from e
+        for static, value in zip(_tensors(self.out), _tensors(warm)):
+            if static is not value:    # not an input or a shape table
+                static.copy_(value)
+        if self.captures:
+            obs.count(self.captures)
         self.graph, self.tape, self.marks = graph, tape, marks
-        return warm
+        return self.out
 
-    def _warm(self, fn, *args):
-        """`fn(*args)` on a side stream, the current stream then waiting on
-        it: the run before a capture."""
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            out = fn(*args)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        return out
 
-    @contextlib.contextmanager
-    def _capturing(self, graph, n_marks, first=0):
-        """The capture into `graph` over the bucket's pool, with marks
-        `first` to `n_marks` - 1 and a launch tape: yields (marks, tape).
-        A capture that fails raises with the bucket's key."""
-        try:
-            with obs.marking(n_marks, first) as marks, \
-                    obs.recording() as tape, \
-                    torch.cuda.graph(graph, pool=self.pool):
-                yield marks, tape
-        except Exception as e:
-            raise RuntimeError(f"Evaluator: the capture of bucket "
-                               f"{self.key} failed: {e}") from e
+class _Bucket:
+    """One shape bucket of `Evaluator.infer`: static device inputs (the
+    padded LQ, one chunk's times), their host staging (`lq_h`, `t_h`:
+    allocated at the first request, `t_h` grown to the most chunks a
+    request has brought) and its callables as `_Graph`s over one pool: a
+    MoTIF bucket's `trunk` over the static LQ, run once a request, whose
+    static outputs are the `head`'s input; the `head` over that input (a
+    baseline's: the LQ) and the times, run once a chunk."""
 
-    def parts_ms(self, forwards: int):
-        """The device ms of each of MoTIF's `PARTS` in the last request as
-        a forward of its `forwards` would hold them, or None where a graph
-        did not record all its marks: the trunk's parts (its one replay)
-        over `forwards`, the head's from the last replay; so each part's
-        ms times `forwards` is the request's ms of that part."""
-        head = self.marks.elapsed() if self.marks is not None else None
-        if self.trunk_graph is None or head is None:
-            return head
-        trunk = self.trunk_marks.elapsed()
-        if trunk is None:
-            return None
-        return [ms / forwards for ms in trunk] + head
+    def __init__(self, key, lq_shape, t_shape, dtype, device, pool,
+                 knobs: str | None = None, trunk: bool = False):
+        self.key, self.device, self.pool = key, device, pool
+        self.serial = next(_serials)
+        self.knobs = knobs                # `knobs_label`
+        self.lq = torch.zeros(lq_shape, dtype=dtype, device=device)
+        self.t = torch.zeros(t_shape, dtype=dtype, device=device)
+        self.lq_h = self.t_h = None
+        self.trunk = (_Graph(self, "eval.trunk_replays", graph="trunk")
+                      if trunk else None)
+        self.head = _Graph(self, "eval.replays", "eval.captures")
+        self.src = self.lq                # the head's input
+
+    def _run(self, forward):
+        """One chunk: `forward(src, t)` over the head's static input and
+        the static times."""
+        return self.head.run(forward, self.src, self.t)
+
+    def parts_ms(self, forwards: int) -> dict:
+        """The device ms of each part of MoTIF's forward that the graphs
+        recorded, in the last request, as a forward of its `forwards`
+        would hold them: the trunk's parts (its one replay) over
+        `forwards`, the head's from the last replay; so each part's ms
+        times `forwards` is the request's ms of that part."""
+        trunk = self.trunk.marks.elapsed() if self.trunk is not None else {}
+        return {**{p: ms / forwards for p, ms in trunk.items()},
+                **self.head.marks.elapsed()}
 
     def _stage(self, lq: np.ndarray, chunks: np.ndarray):
         """The request's LQ, zero-padded, and its chunks of times written
@@ -569,20 +542,20 @@ class _Bucket:
                 trunk=None):
         """Every chunk of one request (`lq` (B, N_in, h, w, 3) unpadded,
         `chunks` (k, B, step)) through the bucket: the inputs copied in
-        once through the staging (`_stage`), with `trunk` the trunk run
-        once over the LQ (`_run_trunk`, span `infer.trunk`) and
-        `forward(state, t)` its head, else `forward(lq, t)`, one forward
-        per chunk, its frames and statistics gathered on the device, then
-        copied out once into new host memory. Returns numpy (frames
-        (k * step, B, HH, WW, 3), statistics (k, 2) or None)."""
+        once through the staging (`_stage`); in a MoTIF bucket `trunk(lq)`
+        run once (span `infer.trunk`) into the head's input; then
+        `forward(src, t)`, the head, once per chunk (`_run`), its frames
+        and statistics gathered on the device, then copied out once into
+        new host memory. Returns numpy (frames (k * step, B, HH, WW, 3),
+        statistics (k, 2) or None)."""
         cuda = self.device.type == "cuda"
         with obs.span("infer.copy_in"):
             lq_h, t_h = self._stage(lq, chunks)
             self.lq.copy_(lq_h, non_blocking=True)
             t_dev = t_h.to(self.device, non_blocking=True)
-        if trunk is not None:
+        if self.trunk is not None:
             with obs.span("infer.trunk"):
-                self._run_trunk(trunk)
+                self.src = self.trunk.run(trunk, self.lq)
         frames = stats = None
         for k in range(len(chunks)):
             with obs.span("infer.replay", chunk=k):
@@ -610,6 +583,8 @@ class _Bucket:
         return out[0].numpy(), out[1].numpy() if stats is not None else None
 
 
-def _tensors(state: dict) -> list:
-    """The tensors among a trunk state's values, in its order."""
-    return [v for v in state.values() if isinstance(v, torch.Tensor)]
+def _tensors(out) -> list:
+    """The tensors among a callable's outputs (a dict's values or a
+    tuple's items), in their order."""
+    values = out.values() if isinstance(out, dict) else out
+    return [v for v in values if isinstance(v, torch.Tensor)]

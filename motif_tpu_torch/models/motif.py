@@ -43,12 +43,10 @@ from motif_tpu_torch.ops import softsplat
 from motif_tpu_torch.ops.resize import interpolate_bilinear
 from motif_tpu_torch.ops.warp import backwarp
 
-# the parts of a forward, each a span `motif.<part>` and the interval
-# between marks i and i + 1 (`obs.mark`) on the device; the first
-# TRUNK_PARTS are `MoTIF.trunk`'s (marks 0 to 2), the rest `MoTIF.head`'s
-# (marks 2 to 5)
+# the parts of a forward, each `obs.part(<part>)`: the span `motif.<part>`
+# and, in a captured graph, its start and end events on the device;
+# `MoTIF.trunk` runs the first two, `MoTIF.head` the rest
 PARTS = ("motion", "encoder", "decode", "splat", "synth")
-TRUNK_PARTS = 2
 
 
 def make_coord_1d(n: int) -> np.ndarray:
@@ -496,13 +494,13 @@ class MoTIF(nn.Module):
 
     def trunk(self, x: torch.Tensor, out_hw, iters: int = 12, flows=None):
         """The part of the forward that reads the frames and never the
-        times (`PARTS[:TRUNK_PARTS]`): RAFT on the anchors' cross pairs
-        (or `flows[0]`) with the reliability metrics, then the ZSM encoder.
-        Returns the state `head` decodes times from, a dict of the input
-        `x`, the `iters`, the shape `tab`les and what the trunk computed
-        (each tensor a new one): the flow and psies (nothing takes their
-        gradient), the encoder's fused frames `feat_t` (B, 2n - 1, H, W,
-        ch) and the anchors' features `feat` (nB, H, W, ch). The
+        times (the parts "motion" and "encoder"): RAFT on the anchors'
+        cross pairs (or `flows[0]`) with the reliability metrics, then the
+        ZSM encoder. Returns the state `head` decodes times from, a dict of
+        the input `x`, the `iters`, the shape `tab`les and what the trunk
+        computed (each tensor a new one): the flow and psies (nothing takes
+        their gradient), the encoder's fused frames `feat_t` (B, 2n - 1, H,
+        W, ch) and the anchors' features `feat` (nB, H, W, ch). The
         linear-motion fork's holds its LR flows f01 / f10 and features."""
         B, N_in, H, W, _ = x.shape
         HH, WW = out_hw
@@ -534,19 +532,16 @@ class MoTIF(nn.Module):
         tab = self._shape_tables(H, W, HH, WW, RH, RW, x.dtype, cdt, x.device)
         # motion and reliability take no gradient (the JAX package's
         # stop_gradients)
-        obs.mark(0)
-        with obs.span("motif.motion"), torch.no_grad():
+        with obs.part("motion"), torch.no_grad():
             flow, psies = self._motion(frames, tab, (H, W), (RH, RW), (HH, WW),
                                        iters, cd, cf, lr_flow)
 
         # ---- encoder: 2n - 1 fused frames ----
-        obs.mark(1)
-        with obs.span("motif.encoder"):
+        with obs.part("encoder"):
             # (B, 2n-1, H, W, ch)
             feat_t = self.encoder(cd(torch.stack(frames, 1)))
             # (nB, H, W, ch)
             feat = torch.cat([feat_t[:, 2 * i] for i in range(n)], 0)
-        obs.mark(2)
         return dict(x=x, iters=iters, tab=tab, flow=flow, psies=psies,
                     feat_t=feat_t, feat=feat)
 
@@ -561,9 +556,9 @@ class MoTIF(nn.Module):
     def head(self, state: dict, target_t: torch.Tensor, out_hw,
              use_gt: bool = False, target_frames: torch.Tensor | None = None,
              train: bool = False, flows=None):
-        """The part of the forward that reads the times
-        (`PARTS[TRUNK_PARTS:]`), from the `trunk`'s state, which it leaves
-        as it is: the teacher flow (`forward` has the arguments), the
+        """The part of the forward that reads the times (the parts
+        "decode", "splat" and "synth"), from the `trunk`'s state, which it
+        leaves as it is: the teacher flow (`forward` has the arguments), the
         residual (on four anchors the fused frame at round(t·6)), the flow
         context, the LIIF decode, the splat and the synthesis. Returns
         what `forward` returns."""
@@ -589,8 +584,7 @@ class MoTIF(nn.Module):
                     flow_gt = self._teacher(target_frames, N, (HH, WW),
                                             state["iters"], cd, cf)
 
-        obs.mark(2)
-        with obs.span("motif.decode"):
+        with obs.part("decode"):
             if flow_gt is None:
                 flow_gt = x.new_zeros((n * B * N, HH, WW, 2))
             if n == 2:       # the middle fused frame for every time
@@ -750,14 +744,12 @@ class MoTIF(nn.Module):
                 z = torch.zeros_like(z)
             if G > 1:        # every group splats along the same teacher flow
                 flow_gt = flow_gt.repeat_interleave(G, 0)
-        obs.mark(3)
-        with obs.span("motif.splat"):
+        with obs.part("splat"):
             output, extra = self._splat_merge(feat_hr, flow_gt if use_gt
                                               else flow_hr, z, n, B * N * G)
 
         # ---- synthesis ----
-        obs.mark(4)
-        with obs.span("motif.synth"):
+        with obs.part("synth"):
             if fused:
                 # net.0's pre-activation: the merged splat output (already
                 # through w_a, the flow rows and w_b) + the extras', the
@@ -791,7 +783,6 @@ class MoTIF(nn.Module):
                     out = self.synth_net(synth_in)
             frames_out = torch.clamp(cf(out).reshape(B, N, HH, WW, 3), 0.0, 1.0
                                      ).permute(1, 0, 2, 3, 4)
-        obs.mark(5)
         flow_norm = flow_hr / 20.0 / (HH / H)
         flow_gt_norm = flow_gt / 20.0 / (HH / H)
         return frames_out, flow_norm, flow_gt_norm

@@ -20,12 +20,11 @@ CUDA-graph capture records launches without making them: inside
 `count_replay(tape)` counts the tape once per replay of the graph.
 
 Inside a CUDA-graph replay no host code runs, so no span can time a part
-of it. Marks do: inside `marking(n)`, `mark(i)` records the i-th of n
-timing events on the current stream, which a capture makes a node of its
-graph; after a replay `Marks.elapsed` reads the milliseconds between
-consecutive ones. A graph that holds a stretch of the marks takes
-`marking(n, first)`: marks `first` to n - 1, and each mark outside them
-does nothing, as `mark` does outside `marking`.
+of it. Marks do: `part(name)` is the span `motif.<name>`, and inside
+`marking(names)` it also records the part's start and end timing events on
+the current stream, which a capture makes nodes of its graph; after a
+replay `Marks.elapsed` reads the milliseconds of each part the graph
+recorded, by name.
 """
 
 from __future__ import annotations
@@ -173,34 +172,33 @@ def count_replay(tape: dict) -> None:
 
 
 class Marks:
-    """The timing events of marks `first` to n - 1, and which of them
-    `mark` recorded."""
+    """The start and end timing events of each named part, and the parts
+    whose end `part` recorded (after their start)."""
 
-    def __init__(self, n: int, first: int = 0):
-        self.first = first
-        self.events = [torch.cuda.Event(enable_timing=True, external=True)
-                       for _ in range(first, n)]
-        self.seen: set = set()
+    def __init__(self, names):
+        self.events = {n: (torch.cuda.Event(enable_timing=True, external=True),
+                           torch.cuda.Event(enable_timing=True, external=True))
+                       for n in names}
+        self.ended: set = set()
 
-    def elapsed(self):
-        """Milliseconds between each pair of consecutive events, or None
-        unless `mark` recorded every one."""
-        if len(self.seen) < len(self.events):
-            return None
-        return [a.elapsed_time(b)
-                for a, b in zip(self.events, self.events[1:])]
+    def elapsed(self) -> dict:
+        """{part: milliseconds from its start to its end} for each part
+        whose two events were recorded."""
+        return {n: a.elapsed_time(b) for n, (a, b) in self.events.items()
+                if n in self.ended}
 
 
 @contextlib.contextmanager
-def marking(n: int, first: int = 0):
-    """Make `mark(first .. n - 1)` record n - first new timing events;
-    yields their `Marks`. Each event is recorded once here, so that it
-    exists before a capture, which then makes every later record of it a
-    node of its graph (`external`)."""
+def marking(names):
+    """Make `part(name)` record the start and end of each of `names` on
+    new timing events; yields their `Marks`. Each event is recorded once
+    here, so that it exists before a capture, which then makes every later
+    record of it a node of its graph (`external`)."""
     global _marks
-    marks = Marks(n, first)
-    for e in marks.events:
-        e.record()
+    marks = Marks(names)
+    for pair in marks.events.values():
+        for e in pair:
+            e.record()
     outer, _marks = _marks, marks
     try:
         yield marks
@@ -208,7 +206,22 @@ def marking(n: int, first: int = 0):
         _marks = outer
 
 
-def mark(i: int) -> None:
-    if _marks is not None and 0 <= i - _marks.first < len(_marks.events):
-        _marks.events[i - _marks.first].record()
-        _marks.seen.add(i)
+def part(name: str):
+    """A context manager: the part `name` of MoTIF's forward, the span
+    `motif.<name>`, which inside `marking` of that name also records the
+    part's start and end events."""
+    if _marks is None or name not in _marks.events:
+        return span("motif." + name)
+    return _marked(_marks, name)
+
+
+@contextlib.contextmanager
+def _marked(marks: Marks, name: str):
+    """A part inside `marking`: its start event, its span, its end event
+    (none where the part raised)."""
+    start, end = marks.events[name]
+    start.record()
+    with span("motif." + name) as sp:
+        yield sp
+    end.record()
+    marks.ended.add(name)

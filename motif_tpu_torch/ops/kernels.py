@@ -15,10 +15,10 @@ Each C entry point launches on the stream it is given and returns
 `count` (`obs.launch`) where it launches its kernel and nowhere else: the
 launches are counters of `motif_tpu_torch.obs`, which also keeps a
 capture's tape of them (`obs.recording`, `obs.count_replay`), as is
-`kernels.builds` (sources compiled). `LAUNCHES` reads them per kernel and
-`ENTRY_LAUNCHES` per entry of a kernel (its element type and variant, such
-as "siren_mlp/bfloat16/skip_first"). A build and a load are the spans
-`kernels.build` and `kernels.load`.
+`kernels.builds` (sources compiled). `obs.counters()` holds them under
+`obs.LAUNCHES`, per kernel and per entry of a kernel (its element type and
+variant, such as "siren_mlp/bfloat16/skip_first"). A build and a load are
+the spans `kernels.build` and `kernels.load`.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ import os
 import shutil
 import subprocess
 import time
-from collections.abc import Mapping
 from pathlib import Path
 
 import torch
@@ -49,42 +48,6 @@ BUILD_LOGS: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 count = obs.launch
-
-
-class _Launches(Mapping):
-    """The launch counters as a mapping: by kernel (every one of `KERNELS`,
-    0 until launched) or, with `entries`, by `<kernel>/<entry>` launched."""
-
-    def __init__(self, entries: bool):
-        self.entries = entries
-
-    def __getitem__(self, key: str) -> int:
-        if self.entries and "/" in key:
-            return obs.counters()[obs.LAUNCHES + key]
-        if not self.entries and key in KERNELS:
-            return obs.counters().get(obs.LAUNCHES + key, 0)
-        raise KeyError(key)
-
-    def __iter__(self):
-        if not self.entries:
-            return iter(KERNELS)
-        n = len(obs.LAUNCHES)
-        return iter([k[n:] for k in obs.counters()
-                     if k.startswith(obs.LAUNCHES) and "/" in k])
-
-    def __len__(self) -> int:
-        return sum(1 for _ in self)
-
-    def __repr__(self) -> str:
-        return repr(dict(self))
-
-
-LAUNCHES = _Launches(entries=False)
-ENTRY_LAUNCHES = _Launches(entries=True)
-
-
-def reset_launches() -> None:
-    obs.reset(obs.LAUNCHES)
 
 
 def _nvcc() -> str:

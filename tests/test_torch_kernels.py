@@ -26,7 +26,9 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+from _launches import by_entry, by_kernel
 
+from motif_tpu_torch import obs
 from motif_tpu_torch.models.siren import hidden_bound
 from motif_tpu_torch.ops import dcn, kernels, siren_kernel, softsplat
 
@@ -66,10 +68,10 @@ def _replayed(fn, static, updates):
 
 
 def _launches(name, fn):
-    before = kernels.LAUNCHES[name]
+    before = by_kernel()[name]
     out = fn()
     torch.cuda.synchronize()
-    return out, kernels.LAUNCHES[name] - before
+    return out, by_kernel()[name] - before
 
 
 def _splat_inputs(dev, case):
@@ -545,14 +547,14 @@ def test_siren_mlp_bfloat16_refuses_what_it_does_not_take(dev):
     """A wide layer that feeds a wide layer, and an MLP with a layer whose
     weights and slabs exceed a block's shared memory alone, raise before
     any launch."""
-    before = kernels.LAUNCHES["siren_mlp"]
+    before = by_kernel()["siren_mlp"]
     x, ws, bs = _bf16_case(dev, [64, 256, 256, 3], 10, False)
     with pytest.raises(ValueError, match="must be last or feed"):
         siren_kernel.siren_mlp(x, ws, bs)
     x, ws, bs = _bf16_case(dev, [64, 64, 1024, 64], 10, False)
     with pytest.raises(ValueError, match="shared memory"):
         siren_kernel.siren_mlp(x, ws, bs)
-    assert kernels.LAUNCHES["siren_mlp"] == before
+    assert by_kernel()["siren_mlp"] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -629,11 +631,11 @@ def test_decode_chunks_are_bit_equal(dev, dtype):
 
 def test_siren_skip_first_refuses_a_wide_pre_activation(dev):
     ws, bs, g = _siren(dev, [100, 64, 3])
-    before = kernels.LAUNCHES["siren_mlp"]
+    before = by_kernel()["siren_mlp"]
     with pytest.raises(ValueError, match="pre-activation"):
         siren_kernel.siren_mlp(torch.zeros((10, 100), device=dev), ws, bs,
                                skip_first=True)
-    assert kernels.LAUNCHES["siren_mlp"] == before
+    assert by_kernel()["siren_mlp"] == before
 
 
 @pytest.mark.parametrize("dims", MOTIF_MLPS)
@@ -684,9 +686,9 @@ def test_siren_mlp_too_wide_runs_as_layers(dev):
     for dims in ([6000, 8], [64, 6000, 8]):
         ws, bs, g = _siren(dev, dims)
         x = torch.rand((3001, dims[0]), device=dev, generator=g) * 2 - 1
-        before = kernels.ENTRY_LAUNCHES.get("siren_mlp/float32/layer", 0)
+        before = by_entry().get("siren_mlp/float32/layer", 0)
         got = siren_kernel.siren_mlp(x, ws, bs)
-        assert kernels.ENTRY_LAUNCHES["siren_mlp/float32/layer"] - before \
+        assert by_entry()["siren_mlp/float32/layer"] - before \
             == len(dims) - 1
         h = x
         for i, (w, b) in enumerate(zip(ws, bs)):
@@ -723,10 +725,10 @@ def _fma_chain(x, w, b, sine, omega0=30.0, in_sine=False):
 
 def _layer_launches(fn):
     key = "siren_mlp/float32/layer"
-    before = kernels.ENTRY_LAUNCHES.get(key, 0)
+    before = by_entry().get(key, 0)
     out = fn()
     torch.cuda.synchronize()
-    return out, kernels.ENTRY_LAUNCHES.get(key, 0) - before
+    return out, by_entry().get(key, 0) - before
 
 
 @pytest.mark.parametrize("N", LAYER_N)
@@ -816,7 +818,7 @@ def test_wrappers_reject_mixed_dtypes_and_devices(dev):
     x = torch.zeros((2, 4, 4, 8), device=dev)
     off = torch.zeros((2, 4, 4, 36), device=dev)
     mask = torch.zeros((2, 4, 4, 18), device=dev)
-    before = dict(kernels.LAUNCHES)
+    before = by_kernel()
     with pytest.raises(TypeError, match="share"):
         dcn.dcn_im2col(x.bfloat16(), off, mask, 3, 1, 1, 1, 2)
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -833,12 +835,12 @@ def test_wrappers_reject_mixed_dtypes_and_devices(dev):
     with pytest.raises(TypeError, match="bfloat16"):
         siren_kernel.siren_mlp(torch.zeros((5, 3), device=dev).half(),
                                [w.half()], [b.half()])
-    assert kernels.LAUNCHES == before
+    assert by_kernel() == before
 
 
 def test_entry_counters_name_the_entry(dev):
     """Each wrapper counts its launch under its kernel and its entry."""
-    kernels.reset_launches()
+    obs.reset(obs.LAUNCHES)
     ws, bs, g = _siren(dev, [64, 64, 3])
     x = torch.zeros((10, 64), device=dev)
     siren_kernel.siren_mlp(x.bfloat16(), [w.bfloat16() for w in ws],
@@ -851,11 +853,11 @@ def test_entry_counters_name_the_entry(dev):
     dcn.dcn_im2col(xd.bfloat16(), off.bfloat16(), mask.bfloat16(), 3, 1, 1, 1,
                    2)
     torch.cuda.synchronize()
-    assert kernels.ENTRY_LAUNCHES == {
+    assert by_entry() == {
         "siren_mlp/bfloat16/skip_first": 1, "siren_mlp/float32/whole": 1,
         "splat_fused/float16/C=64": 1, "splat_fused/float32/generic": 1,
         "dcn_im2col/bfloat16": 1}
-    assert kernels.LAUNCHES == {"siren_mlp": 2, "splat_fused": 2,
+    assert by_kernel() == {"siren_mlp": 2, "splat_fused": 2,
                                 "dcn_im2col": 1}
 
 
@@ -918,13 +920,13 @@ def test_evaluator_run_on_a_vid4_clip(dev):
                 b.copy_(torch.randn(b.shape, generator=g))
     cpu = Evaluator(copy.deepcopy(model), device="cpu").run(clip).summary()
     ev = Evaluator(model, device=dev)
-    before = dict(kernels.LAUNCHES)
+    before = by_kernel()
     card = ev.run(clip).summary()
-    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+    launched = {k: v - before[k] for k, v in by_kernel().items()}
     assert launched == {"splat_fused": 1, "dcn_im2col": 42, "siren_mlp": 3}
     with _plain_versions():         # a new Evaluator: its graph captures
         plain = Evaluator(model, device=dev).run(clip).summary()  # these
-    assert kernels.LAUNCHES == {k: before[k] + v for k, v in launched.items()}
+    assert by_kernel() == {k: before[k] + v for k, v in launched.items()}
     assert card["n_clips"] == 1 and all(np.isfinite(v) for v in card.values())
     _hold_summary(card, plain, RUN_GATES["plain"])
     _hold_summary(card, cpu, RUN_GATES["cpu"])
@@ -1134,12 +1136,12 @@ def test_lower_precision_entries_raise_under_grad(dev):
     from motif_tpu_torch.models.motif import build_motif
     m = build_motif(16, 1, 2, device=dev, fused_decode=True,
                     compute_dtype="bfloat16", splat_dtype="float16")
-    before = dict(kernels.ENTRY_LAUNCHES)
+    before = by_entry()
     frames, _, _ = m(torch.rand(1, 4, 16, 16, 3, device=dev),
                      torch.rand(1, 2, device=dev), (64, 64), iters=1)
     frames.square().sum().backward()
     torch.cuda.synchronize()
-    launched = {k for k, v in kernels.ENTRY_LAUNCHES.items()
+    launched = {k for k, v in by_entry().items()
                 if v != before.get(k, 0)}
     assert launched == {"dcn_im2col/bfloat16", "siren_mlp/bfloat16/skip_first",
                         "splat_fused/float16/C=64"}
@@ -1193,9 +1195,9 @@ def test_fused_decode_gradient_on_the_card(dev):
     an H100)."""
     model = _perturbed_motif(dev)
     ref = _motif_grads(model, False)
-    before = dict(kernels.ENTRY_LAUNCHES)
+    before = by_entry()
     got = _motif_grads(model, True)
-    assert kernels.ENTRY_LAUNCHES["siren_mlp/float32/skip_first"] - \
+    assert by_entry()["siren_mlp/float32/skip_first"] - \
         before.get("siren_mlp/float32/skip_first", 0) == 3
     for key in ("synth_net", "imnet", "flow_imnet", "encoder"):
         a = torch.cat([g.reshape(-1) for k, g in ref.items()
@@ -1257,9 +1259,9 @@ def test_liif_trainer_step_matches_the_plain_versions(dev):
              "gt": rng.random((2, 5, 64, 64, 3), np.float32),
              "times": np.float32([[0.25, 0.5, 0.75]] * 2)}
     tr = Trainer(model, TrainerConfig(), out_hw=(64, 64), family="LIIF")
-    before = dict(kernels.LAUNCHES)
+    before = by_kernel()
     aux = tr.compute_grads(batch, tr.draw_use_gt())
-    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+    launched = {k: v - before[k] for k, v in by_kernel().items()
                 if v != before[k]}
     assert set(launched) == {"dcn_im2col", "siren_mlp"}
     grads = [p.grad.clone() for p in tr.params]
@@ -1319,10 +1321,10 @@ def test_trainer_step_matches_the_plain_versions(dev):
              "times": np.float32([[0.25, 0.5, 0.75]] * 2)}
     tr = Trainer(model, TrainerConfig(teacher_forcing_steps=1), iters=2)
     for use_gt in (True, False):
-        before = dict(kernels.LAUNCHES)
+        before = by_kernel()
         aux = tr.compute_grads(batch, use_gt)
         grads = [p.grad.clone() for p in tr.params]
-        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        launched = {k: v - before[k] for k, v in by_kernel().items()}
         assert launched == {"splat_fused": 1, "dcn_im2col": 42,
                             "siren_mlp": 3}
         with _plain_versions():
@@ -1372,10 +1374,10 @@ def test_ours44_request_matches_the_plain_versions(dev):
     rng = np.random.default_rng(0)
     lq = rng.random((1, 4, 16, 16, 3), np.float32)
     times = np.float32([[0.1, 0.5, 0.75]])
-    before = dict(kernels.ENTRY_LAUNCHES)
+    before = by_entry()
     got, stats = ev.infer(lq, times, (64, 64))
     launched = {k: v - before.get(k, 0)
-                for k, v in kernels.ENTRY_LAUNCHES.items()
+                for k, v in by_entry().items()
                 if v != before.get(k, 0)}
     # channel 16: the splat's payload is 64 + 2 + 16 = 82 wide (generic)
     assert launched == {"dcn_im2col/float32": 90,
@@ -1409,10 +1411,10 @@ def test_ours44_trainer_step_matches_the_plain_versions(dev):
     tr = Trainer(model, TrainerConfig(teacher_forcing_steps=1), iters=2,
                  family="Ours_44")
     for use_gt in (True, False):
-        before = dict(kernels.LAUNCHES)
+        before = by_kernel()
         aux = tr.compute_grads(batch, use_gt)
         grads = [p.grad.clone() for p in tr.params]
-        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        launched = {k: v - before[k] for k, v in by_kernel().items()}
         assert launched == {"splat_fused": 1, "dcn_im2col": 90,
                             "siren_mlp": 3}
         with _plain_versions():
@@ -1500,11 +1502,11 @@ def test_siren_mlp_videoinr_widths(dev, dims, sine_last):
     cut keeps every output's k order)."""
     ws, bs, g = _siren(dev, dims)
     x = torch.rand((5001, dims[0]), device=dev, generator=g) * 2 - 1
-    before = dict(kernels.ENTRY_LAUNCHES)
+    before = by_entry()
     got, n = _launches("siren_mlp", lambda: siren_kernel.siren_mlp(
         x, ws, bs, 30.0, sine_last))
     launched = {k: v - before.get(k, 0)
-                for k, v in kernels.ENTRY_LAUNCHES.items()
+                for k, v in by_entry().items()
                 if v != before.get(k, 0)}
     plan = siren_kernel.segments(dims)
     want_n = {"siren_mlp/float32/layer": sum(s.layer for s in plan),
@@ -1581,9 +1583,9 @@ def test_baseline_forward_matches_the_plain_versions(dev, family):
     rng = np.random.default_rng(0)
     lq = rng.random((1, 2, 16, 24, 3), np.float32)
     times = np.float32([[0.0, 0.5, 1.0]])
-    before = dict(kernels.LAUNCHES)
+    before = by_kernel()
     got, stats = ev.infer(lq, times, (64, 96))
-    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+    launched = {k: v - before[k] for k, v in by_kernel().items()
                 if v != before[k]}
     assert launched == BASELINE_LAUNCHES[family] and stats is None
     with _plain_versions():        # eagerly: a replay runs the kernels
@@ -1612,10 +1614,10 @@ def test_captured_infer_matches_eager_in_two_buckets(dev):
     for h, w in ((16, 24), (20, 28)):
         lq = rng.random((1, 4, h, w, 3), np.float32)
         first, _ = ev.infer(lq, times, (4 * h, 4 * w))
-        before = dict(kernels.ENTRY_LAUNCHES)
+        before = by_entry()
         got, stats = ev.infer(lq, times, (4 * h, 4 * w))
         launched = {k: v - before.get(k, 0)
-                    for k, v in kernels.ENTRY_LAUNCHES.items()
+                    for k, v in by_entry().items()
                     if v != before.get(k, 0)}
         assert launched == {"dcn_im2col/float32": 42,
                             "siren_mlp/float32/whole": 3,
@@ -1720,10 +1722,10 @@ def test_trunk_and_head_graphs_match_the_eager_forward(dev, family, knob):
     rng = np.random.default_rng(4)
 
     def counted(fn):
-        before = dict(kernels.ENTRY_LAUNCHES)
+        before = by_entry()
         out = fn()
         return out, {k: v - before.get(k, 0)
-                     for k, v in kernels.ENTRY_LAUNCHES.items()
+                     for k, v in by_entry().items()
                      if v != before.get(k, 0)}
     for n in (2, 4, 8):
         times = np.float32(np.arange(n) / n)[None]
@@ -1815,11 +1817,11 @@ def test_splat_fused_float16_sums_at_c130(dev, side, z_nonpositive):
     img, flow, z = _a_splat_inputs(dev, side, B=4)
     z = -torch.rand(z.shape, device=dev) if z_nonpositive else \
         torch.rand(z.shape, device=dev)
-    before = dict(kernels.ENTRY_LAUNCHES)
+    before = by_entry()
     got = softsplat.splat_fused(img, flow, z, z_nonpositive,
                                 scatter_dtype=torch.float16)
     key = "splat_fused/float16/C=130"
-    assert kernels.ENTRY_LAUNCHES[key] - before.get(key, 0) == 1
+    assert by_entry()[key] - before.get(key, 0) == 1
     want = softsplat.splat_fused_plain(img, flow, z, z_nonpositive,
                                        scatter_dtype=torch.float16)
     for a, b in zip(got[:2], want[:2]):
@@ -1921,10 +1923,10 @@ def test_settings_forward_matches_the_plain_versions(dev, setting, linear):
     rng = np.random.default_rng(0)
     lq = rng.random((1, 4, 16, 16, 3), np.float32)
     times = np.float32([[0.1, 0.5, 0.75]])
-    before = dict(kernels.ENTRY_LAUNCHES)
+    before = by_entry()
     got, stats = ev.infer(lq, times, (64, 64))
     launched = {k: v - before.get(k, 0)
-                for k, v in kernels.ENTRY_LAUNCHES.items()
+                for k, v in by_entry().items()
                 if v != before.get(k, 0)}
     assert launched == SETTING_LAUNCHES[(setting, linear)]
     with _plain_versions():
@@ -1967,10 +1969,10 @@ def test_fields_forward_matches_the_plain_versions(dev, field):
     ev = Evaluator(model, iters=2, device=dev)
     lq = np.random.default_rng(0).random((1, 4, 16, 16, 3), np.float32)
     times = np.float32([[0.1, 0.5, 0.75]])
-    before = dict(kernels.ENTRY_LAUNCHES)
+    before = by_entry()
     got, _ = ev.infer(lq, times, (64, 64))
     launched = {k: v - before.get(k, 0)
-                for k, v in kernels.ENTRY_LAUNCHES.items()
+                for k, v in by_entry().items()
                 if v != before.get(k, 0)}
     assert launched == {"dcn_im2col/float32": 42,
                         "siren_mlp/float32/whole": FIELD_SIRENS[field],

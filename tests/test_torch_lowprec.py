@@ -15,11 +15,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _launches import by_entry, by_kernel
 
 from motif_tpu.models.siren import Siren as JSiren
 from motif_tpu.ops import dcn as jdcn
 from motif_tpu.ops.softsplat import splat_fused as jsplat_fused
 from motif_tpu_torch import checkpoint as tckpt
+from motif_tpu_torch import obs
 from motif_tpu_torch.models.layers import Conv2d, cast_param
 from motif_tpu_torch.models.siren import Siren
 from motif_tpu_torch.ops import dcn as tdcn
@@ -287,10 +289,10 @@ def test_require_cuda_names_the_dtypes():
 
 
 def test_entry_counters_reset():
-    kernels.reset_launches()
+    obs.reset(obs.LAUNCHES)
     kernels.count("siren_mlp", "bfloat16/skip_first")
     kernels.count("siren_mlp", "bfloat16/skip_first")
-    assert kernels.LAUNCHES["siren_mlp"] == 2
-    assert kernels.ENTRY_LAUNCHES == {"siren_mlp/bfloat16/skip_first": 2}
-    kernels.reset_launches()
-    assert kernels.LAUNCHES["siren_mlp"] == 0 and not kernels.ENTRY_LAUNCHES
+    assert by_kernel()["siren_mlp"] == 2
+    assert by_entry() == {"siren_mlp/bfloat16/skip_first": 2}
+    obs.reset(obs.LAUNCHES)
+    assert by_kernel()["siren_mlp"] == 0 and not by_entry()

@@ -10,9 +10,11 @@ events: the trunk's parts under `infer.trunk` once, the head's under
 each chunk's `infer.replay`. The counters: kernel launches through a
 capture's tape and its replays (the CUDA calls of a capture stood in for
 on the CPU), captures, replays and the reset of every bucket after a
-weight write; a MoTIF bucket's trunk graph and head graph, each with its
-own tape, marks and replay counter, and `parts_ms` times the forwards
-giving the request's milliseconds of each part. A full buffer drops its
+weight write; a MoTIF bucket's trunk graph and head graph (`_Graph`),
+each with its own tape, marks of the parts it ran and replay counter, and
+`parts_ms` times the forwards giving the request's milliseconds of each
+part; the marks leave out a part whose end was not recorded; a capture
+that fails raises with its bucket's key. A full buffer drops its
 oldest record and counts the drop. The readers on a synthetic
 traced run whose device clock shifts: each request set on its own device
 operations and one whose trace shifted inside it left out, the idle time
@@ -36,12 +38,12 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+from _launches import by_kernel
 from torch.profiler import ProfilerActivity, profile
 
 from motif_tpu_torch import obs
 from motif_tpu_torch.eval import Evaluator, _Bucket
-from motif_tpu_torch.models.motif import (PARTS, TRUNK_PARTS,
-                                          build_motif)
+from motif_tpu_torch.models.motif import PARTS, build_motif
 from motif_tpu_torch.ops import kernels
 
 LQ = np.random.default_rng(0).random((1, 4, 16, 24, 3), np.float32)
@@ -113,9 +115,9 @@ def test_infer_records_its_request_under_the_profiler(tiny_ev):
             (r for r in recs if r["parent"] == parent["id"]),
             key=lambda r: r["start"])]
     (trunk,) = [k for k in kids if k["name"] == "infer.trunk"]
-    assert parts(trunk) == ["motif." + p for p in PARTS[:TRUNK_PARTS]]
+    assert parts(trunk) == ["motif.motion", "motif.encoder"]
     for rp in [k for k in kids if k["name"] == "infer.replay"]:
-        assert parts(rp) == ["motif." + p for p in PARTS[TRUNK_PARTS:]]
+        assert parts(rp) == ["motif.decode", "motif.splat", "motif.synth"]
     assert {r["name"] for r in recs} <= names
     assert frames.shape == (4, 1, 64, 96, 3)
 
@@ -239,7 +241,7 @@ class _FakeStream:
 
 @contextlib.contextmanager
 def _cuda_stand_ins():
-    """The CUDA calls of `_Bucket._run`'s capture and replay stood in for
+    """The CUDA calls of `_Graph.run`'s capture and replay stood in for
     on the CPU: the capture runs the forward once more (recording), a
     replay runs nothing."""
     null = contextlib.nullcontext
@@ -256,15 +258,17 @@ def _cuda_stand_ins():
 
 
 def test_launches_captures_and_replays_are_counted():
-    """A bucket's capture: the warm run's launches counted, the capture's
-    on its tape; each replay counts the tape once, and a replay and a
-    capture each their counter. The marks of the capture time the parts."""
+    """A head graph's capture: the warm run's launches counted, the
+    capture's on its tape; each replay counts the tape once, and a replay
+    and a capture each their counter. The marks of the capture time the
+    parts it ran, by name."""
     calls = []
 
     def forward(lq, t):
         calls.append(1)
-        for i in range(len(PARTS) + 1):
-            obs.mark(i)
+        for p in PARTS:
+            with obs.part(p):
+                pass
         kernels.count("splat_fused", "float32")
         kernels.count("dcn_im2col", "float32")
         kernels.count("dcn_im2col", "float32")
@@ -274,11 +278,12 @@ def test_launches_captures_and_replays_are_counted():
                 None)
     b.device = torch.device("cuda")
     before = obs.counters()
-    launches = dict(kernels.LAUNCHES)
+    launches = by_kernel()
     with _cuda_stand_ins():
         b._run(forward)
-        assert len(calls) == 2 and b.graph is not None
-        assert b.tape == {"splat_fused/float32": 1, "dcn_im2col/float32": 2}
+        g = b.head
+        assert len(calls) == 2 and g.graph is not None
+        assert g.tape == {"splat_fused/float32": 1, "dcn_im2col/float32": 2}
         for _ in range(3):
             b._run(forward)
     after = obs.counters()
@@ -288,55 +293,61 @@ def test_launches_captures_and_replays_are_counted():
     assert len(calls) == 2
     assert grew("eval.captures") == 1 and grew("eval.replays") == 3
     assert grew("kernels.launches.dcn_im2col/float32") == 2 * 4
-    assert {k: v - launches[k] for k, v in kernels.LAUNCHES.items()} == {
+    assert {k: v - launches[k] for k, v in by_kernel().items()} == {
         "splat_fused": 4, "dcn_im2col": 8, "siren_mlp": 0}
-    assert b.marks.elapsed() == [1.5] * len(PARTS)
-    obs.mark(0)                # no mark set is active outside a capture
+    assert g.marks.elapsed() == {p: 1.5 for p in PARTS}
+    # no mark set is active outside a capture: a part is its span alone
+    assert obs.part("motion") is obs.OFF
 
 
 def test_a_trunk_graph_and_a_head_graph_each_count_their_own():
     """A MoTIF bucket's two graphs: the trunk's capture takes the eager
-    run's values into its static state and records marks 0 to 2 and its
-    own tape, the head's marks 2 to 5 and its own; each replay counts its
-    graph's tape and counter. `parts_ms` holds the trunk's parts over the
-    request's forwards, so that each part's ms times the forwards is the
-    request's ms of that part."""
+    run's values into its static outputs, records the parts it ran
+    (motion, encoder) and its own tape, the head's its parts (decode,
+    splat, synth) and its own; each replay counts its graph's tape and
+    counter, and only the head's capture counts a bucket captured.
+    `parts_ms` holds the trunk's parts over the request's forwards, so
+    that each part's ms times the forwards is the request's ms of that
+    part."""
     calls = []
 
-    def marked(i):             # part i - 1 takes i ms (and a record 1.5)
-        _FakeEvent.t += i
-        obs.mark(i)
+    def part(name, ms):        # a part of `ms` ms (and a record 1.5)
+        with obs.part(name):
+            _FakeEvent.t += ms
 
     def trunk(lq):
         calls.append("trunk")
-        for i in range(TRUNK_PARTS + 1):
-            marked(i)
+        part("motion", 1)
+        part("encoder", 2)
         kernels.count("dcn_im2col", "float32")
         kernels.count("dcn_im2col", "float32")
         return {"x": lq, "feat": lq * 2.0 + len(calls)}
 
     def head(state, t):
         calls.append("head")
-        for i in range(TRUNK_PARTS, len(PARTS) + 1):
-            marked(i)
+        for ms, name in enumerate(("decode", "splat", "synth"), 3):
+            part(name, ms)
         kernels.count("splat_fused", "float32")
         return state["feat"] + t.sum(), None
 
     b = _Bucket("k", (1, 2), (1, 3), torch.float32, torch.device("cpu"),
-                None)
+                None, trunk=True)
     b.device = torch.device("cuda")
     before = obs.counters()
     with _cuda_stand_ins():
-        b._run_trunk(trunk)              # the eager run, then the capture
-        assert calls == ["trunk"] * 2 and b.trunk_graph is not None
-        assert b.state["x"] is b.lq and torch.equal(
-            b.state["feat"], b.lq * 2.0 + 1)      # the eager run's values
-        assert b.trunk_tape == {"dcn_im2col/float32": 2}
+        state = b.trunk.run(trunk, b.lq)  # the eager run, then the capture
+        assert calls == ["trunk"] * 2 and b.trunk.graph is not None
+        assert state is b.trunk.out and state["x"] is b.lq and torch.equal(
+            state["feat"], b.lq * 2.0 + 1)      # the eager run's values
+        assert b.trunk.tape == {"dcn_im2col/float32": 2}
+        assert obs.counters().get("eval.captures", 0) == before.get(
+            "eval.captures", 0)
+        b.src = state
         b._run(head)
-        assert calls[2:] == ["head"] * 2 and b.tape == {
+        assert calls[2:] == ["head"] * 2 and b.head.tape == {
             "splat_fused/float32": 1}
         for _ in range(2):               # two more requests of 3 chunks
-            b._run_trunk(trunk)
+            assert b.trunk.run(trunk, b.lq) is state
             for _ in range(3):
                 b._run(head)
     after = obs.counters()
@@ -348,11 +359,47 @@ def test_a_trunk_graph_and_a_head_graph_each_count_their_own():
     assert grew("eval.replays") == 6
     assert grew("kernels.launches.dcn_im2col/float32") == 2 * 3
     assert grew("kernels.launches.splat_fused/float32") == 1 + 6
-    trunk_ms, head_ms = b.trunk_marks.elapsed(), b.marks.elapsed()
-    assert trunk_ms == [2.5, 3.5] and head_ms == [4.5, 5.5, 6.5]
+    trunk_ms, head_ms = b.trunk.marks.elapsed(), b.head.marks.elapsed()
+    assert trunk_ms == {"motion": 2.5, "encoder": 3.5}
+    assert head_ms == {"decode": 4.5, "splat": 5.5, "synth": 6.5}
     parts = b.parts_ms(3)
-    assert [p * 3 for p in parts[:TRUNK_PARTS]] == trunk_ms
-    assert [p * 3 for p in parts[TRUNK_PARTS:]] == [3 * ms for ms in head_ms]
+    assert list(parts) == list(PARTS)
+    assert {p: parts[p] * 3 for p in trunk_ms} == trunk_ms
+    assert {p: parts[p] * 3 for p in head_ms} == {
+        p: 3 * ms for p, ms in head_ms.items()}
+
+
+def test_a_capture_that_fails_names_its_bucket():
+    """A forward that raises inside its capture (its second run, after the
+    warm one) raises with the bucket's key, and the bucket keeps no
+    graph."""
+    calls = []
+
+    def forward(lq, t):
+        calls.append(1)
+        if len(calls) == 2:
+            raise ValueError("cannot capture")
+        return lq + 1, None
+
+    b = _Bucket(("the", "key"), (1, 2), (1, 3), torch.float32,
+                torch.device("cpu"), None)
+    b.device = torch.device("cuda")
+    with _cuda_stand_ins(), pytest.raises(
+            RuntimeError, match=r"bucket \('the', 'key'\) failed: cannot"):
+        b._run(forward)
+    assert b.head.graph is None and b.head.tape == {}
+
+
+def test_marks_leave_out_a_part_whose_end_was_not_recorded():
+    """`Marks.elapsed` times a part whose start and end were both
+    recorded; a part that raised (no end) and a part not run are left
+    out."""
+    with _cuda_stand_ins(), obs.marking(PARTS) as marks:
+        with obs.part("motion"):
+            pass
+        with pytest.raises(ValueError), obs.part("encoder"):
+            raise ValueError("a part that raised")
+    assert marks.elapsed() == {"motion": 1.5}
 
 
 def _last_with(model, name):
@@ -449,15 +496,13 @@ def test_a_weight_write_resets_the_buckets(change):
 
 
 def test_reset_launches_drops_only_the_launch_counters():
+    """`obs.reset(prefix)` drops every counter under `prefix`, here the
+    launch counters, and keeps the others."""
     obs.count("test.kept", 2)
     kernels.count("siren_mlp", "float32/whole")
-    kernels.reset_launches()
-    assert not kernels.ENTRY_LAUNCHES and not any(kernels.LAUNCHES.values())
+    obs.reset(obs.LAUNCHES)
+    assert not [k for k in obs.counters() if k.startswith(obs.LAUNCHES)]
     assert obs.counters()["test.kept"] >= 2
-    with pytest.raises(KeyError):
-        kernels.ENTRY_LAUNCHES["siren_mlp/float32/whole"]
-    with pytest.raises(KeyError):
-        kernels.LAUNCHES["no_such_kernel"]
 
 
 # ---------------------------------------------------------------------------
@@ -686,8 +731,8 @@ def test_marks_in_a_captured_graph_time_its_forward():
     within 1e-5 and the flow statistics within 1e-5 relative, as the
     bucket tests hold them: the splat sums in a varying order); a profiled
     request records its parts; and one replay of the trunk's graph and the
-    head's, back to back, their marks first to last, time the forward
-    within 3% of its extent on the profiler's device timeline (its first
+    head's, back to back, their parts summed, time the forward within 3%
+    of its extent on the profiler's device timeline (its first
     device operation's start to its last one's end)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the graph and its events are "
@@ -715,10 +760,10 @@ def test_marks_in_a_captured_graph_time_its_forward():
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        bucket.trunk_graph.replay()
-        bucket.graph.replay()
+        bucket.trunk.graph.replay()
+        bucket.head.graph.replay()
         torch.cuda.synchronize()
-    whole = sum(bucket.parts_ms(1))
+    whole = sum(bucket.parts_ms(1).values())
     ops = [e.time_range for e in prof.events()
            if str(e.device_type).endswith("CUDA")
            and not getattr(e, "is_user_annotation", False)]
