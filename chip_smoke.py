@@ -248,12 +248,14 @@ ENTRIES = ("splat_fused/float32/C=130", "splat_fused/float32/C=64",
 
 
 def launch_counts() -> dict:
-    """The launch counters by kernel, each of `kernels.KERNELS` (0 until
-    launched): `obs.counters()` under `obs.LAUNCHES`."""
+    """The launch counters by kernel, each of `kernels.KERNELS` and the
+    fused decode's `preact` (0 until launched): `obs.counters()` under
+    `obs.LAUNCHES`."""
     from motif_tpu_torch.ops.kernels import KERNELS
 
     counters = obs.counters()
-    return {k: counters.get(obs.LAUNCHES + k, 0) for k in KERNELS}
+    return {k: counters.get(obs.LAUNCHES + k, 0)
+            for k in (*KERNELS, "preact")}
 
 
 def entry_counts() -> dict:
@@ -1076,12 +1078,15 @@ def check_siren_layers(dev, siren_kernel):
 def plain_versions(softsplat, dcn, siren_kernel):
     """Route the model's kernel calls to the plain versions (the reference
     forward for the comparison; the package itself has no such switch)."""
+    from motif_tpu_torch.ops import preact
+
     def siren_plain(*a, packed=None, **kw):   # the kernel's buffer: unused
         return siren_kernel.siren_mlp_plain(*a, **kw)
     with mock.patch.object(softsplat, "splat_fused",
                            softsplat.splat_fused_plain), \
             mock.patch.object(dcn, "dcn_im2col", dcn.dcn_im2col_plain), \
-            mock.patch.object(siren_kernel, "siren_mlp", siren_plain):
+            mock.patch.object(siren_kernel, "siren_mlp", siren_plain), \
+            mock.patch.object(preact, "preact", preact.preact_plain):
         yield
 
 
@@ -1311,12 +1316,79 @@ def capture_splat(ev, softsplat, lq, times, out_hw=(256, 448)):
     return captured[0]
 
 
+def capture_preacts(ev, lq, times, out_hw=(256, 448)):
+    """The fused decode's parts on one eager request's first forward: per
+    site, the positional and keyword arguments of its `preact` call,
+    cloned."""
+    from motif_tpu_torch.ops import preact
+
+    captured = {}
+    real = preact.preact
+
+    def clone(v):
+        return v.clone() if torch.is_tensor(v) else v
+
+    def spy(site, *a, **kw):
+        captured.setdefault(site, ([clone(v) for v in a],
+                                   {k: clone(v) for k, v in kw.items()}))
+        return real(site, *a, **kw)
+    with mock.patch.object(preact, "preact", spy):
+        eager(ev)(lq, times, out_hw)
+    return captured
+
+
+def check_preacts(captured, request):
+    """Each site's kernel on a request's own parts (`capture_preacts`)
+    against `preact_plain`, bit for bit, timed from a CUDA graph beside the
+    plain version, with its bound: the output written and each part read
+    once, at the HBM rate. Returns a line per site."""
+    from motif_tpu_torch.ops import preact
+
+    lines = {}
+    for site in preact.SITES:
+        a, kw = captured[site]
+
+        def run(fn=preact.preact, a=a, kw=kw, site=site):
+            return fn(site, *a, **kw)
+
+        def plain(run=run):
+            return run(preact.preact_plain)
+        with torch.no_grad():
+            out, want = run(), plain()
+            held = {"bit_equal": out.dtype == want.dtype and
+                    torch.equal(out, want),
+                    "apart": int((out != want).sum()),
+                    "max_abs_err": max_err(out, want)}
+            nbytes = out.numel() * out.element_size() + sum(
+                v.numel() * v.element_size() for v in (*a, *kw.values())
+                if torch.is_tensor(v))
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            line = {"ms": device_ms(run), "plain_ms": device_ms(plain),
+                    "bound_ms": b_ms, "bound_by": "bytes",
+                    "eager_ms": cuda_ms(run), "max_abs_err":
+                    held["max_abs_err"], "shape": list(out.shape)}
+        emit({"check": "preact", "site": site, "case": "request_" + request,
+              "dtype": dname(out.dtype), "bytes": nbytes, **held, **line,
+              "fraction_of_bound": b_ms / line["ms"]})
+        if not held["bit_equal"]:
+            raise AssertionError(f"preact ({site}) on request ({request})'s "
+                                 f"parts against the plain version: {held}")
+        lines[site] = line
+    return lines
+
+
+# the fused decode's four pre-activations, one launch each a forward
+PREACTS = {"preact/stinf": 1, "preact/sinf": 1, "preact/payload": 1,
+           "preact/synth": 1}
+
+
 # What request (e) must launch and nothing else of these kernels: 42 DCNs,
-# three SIRENs per decode chunk and one splat per forward.
+# three SIRENs per decode chunk, one splat and the four pre-activations per
+# forward.
 def serving_entries(chunks: int) -> dict:
     return {"dcn_im2col/bfloat16": 42,
             "siren_mlp/bfloat16/skip_first": 3 * chunks,
-            "splat_fused/float16/C=64": 1}
+            "splat_fused/float16/C=64": 1, **PREACTS}
 
 
 def run_slice(dev, args, card):
@@ -1403,6 +1475,8 @@ def run_slice(dev, args, card):
                      for k in entries["e"]},
           "launches": entries["e"],
           "no_float32_entry": not any("float32" in k for k in entries["e"])})
+    # the fused decode's pre-activations on request (e)'s own parts
+    preacts = check_preacts(capture_preacts(ev_s, lq_a, t3), "e")
 
     # ---- the knob paths against request (a)'s float32 frames: fused
     # decode is a reordering (5e-3); the low precisions by the 6e-2 / 35 dB
@@ -1496,7 +1570,7 @@ def run_slice(dev, args, card):
 
     if args.profile:
         sass_counts(kernels, args.profile)
-    return launches, entry_launches, per_request, entries
+    return launches, entry_launches, per_request, entries, preacts
 
 
 # ---------------------------------------------------------------------------
@@ -1794,8 +1868,9 @@ def eval_bench_shape(dev, card, pth, mods):
               "note": f"Evaluator.run, LQ 1x4x{h}x{w} -> GT 1x5x{4 * h}x"
                       f"{4 * w}, 3 times, iters 4; host clock; metrics = from "
                       "infer's return to the next clip (L1, Y-PSNR, 3 SSIMs)"})
+        ran = {k.split("/")[0] for k in EVAL_ENTRIES[config]}
         if s["n_clips"] != 2 or not all(np.isfinite(v) for v in s.values()) \
-                or not all(launches.values()):
+                or not all(launches[k] for k in ran):
             raise AssertionError(f"eval at the bench shape ({config}): {s}, "
                                  f"launches {launches}")
 
@@ -2287,7 +2362,7 @@ def per_forward(dcns: int, config: str) -> dict:
         return {"dcn_im2col/float32": dcns, "siren_mlp/float32/whole": 3,
                 "splat_fused/float32/C=130": 1}
     return {"dcn_im2col/bfloat16": dcns, "siren_mlp/bfloat16/skip_first": 3,
-            "splat_fused/float16/C=64": 1}
+            "splat_fused/float16/C=64": 1, **PREACTS}
 
 
 def per_request(dcns: int, config: str, chunks: int) -> dict:
@@ -2360,6 +2435,7 @@ def run_requests44(dev, card, mods):
                         capture_splat(ev_h, softsplat, lq, t3), "h")
     check_splat_request(softsplat, kernels,
                         capture_splat(ev_i, softsplat, lq, t3), "i")
+    preacts = check_preacts(capture_preacts(ev_i, lq, t3), "i")
 
     replay = {"h": hold_replay(ev_h, lq, t3, "h", 1e-5, 1e-5, card),
               "i": hold_replay(ev_i, lq, t3, "i", 6e-2, 1e-2, card)}
@@ -2378,7 +2454,7 @@ def run_requests44(dev, card, mods):
                       "a forward; captured and eager in turns (`replay`)"})
     del model_h, model_i, ev_h, ev_i
     torch.cuda.empty_cache()
-    return entries, dcns
+    return entries, dcns, preacts
 
 
 def run_eval44(dev, card, mods, dcns):
@@ -2608,7 +2684,7 @@ def run_four_anchor(dev, card, args, mods, Siren):
     launches of each entry on each of its paths and the plain backwards'
     device ms in one Ours_44 step."""
     t0 = time.perf_counter()
-    entries, dcns = run_requests44(dev, card, mods)
+    entries, dcns, preacts = run_requests44(dev, card, mods)
     eval_entries = run_eval44(dev, card, mods, dcns)
     train_per_step, back = run_train44(dev, card, mods, dcns, args.profile)
     check_shapes44(dev, card, mods, Siren)
@@ -2617,7 +2693,8 @@ def run_four_anchor(dev, card, args, mods, Siren):
             "launches_request_i": entries["i"],
             "launches_eval_vimeo44": eval_entries,
             "launches_train_step_ours44": train_per_step,
-            "plain_backward_ms_train_step_ours44": back}
+            "plain_backward_ms_train_step_ours44": back,
+            "preact_request_i": preacts}
 
 
 # ---------------------------------------------------------------------------
@@ -4532,7 +4609,8 @@ def main() -> int:
     check_dcn_v2(dev, dcn)
     if set(results) != set(ENTRIES):
         raise AssertionError("an entry was not held against its plain version")
-    launches, entry_launches, per_request, entries = run_slice(dev, args, card)
+    launches, entry_launches, per_request, entries, preacts = run_slice(
+        dev, args, card)
     eval_entries = run_eval(dev, card, (softsplat, dcn, siren_kernel, kernels))
     train_per_step, train_back = run_train(
         dev, card, args, (softsplat, dcn, siren_kernel, kernels))
@@ -4766,6 +4844,22 @@ def main() -> int:
             "by_launch_ms": [r["ms"] for r in rs],
             "by_launch_library_ms": [r["library_ms"] for r in rs],
             "shape": shape})
+    # the fused decode's pre-activations on request (e)'s parts (their
+    # launches: the main path's), request (i)'s beside them
+    for site, r in preacts.items():
+        entry = f"preact/{site}"
+        rows.append({
+            "name": f"preact[{site}]", "kernel": "preact", "route": "cuda",
+            "source": "motif_tpu_torch/csrc/preact_bf16.cu",
+            "replaces": "motif_tpu/models/motif.py:411 (the fused decode's "
+                        "sums, fused by XLA)",
+            "launches": entry_launches[entry],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "eager_ms")},
+            "shape": "x".join(map(str, r["shape"])),
+            "launches_request_e": entries["e"].get(entry, 0),
+            "launches_request_i": four["launches_request_i"].get(entry, 0),
+            "request_i": four["preact_request_i"][site]})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

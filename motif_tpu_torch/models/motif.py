@@ -39,7 +39,7 @@ from motif_tpu_torch.models.encoder import ZSMEncoder
 from motif_tpu_torch.models.layers import Conv2d, LateralBlock, LReLU
 from motif_tpu_torch.models.raft import RAFT
 from motif_tpu_torch.models.siren import Siren
-from motif_tpu_torch.ops import softsplat
+from motif_tpu_torch.ops import preact, softsplat
 from motif_tpu_torch.ops.resize import interpolate_bilinear
 from motif_tpu_torch.ops.warp import backwarp
 
@@ -620,7 +620,7 @@ class MoTIF(nn.Module):
             iy_t, ix_t, rel = tab["iy"], tab["ix"], tab["rel"]
 
             def up(img, iy_t=iy_t, ix_t=ix_t):
-                return img.index_select(1, iy_t).index_select(2, ix_t)
+                return preact.take(img, iy_t, ix_t)
 
             def rep_n(a):            # (nB, HH, WW, c) -> (nBN, HH, WW, c)
                 return a.repeat_interleave(N, 0)
@@ -631,20 +631,21 @@ class MoTIF(nn.Module):
             if fused:
                 # Each SIREN's first layer folded through the takes: a channel
                 # product commutes with a spatial take, so the feature products
-                # run at LR and sti / si never exist. net.0's rows follow the
-                # original concats [flow_feat | t | rel] and [feat | rel]; the
-                # terms are added in the JAX package's order.
-                wq, bq = self.flow_imnet.first_linear(rel.dtype)
-                wq = wq.t()                                      # (ch + 3, 64)
-                h0 = rep_n(up(torch.matmul(flow_feat, wq[:ch])))
-                h0 = h0 + t_tok * wq[ch] + torch.matmul(rel, wq[ch + 1:]) + bq
+                # run at LR and sti / si never exist. net.0's columns follow
+                # the original concats [flow_feat | t | rel] and [feat | rel];
+                # `preact` adds the terms at HR in the JAX package's order.
+                wq, bq = self.flow_imnet.first_linear(rel.dtype)  # (64, ch+3)
+                h0 = preact.preact(
+                    "stinf", torch.matmul(flow_feat, wq.t()[:ch]), iy_t, ix_t,
+                    wq, bias=bq, rep=N, hr=rel, col_hr=ch + 1, t=t_tok,
+                    col_t=ch)
                 q_flow_o = _chunked_tokens(
                     self.flow_imnet, h0.reshape(n * B * N, HH * WW, -1), chunks
                 ).reshape(n * B * N, HH, WW, 3)
-                wi, bi = self.imnet.first_linear(rel.dtype)
-                wi = wi.t()                                      # (ch + 2, 64)
-                g0 = up(torch.matmul(feat, wi[:ch]))
-                g0 = g0 + torch.matmul(rel, wi[ch:]) + bi
+                wi, bi = self.imnet.first_linear(rel.dtype)       # (64, ch+2)
+                g0 = preact.preact(
+                    "sinf", torch.matmul(feat, wi.t()[:ch]), iy_t, ix_t, wi,
+                    bias=bi, hr=rel, col_hr=ch)
                 q_feat_o = _chunked_tokens(
                     self.imnet, g0.reshape(n * B, HH * WW, -1), chunks
                 ).reshape(n * B, HH, WW, 64)
@@ -720,19 +721,16 @@ class MoTIF(nn.Module):
                 # and the time are added after the merge. The flow's two rows
                 # stay in the input's dtype.
                 ws_raw, _ = self.synth_net.first_linear(x.dtype)
-                ws, bs = self.synth_net.first_linear(rel.dtype)
-                ws_raw, ws = ws_raw.t(), ws.t()                  # (198, 64)
+                ws, bs = self.synth_net.first_linear(rel.dtype)   # (64, 198)
                 k_e = 3 if self.decoder_Z else 2
-                w_a, w_b = ws[:64], ws[66:66 + ch]
-                off = 66 + ch
-                w_e = ws[off:off + k_e]
-                w_r = ws[off + k_e:off + k_e + ch]
-                w_t = ws[off + k_e + ch]
-                pay = rep_n(torch.matmul(q_feat_o, w_a)
-                            + up(torch.matmul(feat, w_b)))
+                off = 66 + ch          # columns of the extras, then residual
+                wst = ws.t()
                 # (nBN, HH, WW, 64)
-                feat_hr = cf(pay) + torch.matmul(flow_raw[..., :2].detach(),
-                                                 ws_raw[64:66])
+                feat_hr = preact.preact(
+                    "payload", torch.matmul(feat, wst[66:66 + ch]), iy_t,
+                    ix_t, ws_raw, rep=N,
+                    dense=torch.matmul(q_feat_o, wst[:64]),
+                    hr=flow_raw[..., :2].detach(), col_hr=64)
             else:
                 feat_hr = torch.cat(
                     [split_groups(rep_n(cf(q_feat_o)), 64 // G),
@@ -752,14 +750,16 @@ class MoTIF(nn.Module):
         with obs.part("synth"):
             if fused:
                 # net.0's pre-activation: the merged splat output (already
-                # through w_a, the flow rows and w_b) + the extras', the
-                # residual's and the time's rows + the bias
-                h = (cd(output).reshape(B * N, HH, WW, 64)
-                     + torch.matmul(cd(extra).reshape(B * N, HH, WW, -1), w_e)
-                     + up(torch.matmul(cd(residual_bn), w_r))
-                     + cd(target_t).reshape(B * N, 1, 1, 1)
-                     * w_t[None, None, None]
-                     + bs)
+                # through the payload's columns) + the extras', the
+                # residual's and the time's columns + the bias
+                w_r = wst[off + k_e:off + k_e + ch]
+                h = preact.preact(
+                    "synth", torch.matmul(cd(residual_bn), w_r), iy_t, ix_t,
+                    ws, bias=bs,
+                    dense=output.reshape(B * N, HH, WW, 64),
+                    hr=extra.reshape(B * N, HH, WW, -1), col_hr=off,
+                    t=cd(target_t).reshape(B * N, 1, 1, 1),
+                    col_t=off + k_e + ch)
                 out = _chunked_tokens(self.synth_net,
                                       h.reshape(B * N, HH * WW, -1), chunks)
             else:

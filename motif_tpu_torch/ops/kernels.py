@@ -2,7 +2,8 @@
 
 Each kernel is one or more CUDA C++ sources under `motif_tpu_torch/csrc/`
 (`SOURCES`; `siren_mlp` has three: the resident float32 kernel, the
-streamed-weight float32 layer and the bfloat16 one) with a plain C
+streamed-weight float32 layer and the bfloat16 one; `preact_bf16` is the
+fused decode's pre-activations, counted as `preact`) with a plain C
 interface. At first use a source is compiled with `nvcc` for `sm_90a`
 into `build/kernels/` at the repository root (listed in `.gitignore`),
 under a name that carries a hash of the source, of every header under
@@ -37,7 +38,7 @@ from motif_tpu_torch import obs
 
 KERNELS = ("splat_fused", "dcn_im2col", "siren_mlp")     # the counters
 SOURCES = ("splat_fused", "dcn_im2col", "siren_mlp", "siren_layer",
-           "siren_mlp_bf16")
+           "siren_mlp_bf16", "preact_bf16")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

@@ -27,10 +27,11 @@ import numpy as np
 import pytest
 import torch
 from _launches import by_entry, by_kernel
+from _preact_inputs import preact_inputs
 
 from motif_tpu_torch import obs
 from motif_tpu_torch.models.siren import hidden_bound
-from motif_tpu_torch.ops import dcn, kernels, siren_kernel, softsplat
+from motif_tpu_torch.ops import dcn, kernels, preact, siren_kernel, softsplat
 
 pytestmark = pytest.mark.cuda
 
@@ -861,6 +862,115 @@ def test_entry_counters_name_the_entry(dev):
                                 "dcn_im2col": 1}
 
 
+# name: (anchors n, times N, LR, HR): the serving bucket's chunks, the
+# four-anchor knobs request's, and an HR size whose token count is no
+# multiple of 8 or 256
+PREACT_SHAPES = {"serve_N2": (2, 2, (64, 112), (256, 448)),
+                 "serve_N3": (2, 3, (64, 112), (256, 448)),
+                 "anchors4_N1": (4, 1, (64, 112), (256, 448)),
+                 "ragged": (2, 3, (61, 107), (243, 427))}
+
+
+def _preact_call(fn, site, x):
+    """fn (`preact.preact` or `preact_plain`) on the parts `x` of `site`."""
+    return fn(site, x["lr"], x["iy"], x["ix"], x["w"],
+              **{k: v for k, v in x.items() if k not in ("lr", "iy", "ix",
+                                                        "w")})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", list(PREACT_SHAPES))
+@pytest.mark.parametrize("site", preact.SITES)
+def test_preact_matches_the_plain_glue(dev, site, shape, dtype):
+    """Each site's kernel entry against `preact_plain` (the PyTorch glue
+    MoTIF.head ran before it) on the card at full width, in bfloat16
+    compute and in float32: one launch, the dtype and values of the plain
+    version bit for bit; replayed from a CUDA graph on new values,
+    bit-equal again."""
+    n, N, lr_hw, hr_hw = PREACT_SHAPES[shape]
+    a = preact_inputs(site, n, N, lr_hw, hr_hw, 64, seed=7, device=dev,
+                      dtype=dtype)
+    b = preact_inputs(site, n, N, lr_hw, hr_hw, 64, seed=8, device=dev,
+                      dtype=dtype)
+    entry = f"preact/{site}"
+
+    def call(fn, x):
+        return _preact_call(fn, site, x)
+    with torch.inference_mode():
+        before = by_entry().get(entry, 0)
+        got = call(preact.preact, a)
+        torch.cuda.synchronize()
+        assert by_entry()[entry] - before == 1
+        want = call(preact.preact_plain, a)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        tensors = [k for k, v in a.items() if torch.is_tensor(v)
+                   and k not in ("iy", "ix")]
+        static = [a[k] for k in tensors]
+        for out in _replayed(lambda: call(preact.preact, a), static,
+                             [[b[k] for k in tensors]]):
+            assert torch.equal(out, call(preact.preact_plain, b))
+
+
+def test_preact_synth_sums_extras_over_many_binades_as_cublas(dev):
+    """The synthesis' K = 3 product (the extras in bfloat16 times three
+    weight rows) where its float32 sum is often inexact: the first extra
+    scaled by u**8 (u uniform), so the products span many binades. The
+    kernel's model of the tensor cores' sum keeps it bit-equal to the
+    plain version's cuBLAS product, where a float32 sum rounded to nearest
+    parts from it in 2e-5 of the elements."""
+    a = preact_inputs("synth", 2, 3, (64, 112), (256, 448), 64, seed=9,
+                      device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    a["hr"][..., 0] *= torch.rand(a["hr"].shape[:3], device=dev,
+                                  generator=g) ** 8
+    with torch.inference_mode():
+        assert torch.equal(_preact_call(preact.preact, "synth", a),
+                           _preact_call(preact.preact_plain, "synth", a))
+
+
+@pytest.mark.parametrize("site", preact.SITES)
+def test_preact_under_grad_takes_the_plain_backward(dev, site):
+    """Under autograd the kernel is the forward (one launch, bit-equal) and
+    `preact_plain` differentiated the backward: every floating part's
+    gradient is the plain version's bit for bit (with deterministic
+    algorithms: the takes' and repeats' backwards sum with atomics in an
+    order that varies from run to run otherwise)."""
+    a = preact_inputs(site, 2, 3, (32, 56), (128, 224), 64, seed=3,
+                      device=dev)
+    floats = [k for k in ("lr", "w", "bias", "dense", "t")
+              if a.get(k) is not None]
+
+    def grads(fn):
+        x = dict(a, **{k: a[k].detach().clone().requires_grad_()
+                       for k in floats})
+        out = _preact_call(fn, site, x)
+        g = torch.Generator(device=dev).manual_seed(4)
+        out.backward(torch.randn(out.shape, device=dev, generator=g
+                                 ).to(out.dtype))
+        return out, [x[k].grad for k in floats]
+    before = by_entry().get(f"preact/{site}", 0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got, got_grads = grads(preact.preact)
+        assert by_entry()[f"preact/{site}"] - before == 1
+        want, want_grads = grads(preact.preact_plain)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(got.detach(), want.detach())
+    for k, g, h in zip(floats, got_grads, want_grads):
+        assert torch.equal(g, h), k
+
+
+def test_preact_raises_for_what_it_does_not_take(dev):
+    a = preact_inputs("stinf", 2, 2, (16, 24), (64, 96), 64, device=dev)
+    with torch.inference_mode():
+        with pytest.raises(TypeError, match="preact"):
+            _preact_call(preact.preact, "stinf", dict(a, lr=a["lr"].half()))
+        with pytest.raises(ValueError, match="one CUDA device"):
+            _preact_call(preact.preact, "stinf", dict(a, bias=a["bias"].cpu()))
+
+
 def test_kernels_build_from_the_sources(dev):
     kernels.build()
     for name in kernels.SOURCES:
@@ -876,7 +986,8 @@ def _plain_versions():
     with mock.patch.object(softsplat, "splat_fused",
                            softsplat.splat_fused_plain), \
             mock.patch.object(dcn, "dcn_im2col", dcn.dcn_im2col_plain), \
-            mock.patch.object(siren_kernel, "siren_mlp", siren_plain):
+            mock.patch.object(siren_kernel, "siren_mlp", siren_plain), \
+            mock.patch.object(preact, "preact", preact.preact_plain):
         yield
 
 
@@ -1144,7 +1255,8 @@ def test_lower_precision_entries_raise_under_grad(dev):
     launched = {k for k, v in by_entry().items()
                 if v != before.get(k, 0)}
     assert launched == {"dcn_im2col/bfloat16", "siren_mlp/bfloat16/skip_first",
-                        "splat_fused/float16/C=64"}
+                        "splat_fused/float16/C=64",
+                        *(f"preact/{site}" for site in preact.SITES)}
     for name, p in m.named_parameters():
         assert p.grad is None or (p.grad.dtype == torch.float32
                                   and torch.isfinite(p.grad).all()), name
@@ -1698,7 +1810,9 @@ def test_a_request_reuses_its_pinned_staging(dev):
 TRUNK_KNOBS = {"float32": {}, "fused_decode": dict(fused_decode=True),
                "raft_resolution": dict(raft_resolution=0.5),
                "decode_chunks": dict(decode_chunks=2),
-               "splat_dtype": dict(splat_dtype="float16")}
+               "splat_dtype": dict(splat_dtype="float16"),
+               "serving": dict(fused_decode=True, compute_dtype="bfloat16",
+                               splat_dtype="float16")}
 
 
 @pytest.mark.parametrize("knob", list(TRUNK_KNOBS))
@@ -1711,14 +1825,17 @@ def test_trunk_and_head_graphs_match_the_eager_forward(dev, family, knob):
     frames: frames within 1e-5 and the flow statistics within 1e-5
     relative in float32 (two eager runs differ by ~4e-8: the float32 splat
     sums in a varying order), and within the run-to-run gate 2e-2
-    (statistics 1e-2) with float16 sums. A replayed request launches the
-    eager path's SIRENs and splats, and its DCNs (the trunk's) once where
-    the eager path launches them once a chunk."""
+    (statistics 1e-2) with float16 sums (alone, and under the serving
+    knobs, whose head launches each fused-decode pre-activation once a
+    replay). A replayed request launches the eager path's SIRENs, splats
+    and pre-activations, and its DCNs (the trunk's) once where the eager
+    path launches them once a chunk."""
     from motif_tpu_torch.eval import Evaluator
 
     ev = Evaluator(_four_anchor_model(dev, 4 if family == "Ours_44" else 2),
                    iters=2, family=family, device=dev, **TRUNK_KNOBS[knob])
-    tol, rtol = (2e-2, 1e-2) if knob == "splat_dtype" else (1e-5, 1e-5)
+    f16 = knob in ("splat_dtype", "serving")
+    tol, rtol = (2e-2, 1e-2) if f16 else (1e-5, 1e-5)
     rng = np.random.default_rng(4)
 
     def counted(fn):
@@ -1746,6 +1863,10 @@ def test_trunk_and_head_graphs_match_the_eager_forward(dev, family, knob):
         assert launched == {k: v // chunks if k.startswith("dcn_im2col")
                             else v for k, v in eager.items()}
         assert any(k.startswith("dcn_im2col") for k in eager)
+        if knob == "serving":      # the four pre-activations a head replay
+            assert {k: v for k, v in launched.items()
+                    if k.startswith("preact")} == {
+                f"preact/{site}": chunks for site in preact.SITES}
 
 
 def test_deterministic_plain_dcn_backward_is_bit_equal(dev):
